@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on an NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,21 +8,38 @@ non-zero:
 
 1. device  — require CUDA; print the card's name and power limit as
              nvidia-smi gives them, on a line of their own
-2. build   — compile the kernels (slam_tpu_torch/csrc) with nvcc, timed
+2. build   — compile the kernels (slam_tpu_torch/csrc, one nvcc per
+             source, in parallel) and link them, timed
 3. K1      — fused ICP kernel vs its plain PyTorch version at the main
              path's shapes (B=1024, S=384, C=512), with degenerate robots
              below the ok gates
 4. K4      — nearest-neighbour kernel vs its plain version
 5. guard   — K1 vs icp_fit (which runs on K4), as bench.py's kernel guard
-6. main    — slam2d.rollout at sim2d_config for a fleet of 1024 robots,
-             40 ticks with the default "fused" matcher (K1), and a fresh
-             fleet for 8 ticks with the "points" matcher (K4), after a
-             warm-up; kernel launch counts, median per-robot ATE,
-             robot-steps/s; then K1 and K4 timed alone against their plain
-             versions at the main path's shapes
+6. K5      — particle-scoring kernel vs its plain version at config 5's
+             shapes (B=1024, N=96, P=128 and P=1, G=192), for one shared
+             table and for per-robot tables, with robots that have no
+             valid point, particles off the grid and points on cell edges:
+             hit counts must be equal
+7. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
+             robots, 40 ticks with the default "fused" matcher (K1), and a
+             fresh fleet for 8 ticks with the "points" matcher (K4), after
+             a warm-up; kernel launch counts, median per-robot ATE,
+             robot-steps/s
+8. K2      — register_scan_to_scan (matcher "fused": K2, the packed adapter
+             onto K1's kernel) on the fleet's last two scenes, vs its plain
+             version
+9. pf      — config 5: parallel.shared_map.fleet_rollout_shared, particle
+             matcher (K5) against one shared map, B=1024, 10 macros of 4
+             ticks after a warm-up macro; ms/tick, robot-steps/s, median
+             per-robot ATE, K5 launches
+10. time   — K1, K2, K4 and K5 timed alone against their plain versions at
+             their main path's shapes, beside the least time the card could
+             take for the same work
 
-The last two lines are the kernels' JSON record and the device JSON.
-Imports torch and the port only: no jax, no slam_tpu package.
+Every kernel launch count is set to 0 just before a main path (7, 8, 9)
+runs and read just after it. The last two lines are the kernels' JSON
+record and the device JSON. Imports torch and the port only: no jax, no
+slam_tpu package.
 """
 
 from __future__ import annotations
@@ -37,12 +54,21 @@ import numpy as np
 import torch
 
 POSE_TOL = 1e-3       # max |pose| error, kernel vs plain and K1 vs icp_fit
-NCORR_TOL = 2         # max |num_corr| difference, K1 vs plain
+NCORR_TOL = 2         # max |num_corr| difference, K1 (and K2) vs plain
 DIST_RTOL = 1e-6      # K4 distance relative error vs plain
-ATE_LIMIT = 0.1       # m, median per-robot ATE over ticks >= 10
+ATE_LIMIT = 0.1       # m, config 1: median per-robot ATE over ticks >= 10
+PF_ATE_LIMIT = 0.5    # m, config 5: median per-robot ATE over ticks >= 8
 FLEET = 1024
 TICKS = 40
 POINTS_TICKS = 8
+PF_MACROS = 10        # config 5: macros of 4 ticks, after a warm-up macro
+PF_SCORED = 96        # config 5: 384 scene points at score_stride 4
+PF_G = 192            # config 5: shared grid cells a side (0.5 m)
+
+# One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
+# outside the tensor cores, for the least time a kernel's work could take.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -193,6 +219,222 @@ def kernel_guard(cfg_mod) -> float:
     return err
 
 
+def bound(moved: float, ops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time for moving `moved` bytes through
+    device memory or doing `ops` f32 operations, whichever is longer."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def same_class_pairs(sc, mc) -> torch.Tensor:
+    """(B,) scene x model point pairs of one class (both valid)."""
+    return ((sc == 0).sum(-1) * (mc == 0).sum(-1) +
+            (sc == 1).sum(-1) * (mc == 1).sum(-1)).double()
+
+
+def icp_ops(planes, init, cfg) -> float:
+    """K1 / K2: at least one squared distance (5 operations) per same-class
+    pair in every fit iteration each robot runs."""
+    from slam_tpu_torch.ops.icp_fused import fit_iterations
+    iters = fit_iterations(*planes, init, cfg).double()
+    return 5.0 * float((iters * same_class_pairs(planes[2], planes[5])).sum())
+
+
+def pf_problem(B=FLEET, N=PF_SCORED, P=128, G=PF_G, seed=5, device="cuda"):
+    """Config 5's scoring problem: each robot's N scan points are world
+    points seen from its true pose; its P particles scatter around that
+    pose. Robots 0-7 have no valid point (the denominator of 1); particle
+    1 of every robot is off the grid; robots 8-15 put particle 2 at the
+    origin and their scan points on cell edges. Returns (shared grid,
+    per-robot grids, scan_xy (B, N, 2), valid (B, N), particles (B, P, 3))."""
+    from slam_tpu_torch.mapping.point_map import (init_point_map,
+                                                  update_point_map_xy)
+    rng = np.random.default_rng(seed)
+    world = rng.uniform(-40, 40, (4000, 2)).astype(np.float32)
+    true = np.stack([rng.uniform(-10, 10, B), rng.uniform(-10, 10, B),
+                     rng.uniform(-np.pi, np.pi, B)], -1).astype(np.float32)
+    pick = world[rng.integers(0, len(world), (B, N))]          # (B, N, 2)
+    c, s = np.cos(true[:, 2:3]), np.sin(true[:, 2:3])
+    d = pick - true[:, None, :2]
+    scan = np.stack([c * d[..., 0] + s * d[..., 1],
+                     -s * d[..., 0] + c * d[..., 1]], -1)
+    scan[8:16] = rng.integers(-60, 60, (8, N, 2)) * 0.5
+    valid = rng.random((B, N)) < 0.9
+    valid[:8] = False
+    parts = true[:, None] + rng.normal(0, 1, (B, P, 3)) * [0.3, 0.3, 0.05]
+    parts[:, 0] = true
+    parts[:, 1, :2] += 60.0
+    parts[8:16, 2] = 0.0
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+    shared = init_point_map(1, G, 0.5, device=device)
+    shared = update_point_map_xy(shared, t(world[None, :, 0]),
+                                 t(world[None, :, 1]), None,
+                                 torch.ones(1, len(world), dtype=torch.bool,
+                                            device=device))
+    keep = t(rng.random((B, G, G)) < 0.7)
+    own = shared.replace(count=shared.count * keep,
+                         sum_x=shared.sum_x.expand(B, -1, -1),
+                         sum_y=shared.sum_y.expand(B, -1, -1),
+                         sum_z=shared.sum_z.expand(B, -1, -1),
+                         center=t(rng.uniform(-1, 1, (B, 2))))
+    return shared, own, t(scan), t(valid, torch.bool), t(parts)
+
+
+def pf_bound(grid, scan_xy, valid, parts):
+    """K5: read the scan, masks, particles and the count grid once, write
+    one hit count per particle; 12 f32 operations per (particle, valid
+    point) pair (rotate and translate: 4 products, 4 sums; centre: 2
+    differences; 2 divisions)."""
+    B, P, _ = parts.shape
+    moved = nbytes(scan_xy, valid, parts, grid.count, grid.center) + B * P * 4
+    return bound(moved, 12.0 * P * float(valid.sum()))
+
+
+def check_k5(shared, own, scan_xy, valid, parts) -> dict:
+    from slam_tpu_torch.config import PfConfig
+    from slam_tpu_torch.ops import particle
+    cfg = PfConfig()
+    out = {}
+    for name, grid in (("shared", shared), ("per-robot", own)):
+        for P in (parts.shape[1], 1):
+            p = parts[:, :P].contiguous()
+            got = particle.score_particles(grid, scan_xy, valid, p, 0.5, cfg)
+            ref = particle.score_particles_reference(grid, scan_xy, valid, p,
+                                                     0.5)
+            torch.cuda.synchronize()
+            mism = int((got != ref).sum())
+            if mism or got.shape != (scan_xy.shape[0], P):
+                raise RuntimeError(f"K5 disagrees with its plain version "
+                                   f"({name} table, P={P}): {mism} "
+                                   f"mismatched hit counts")
+            out[(name, P)] = float((got - ref).abs().max())
+    if not bool((got[:8] == 0).all()):
+        raise RuntimeError("K5 scored robots without valid points")
+    return dict(max_abs_err=max(out.values()), mismatches=0)
+
+
+def reset_counts(*modules) -> None:
+    for m in modules:
+        for attr in ("launches", "packed_launches"):
+            if hasattr(m, attr):
+                setattr(m, attr, 0)
+
+
+def scan_to_scan_phase(state, world, cfg, gen):
+    """[K2]: register_scan_to_scan (matcher "fused") on the fleet's last
+    two scenes, one more tick apart, against its plain version. Returns
+    (result dict with the K2 operands under "args", K2 launches)."""
+    from slam_tpu_torch.geometry import se2_apply_xy
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d
+    prev = state
+    cur = slam2d.slam_step(prev, world, cfg, gen)
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    s2s = slam2d.register_scan_to_scan(cur.prev_scene, prev.prev_scene,
+                                       prev.pose, prev.pose[:, :3], cfg)
+    torch.cuda.synchronize()
+    launches = icp_fused.packed_launches
+    tx, ty = se2_apply_xy(prev.pose[:, :3], prev.prev_scene.xyz[..., 0],
+                          prev.prev_scene.xyz[..., 1])
+    args = (cur.prev_scene.xyz[..., :2], cur.prev_scene.valid,
+            cur.prev_scene.is_ga(), torch.stack([tx, ty], -1),
+            prev.prev_scene.valid, prev.prev_scene.is_ga(),
+            prev.pose[:, :3], cfg.icp)
+    ref = icp_fused.icp_fused_reference(*args)
+    torch.cuda.synchronize()
+    err = float((s2s.pose - ref.pose).abs().max())
+    ok_mism = int((s2s.ok != ref.ok).sum())
+    dcorr = int((s2s.num_corr - ref.num_corr).abs().max())
+    ok_share = float(s2s.ok.float().mean())
+    track = float((s2s.pose[:, :2] - cur.pose[:, :2]).norm(dim=-1).median())
+    if launches < 1:
+        raise RuntimeError("register_scan_to_scan did not launch K2")
+    if err > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
+        raise RuntimeError(f"K2 disagrees with its plain version: pose err "
+                           f"{err}, ok mismatches {ok_mism}, |d num_corr| "
+                           f"{dcorr}")
+    if not ok_share > 0.9 or not track < 0.1:
+        raise RuntimeError(f"scan-to-scan registration fails: ok share "
+                           f"{ok_share}, median distance to the tick's pose "
+                           f"{track} m")
+    B = s2s.pose.shape[0]
+    print(f"[K2] register_scan_to_scan vs plain at B={B} S=C=384: max "
+          f"pose err {err:.3g} (bound {POSE_TOL}), ok mismatches {ok_mism}, "
+          f"max |d num_corr| {dcorr}; ok share {ok_share:.4f}, median "
+          f"distance to the tick's pose {track:.4f} m; K2 launches "
+          f"{launches}", flush=True)
+    return dict(pose_err=err, args=args), launches
+
+
+def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
+                       macros=PF_MACROS):
+    """[pf]: config 5, fleet_rollout_shared with the particle matcher (K5)
+    against one shared map, after a warm-up macro on another fleet.
+    Returns (the config, K5 launches)."""
+    from slam_tpu_torch.mapping.point_map import init_point_map
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.parallel.shared_map import fleet_rollout_shared
+    from slam_tpu_torch.pipeline import slam2d
+    dev = world.centers.device
+    fcfg = dataclasses.replace(
+        cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
+        pf=dataclasses.replace(cfg.pf, score_stride=4))
+    res = fcfg.icp.voxel_leaf_obs[0]
+    warm = slam2d.init_state(fcfg, fleet_size, device=dev,
+                             generator=gen.manual_seed(3))
+    fleet_rollout_shared(warm, init_point_map(1, fcfg.mls.size_x, res,
+                                              device=dev),
+                         world, fcfg, 1, generator=gen)
+    del warm
+    fleet = slam2d.init_state(fcfg, fleet_size, device=dev,
+                              generator=gen.manual_seed(4))
+    shared = init_point_map(1, fcfg.mls.size_x, res, device=dev)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    e0.record()
+    fleet, shared, (est, true) = fleet_rollout_shared(
+        fleet, shared, world, fcfg, macros, generator=gen)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = particle.launches
+    ticks = 4 * macros
+    ms = e0.elapsed_time(e1) / ticks
+    if est.shape != (fleet_size, ticks, 3) or fleet.map_grid is not None:
+        raise RuntimeError(f"config 5 trajectory shape {tuple(est.shape)}")
+    if not bool(torch.isfinite(est).all() &
+                torch.isfinite(shared.count).all()):
+        raise RuntimeError("non-finite values in the config 5 fleet")
+    ate = slam2d.ate(est[:, 8:], true[:, 8:])
+    med = float(ate.median())
+    ok_share = float(fleet.scan_reg_ok.float().mean())
+    if launches < 2 * ticks:
+        raise RuntimeError(f"K5 launched {launches} times in {ticks} ticks "
+                           f"(want 2 a tick)")
+    if not med < PF_ATE_LIMIT:
+        raise RuntimeError(f"config 5 median ATE {med} m not below "
+                           f"{PF_ATE_LIMIT} m")
+    if float(shared.count.sum()) < fleet_size * macros:
+        raise RuntimeError("the shared map did not receive the fleet's scans")
+    print(f"[pf] config 5 B={fleet_size} {macros} macros x 4 ticks: "
+          f"{ms:.3f} ms/tick, {fleet_size * 1000.0 / ms:.1f} robot-steps/s, "
+          f"median ATE {med:.4f} m (ticks>=8, {float(ate.max()):.4f} max), "
+          f"ok share {ok_share:.4f}, shared cells "
+          f"{int((shared.count > 0).sum())}; K5 launches {launches} "
+          f"| {card}", flush=True)
+    return fcfg, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
@@ -204,9 +446,10 @@ def main() -> int:
 
     from slam_tpu_torch import config as cfg_mod
     from slam_tpu_torch import cuda_build
-    from slam_tpu_torch.ops import icp_fused, nn
+    from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.sim import world2d
+    kernel_modules = (icp_fused, nn, particle)
 
     t0 = time.perf_counter()
     lib = cuda_build.build()
@@ -215,7 +458,7 @@ def main() -> int:
     ptxas = [ln.split(":", 1)[-1].strip() for ln in
              open(f"{lib}.ptxas.txt").read().splitlines()
              if "Used" in ln or "spill" in ln]
-    print(f"[build] {lib.name} in {secs:.2f} s; ptxas (K1, K4): "
+    print(f"[build] {lib.name} in {secs:.2f} s; ptxas (K1, K4, K5): "
           f"{' | '.join(ptxas)}", flush=True)
 
     cfg = cfg_mod.sim2d_config()
@@ -231,6 +474,12 @@ def main() -> int:
     guard = kernel_guard(cfg_mod)
     print(f"[guard] K1 vs icp_fit (K4): max pose err {guard:.3g} "
           f"(bound {POSE_TOL})", flush=True)
+    pf_ops = pf_problem()
+    k5 = check_k5(*pf_ops)
+    print(f"[K5] vs plain at B={FLEET} N={PF_SCORED} P=128 and P=1 "
+          f"G={PF_G}, shared and per-robot tables: hit mismatches "
+          f"{k5['mismatches']}, max |d score| {k5['max_abs_err']}",
+          flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -244,8 +493,7 @@ def main() -> int:
                               generator=gen.manual_seed(0))
     torch.cuda.synchronize()
 
-    icp_fused.launches = 0
-    nn.launches = 0
+    reset_counts(*kernel_modules)
     est, true = [], []
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -294,15 +542,47 @@ def main() -> int:
           f"{POINTS_TICKS} ticks: median ATE {p_ate:.4f} m; launches "
           f"{launches} | {card}", flush=True)
 
+    k2, launches["K2"] = scan_to_scan_phase(state, world, cfg, gen)
+    k2_args = k2["args"]
+    del state, pstate
+    fcfg, launches["K5"] = shared_fleet_phase(world, cfg, gen, card)
+
+    # kernels alone, at their main path's shapes
     ops = fused_operands(registration_problem(FLEET, seed=3))
     k1_ms = cuda_ms(lambda: icp_fused.icp_fused_planes(*ops, cfg.icp))
     k1_plain_ms = cuda_ms(
         lambda: icp_fused.icp_fused_planes_reference(*ops, cfg.icp), reps=3)
+    # K1 reads the planes and init once and writes one (B, 8) slab
+    k1_bound = bound(nbytes(*ops) + FLEET * 8 * 4, icp_ops(ops[:6], ops[6],
+                                                           cfg.icp))
     k4_ms = cuda_ms(lambda: nn.nearest_neighbor_planes(*ops[:6]))
     k4_plain_ms = cuda_ms(lambda: nn.nearest_neighbor_reference(*ops[:6]))
+    k4_bound = bound(nbytes(*ops[:6]) + FLEET * 384 * 8,
+                     5.0 * float(same_class_pairs(ops[2], ops[5]).sum()))
+    k2_ms = cuda_ms(lambda: icp_fused.icp_fused(*k2_args))
+    k2_err = k2["pose_err"]
+    k2_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*k2_args),
+                          reps=3)
+    # K2 reads packed points, masks and init once and writes pose, ok,
+    # num_corr, delta and mean residual
+    k2_bound = bound(nbytes(*k2_args[:7]) + FLEET * (3 * 4 + 1 + 3 * 4),
+                     icp_ops(icp_fused.packed_planes(*k2_args[:6]),
+                             k2_args[6], cfg.icp))
+    shared5, _, scan5, valid5, parts5 = pf_ops
+    pcfg5 = fcfg.pf
+    k5_ms = cuda_ms(lambda: particle.score_particles(
+        shared5, scan5, valid5, parts5, 0.5, pcfg5))
+    k5_plain_ms = cuda_ms(lambda: particle.score_particles_reference(
+        shared5, scan5, valid5, parts5, 0.5))
+    k5_bound = pf_bound(shared5, scan5, valid5, parts5)
     print(f"[time] B={FLEET} S=384 C=512: K1 {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms; K4 {k4_ms:.4f} ms, plain "
-          f"{k4_plain_ms:.4f} ms | {card}", flush=True)
+          f"{k1_plain_ms:.4f} ms, bound {k1_bound[0]:.6f} ms "
+          f"({k1_bound[1]}); K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
+          f"bound {k4_bound[0]:.6f} ms ({k4_bound[1]}); S=C=384: K2 "
+          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); N={PF_SCORED} P=128 "
+          f"G={PF_G} shared: K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, "
+          f"bound {k5_bound[0]:.6f} ms ({k5_bound[1]}) | {card}", flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"
@@ -310,17 +590,26 @@ def main() -> int:
     if leaked:
         raise RuntimeError(f"imported modules of jax / slam_tpu: {leaked}")
 
+    def record(label, source, replaces, key, err, ms, plain_ms, bnd):
+        return {"name": label, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "icp_fused_planes (K1)", "route": "cuda",
-         "source": "slam_tpu_torch/csrc/icp_fused.cu",
-         "replaces": "slam_tpu/ops/icp_pallas.py:59",
-         "launches": launches["K1"], "max_abs_err": k1["pose_err"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "nearest_neighbor_planes (K4)", "route": "cuda",
-         "source": "slam_tpu_torch/csrc/nn.cu",
-         "replaces": "slam_tpu/ops/nn_pallas.py:38",
-         "launches": launches["K4"], "max_abs_err": k4["max_abs_err"],
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        record("icp_fused_planes (K1)", "slam_tpu_torch/csrc/icp_fused.cu",
+               "slam_tpu/ops/icp_pallas.py:59", "K1", k1["pose_err"], k1_ms,
+               k1_plain_ms, k1_bound),
+        record("icp_fused (K2, packed adapter onto K1's kernel)",
+               "slam_tpu_torch/csrc/icp_fused.cu",
+               "slam_tpu/ops/icp_pallas.py:39", "K2", k2_err, k2_ms,
+               k2_plain_ms, k2_bound),
+        record("nearest_neighbor_planes (K4)", "slam_tpu_torch/csrc/nn.cu",
+               "slam_tpu/ops/nn_pallas.py:38", "K4", k4["max_abs_err"],
+               k4_ms, k4_plain_ms, k4_bound),
+        record("score_particles (K5)", "slam_tpu_torch/csrc/particle.cu",
+               "slam_tpu/ops/particle.py:160", "K5", k5["max_abs_err"],
+               k5_ms, k5_plain_ms, k5_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -2,9 +2,11 @@
 
 The kernels have a plain C interface and are compiled by `nvcc` into one
 shared library, loaded with ctypes: no PyTorch headers, so a build takes
-seconds. The build happens at first use, into `build/slam_tpu_torch/` beside
-the package, from the sources in the checkout alone. The library's file name
-carries a hash of the sources and flags, so an edited kernel is rebuilt.
+seconds. Each source compiles in its own `nvcc` process, all started
+together, and one more links them. The build happens at first use, into
+`build/slam_tpu_torch/` beside the package, from the sources in the
+checkout alone. The library's file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt.
 
 Nothing here runs at import time: CPU-only machines import the package but
 never build.
@@ -29,7 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "slam_tpu_torch"
 # elementwise ops round them, so kernels and their plain versions agree on
 # the distances whose ties and minima they compare.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +39,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "slam_icp_fused_planes": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
     "slam_nn": [_P] * 8 + [_I] * 3 + [_P],
+    "slam_pf_hits": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
 }
+
+# dynamic shared memory one block may use on sm_90
+MAX_SMEM = 232448
 
 _lib = None
 
@@ -71,13 +77,29 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"tmp{os.getpid()}"
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs = [p.communicate()[0] for p in procs]
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{log}")
+    tmp = out.with_suffix(f".{tag}.so")
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    Path(f"{out}.ptxas.txt").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    Path(f"{out}.ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -95,17 +117,18 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check_operands(name: str, tensors, shapes) -> None:
-    """Raise unless every tensor is a contiguous f32 tensor of its shape,
-    all on the first tensor's device: what a kernel reads through a raw
-    pointer."""
+def check_operands(name: str, tensors, shapes, dtypes=None) -> None:
+    """Raise unless every tensor is a contiguous tensor of its shape and
+    type (f32 unless `dtypes` says otherwise), all on the first tensor's
+    device: what a kernel reads through a raw pointer."""
     dev = tensors[0].device
-    for t, shape in zip(tensors, shapes):
-        if (t.device != dev or t.dtype != torch.float32
+    dtypes = dtypes or [torch.float32] * len(tensors)
+    for t, shape, dtype in zip(tensors, shapes, dtypes):
+        if (t.device != dev or t.dtype != dtype
                 or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-            raise ValueError(f"{name} takes contiguous f32 tensors on one "
+            raise ValueError(f"{name} takes contiguous tensors on one "
                              f"device: got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, want {tuple(shape)}")
+                             f"{t.device}, want {dtype} {tuple(shape)}")
 
 
 def check(err: int, name: str) -> None:

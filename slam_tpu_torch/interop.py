@@ -4,10 +4,12 @@ slam_tpu's SlamState and World2D are pytrees; after
 `jax.tree.map(np.asarray, ...)` their leaves are numpy arrays, stacked over
 robots (leading dim B) for a fleet. `state_from_numpy` and
 `world_from_numpy` read such objects by attribute (no jax import), so both
-packages can start from the identical state; `state_to_numpy` turns a port
-state back into a nested dict of numpy arrays with the same field names.
-The JAX state's random key is dropped: the port draws from an explicit
-torch.Generator.
+packages can start from the identical state; `point_map_from_numpy` reads
+one unbatched grid (config 5's shared map) as a batch-1 PointMapGrid;
+`state_to_numpy` turns a port state back into a nested dict of numpy arrays
+with the same field names. The JAX state's random key is dropped: the port
+draws from an explicit torch.Generator. Tensors land on the card unless
+`device` says otherwise.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_tpu_torch import default_device
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
 from slam_tpu_torch.types import (EkfState, OccupancyGrid, PointCloud,
@@ -31,14 +34,25 @@ def _cloud(c, device) -> PointCloud:
                       flags=_t(c.flags, device, torch.int32))
 
 
+def _grid(mg, device) -> PointMapGrid:
+    return PointMapGrid(
+        count=_t(mg.count, device, torch.float32),
+        sum_x=_t(mg.sum_x, device, torch.float32),
+        sum_y=_t(mg.sum_y, device, torch.float32),
+        sum_z=_t(mg.sum_z, device, torch.float32),
+        center=_t(mg.center, device, torch.float32),
+        resolution=float(mg.resolution))
+
+
 def state_from_numpy(st, device=None) -> SlamState:
     """Port state from a slam_tpu SlamState with numpy leaves stacked over
     robots. Only the scan-to-map fields exist in the port so far: a state
-    that carries a pose graph or a metrics ring is refused."""
+    that carries a pose graph or a metrics ring is refused. A state without
+    a map grid (config 5's fleet) keeps map_grid None."""
     if st.graph is not None or st.metrics_ring is not None:
         raise ValueError("the port's SlamState has no pose graph or metrics "
                          "ring yet")
-    mg = st.map_grid
+    device = default_device(device)
     occ = st.local_map
     return SlamState(
         ekf=EkfState(mu=_t(st.ekf.mu, device, torch.float32),
@@ -54,13 +68,7 @@ def state_from_numpy(st, device=None) -> SlamState:
             center=_t(occ.center, device, torch.float32)),
         prev_scene=_cloud(st.prev_scene, device),
         map_cloud=_cloud(st.map_cloud, device),
-        map_grid=PointMapGrid(
-            count=_t(mg.count, device, torch.float32),
-            sum_x=_t(mg.sum_x, device, torch.float32),
-            sum_y=_t(mg.sum_y, device, torch.float32),
-            sum_z=_t(mg.sum_z, device, torch.float32),
-            center=_t(mg.center, device, torch.float32),
-            resolution=float(mg.resolution)),
+        map_grid=None if st.map_grid is None else _grid(st.map_grid, device),
         step=_t(st.step, device, torch.int32),
         true_pose=_t(st.true_pose, device, torch.float32),
     )
@@ -68,9 +76,20 @@ def state_from_numpy(st, device=None) -> SlamState:
 
 def world_from_numpy(world, device=None) -> World2D:
     """Port world from a slam_tpu World2D with numpy leaves."""
+    device = default_device(device)
     return World2D(centers=_t(world.centers, device, torch.float32),
                    radii=_t(world.radii, device, torch.float32),
                    extent=_t(world.extent, device, torch.float32))
+
+
+def point_map_from_numpy(grid, device=None) -> PointMapGrid:
+    """A batch-1 port PointMapGrid from one unbatched slam_tpu PointMapGrid
+    with numpy leaves ((G, G) channels, (2,) centre)."""
+    device = default_device(device)
+    g = _grid(grid, device)
+    return g.replace(count=g.count[None], sum_x=g.sum_x[None],
+                     sum_y=g.sum_y[None], sum_z=g.sum_z[None],
+                     center=g.center[None])
 
 
 def _np(x):

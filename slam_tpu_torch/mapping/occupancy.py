@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import default_device
 from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
 from slam_tpu_torch.ops.scatter2d import scatter_add_2d_multi
 from slam_tpu_torch.types import OccupancyGrid
@@ -13,6 +14,8 @@ from slam_tpu_torch.types import OccupancyGrid
 
 def init_occupancy(cfg, batch: int, device=None,
                    dtype=torch.float32) -> OccupancyGrid:
+    """Empty grids, on the card unless `device` says otherwise."""
+    device = default_device(device)
     shape = (batch, cfg.size_x, cfg.size_y)
     return OccupancyGrid(
         counts=torch.zeros(shape, dtype=dtype, device=device),

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from slam_tpu_torch import default_device
 from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
@@ -33,6 +34,10 @@ class PointMapGrid(Replaceable):
 
 def init_point_map(batch: int, grid_size: int, resolution: float = 0.5,
                    device=None, dtype=torch.float32) -> PointMapGrid:
+    """Empty grids; on the card unless `device` says otherwise. Batch 1 is
+    config 5's one map shared by the fleet."""
+    device = default_device(device)
+
     def z():
         return torch.zeros(batch, grid_size, grid_size, dtype=dtype,
                            device=device)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import default_device
 from slam_tpu_torch.geometry import angle_wrap, subtract_yaw
 from slam_tpu_torch.ops.linalg import inv3
 from slam_tpu_torch.types import EkfState
@@ -16,7 +17,9 @@ from slam_tpu_torch.types import EkfState
 
 def init_ekf(cfg, batch: int, gyro_bias=0.0, device=None,
              dtype=torch.float32) -> EkfState:
-    """mu = 0, sigma = init_sigma * I; gyro_bias a float or a (B,) tensor."""
+    """mu = 0, sigma = init_sigma * I; gyro_bias a float or a (B,) tensor.
+    On the card unless `device` says otherwise."""
+    device = default_device(device)
     bias = torch.as_tensor(gyro_bias, dtype=dtype, device=device)
     return EkfState(
         mu=torch.zeros(batch, 8, dtype=dtype, device=device),

@@ -1,11 +1,18 @@
 """Fused class-constrained ICP — counterpart of slam_tpu/ops/icp_pallas.py's
-plane-operand path, with kernel K1 (`csrc/icp_fused.cu`, replacing
+resident kernels, with kernel K1 (`csrc/icp_fused.cu`, replacing
 `_icp_kernel_planes` -> `_icp_core`).
 
 One call runs the whole fit loop for every robot. Nearest points are
 averaged over ties (`d2 <= rowmin`), unlike icp_fit's first hit; both keep
 their own rule. `icp_fused_planes` launches K1 for CUDA tensors and runs
 `icp_fused_planes_reference`, the plain PyTorch version, for CPU tensors.
+
+`icp_fused` is K2's counterpart (`_icp_kernel`, behind `make_icp_fused` and
+`_icp_batched`): the same `_icp_core` on packed (N, 2) points with valid
+and GA masks, which the TPU packed only to save a relayout. Here it splits
+the columns, encodes the classes as `_pack3` does and launches K1's kernel
+on the planes; `icp_fused_reference` is the same adapter on K1's plain
+version.
 """
 
 from __future__ import annotations
@@ -21,11 +28,13 @@ BIG = 1e30
 # (K3); the resident kernel here takes problems up to the same size.
 RESIDENT_TILE_LIMIT = 2 << 20
 
-# kernel launches made by icp_fused_planes (the card path only)
+# kernel launches made by icp_fused_planes (K1) and icp_fused (K2), the
+# card path only
 launches = 0
+packed_launches = 0
 
 # K1 stages 3 (S + C) floats in shared memory; 1 KB stays for its static part
-_MAX_SMEM = 232448 - 1024
+_MAX_SMEM = cuda_build.MAX_SMEM - 1024
 
 
 def encode_scene_class(valid, ga):
@@ -54,7 +63,8 @@ def _decode(out) -> IcpResult:
 
 
 def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
-    """_icp_core in plain PyTorch over an explicit (B, S, C) tile."""
+    """_icp_core in plain PyTorch over an explicit (B, S, C) tile. Returns
+    the (B, 8) slab and the number of fit iterations each robot ran."""
     sx, sy, sc = sx[:, :, None], sy[:, :, None], sc[:, :, None]
     mx, my, mc = mx[:, None, :], my[:, None, :], mc[:, None, :]
     m_ga = (mc == 1.0).to(torch.float32).sum((1, 2))
@@ -73,6 +83,7 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
     ncorr = torch.zeros_like(tx)
     mres = torch.zeros_like(tx)
     delta = torch.full_like(tx, float("inf"))
+    iters = torch.zeros_like(tx)
 
     def col(v):
         return v[:, None, None]
@@ -127,6 +138,7 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
         new_mres = tot(w * rowmin) / Ws
 
         upd = ~converged
+        iters = iters + upd.to(torch.float32)
         go = upd & has_corr
         tx = torch.where(go, ntx, tx)
         ty = torch.where(go, nty, ty)
@@ -139,11 +151,13 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
 
     pose = [torch.where(ok, v, init4[:, k])
             for k, v in enumerate((tx, ty, cth, sth))]
-    return torch.stack(pose + [ok.to(torch.float32), ncorr, mres, delta], -1)
+    return torch.stack(pose + [ok.to(torch.float32), ncorr, mres, delta],
+                       -1), iters
 
 
-def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
-    global launches
+def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
+    """Launch K1; `packed` counts the launch as K2's (icp_fused)."""
+    global launches, packed_launches
     dev = sx.device
     B, S = sx.shape
     C = mx.shape[1]
@@ -160,7 +174,10 @@ def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
         B, S, C, cfg.max_iterations, cfg.inlier_dist, cfg.min_delta,
         cfg.min_scene_points, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "slam_icp_fused_planes")
-    launches += 1
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -178,22 +195,62 @@ def icp_fused_planes_reference(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
     f32 with classes from encode_{scene,model}_class; init (B, 3)."""
     _check_resident(sx.shape[-1], mx.shape[-1])
     return _decode(_reference_slab(sx, sy, sc, mx, my, mc, _pack_init4(init),
-                                   cfg))
+                                   cfg)[0])
+
+
+def fit_iterations(sx, sy, sc, mx, my, mc, init, cfg) -> torch.Tensor:
+    """(B,) fit iterations each robot runs (the plain version's count; K1
+    converges on the same ones): what the kernel's work depends on."""
+    return _reference_slab(sx, sy, sc, mx, my, mc, _pack_init4(init),
+                           cfg)[1]
+
+
+def _slab(sx, sy, sc, mx, my, mc, init, cfg, packed=False):
+    """The (B, 8) slab: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_resident(sx.shape[-1], mx.shape[-1])
+    init4 = _pack_init4(init)
+    dev = sx.device
+    if dev.type == "cpu":
+        return _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg)[0]
+    if dev.type == "cuda":
+        return _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed)
+    raise ValueError(f"fused ICP: unsupported device {dev}")
 
 
 def icp_fused_planes(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
     """Fused ICP over a robot batch: K1 for CUDA tensors, its plain version
     for CPU tensors. Same contract as icp_fused_planes_reference."""
-    _check_resident(sx.shape[-1], mx.shape[-1])
-    init4 = _pack_init4(init)
-    dev = sx.device
-    if dev.type == "cpu":
-        out = _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg)
-    elif dev.type == "cuda":
-        out = _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg)
-    else:
-        raise ValueError(f"icp_fused_planes: unsupported device {dev}")
-    return _decode(out)
+    return _decode(_slab(sx, sy, sc, mx, my, mc, init, cfg))
+
+
+def packed_planes(scene_xy, scene_valid, scene_ga, model_xy, model_valid,
+                  model_ga):
+    """Packed points and masks -> the six K1 planes, classes encoded as
+    `_pack3` encodes them (scene -1 pad; model 2 invalid)."""
+    return (scene_xy[..., 0].contiguous(), scene_xy[..., 1].contiguous(),
+            encode_scene_class(scene_valid, scene_ga).contiguous(),
+            model_xy[..., 0].contiguous(), model_xy[..., 1].contiguous(),
+            encode_model_class(model_valid, model_ga).contiguous())
+
+
+def icp_fused_reference(scene_xy, scene_valid, scene_ga, model_xy,
+                        model_valid, model_ga, init, cfg) -> IcpResult:
+    """Plain PyTorch version of K2, on any device: K1's plain version
+    behind the packed adapter."""
+    return icp_fused_planes_reference(
+        *packed_planes(scene_xy, scene_valid, scene_ga, model_xy,
+                       model_valid, model_ga), init, cfg)
+
+
+def icp_fused(scene_xy, scene_valid, scene_ga, model_xy, model_valid,
+              model_ga, init, cfg) -> IcpResult:
+    """K2: fused ICP on packed points. scene_xy (B, S, 2), model_xy
+    (B, C, 2), masks (B, S) / (B, C) bool, init (B, 3). Launches K1's kernel
+    for CUDA tensors, its plain version for CPU tensors."""
+    return _decode(_slab(*packed_planes(scene_xy, scene_valid, scene_ga,
+                                        model_xy, model_valid, model_ga),
+                         init, cfg, packed=True))
 
 
 def fused_register(sx, sy, s_valid, s_ga, target_planes, map_cloud, pred,

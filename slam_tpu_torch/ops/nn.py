@@ -24,7 +24,7 @@ BIG = 1e30
 # kernel launches made by nearest_neighbor_planes (the card path only)
 launches = 0
 
-_MAX_SMEM = 232448
+_MAX_SMEM = cuda_build.MAX_SMEM
 
 
 def nearest_neighbor_reference(qx, qy, qc, mx, my, mc):

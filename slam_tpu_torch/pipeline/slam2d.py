@@ -1,20 +1,23 @@
-"""2D fleet SLAM, BASELINE config 1 — counterpart of
+"""2D fleet SLAM, BASELINE configs 1 and 5 — counterpart of
 slam_tpu/pipeline/slam2d.py for the scan-to-map path.
 
 One tick (slam_step) runs: raycast -> EKF predict + gyro update -> scene
 build -> registration (kernel K1 for matcher "fused", icp_fit on kernel K4
-for "points") -> EKF SLAM update -> point-map update -> occupancy update.
-Every function takes and returns the whole robot batch.
+for "points", the particle filter on kernel K5 for "particle") -> EKF SLAM
+update -> point-map update -> occupancy update. Every function takes and
+returns the whole robot batch. `register_scan_to_scan` registers against
+the previous scene (kernel K2 for "fused").
 
-On a CPU tensor "fused" runs K1's plain PyTorch version; it is never
-swapped for "points". The graph, grid and particle matchers, graph mode and
-the metrics ring belong to later slices and raise here.
+On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
+swapped for "points". The grid matcher, the pose graph and the metrics ring
+belong to later slices and raise or are absent here.
 """
 
 from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import default_device
 from slam_tpu_torch.geometry import se2_apply_xy
 from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy,
                                               init_occupancy, shift_origin)
@@ -23,22 +26,27 @@ from slam_tpu_torch.mapping.point_map import (export_point_planes,
                                               shift_point_map,
                                               update_point_map_xy)
 from slam_tpu_torch.models import ekf as ekf_mod
-from slam_tpu_torch.ops.icp import icp_fit
-from slam_tpu_torch.ops.icp_fused import fused_register
+from slam_tpu_torch.ops.classify import (classify_ga_planes,
+                                         classify_ground_adjacent)
+from slam_tpu_torch.ops.icp import IcpResult, icp_fit
+from slam_tpu_torch.ops.icp_fused import fused_register, icp_fused
+from slam_tpu_torch.ops.particle import pf_match
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.ops.voxel import crop_box
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import PointCloud, SlamState, make_cloud
 
-MATCHERS = ("fused", "points")
+MATCHERS = ("fused", "points", "particle")
 
 
 def init_state(cfg, batch: int, device=None,
                generator: torch.Generator | None = None) -> SlamState:
     """Fresh fleet state. Each robot's gyro bias is estimated from
     cfg.ekf.num_init_imu_samples stationary samples, drawn from `generator`
-    (the robot must not move while they are taken)."""
+    (the robot must not move while they are taken). On the card unless
+    `device` says otherwise."""
+    device = default_device(device)
     noise = torch.randn(batch, cfg.ekf.num_init_imu_samples,
                         generator=generator, device=device)
     bias = ekf_mod.estimate_gyro_bias(cfg.sim.gyro_bias +
@@ -131,31 +139,78 @@ def planes_to_cloud(sx, sy, ga, keep, sz=None) -> PointCloud:
 
 
 def register_scan(scene: PointCloud, map_cloud: PointCloud,
-                  init_pose_xyyaw: torch.Tensor, cfg):
+                  init_pose_xyyaw: torch.Tensor, cfg, reclassify: bool = False):
     """Scan-to-map registration with the "points" matcher: crop the map
     around the prediction and run class-constrained icp_fit. The target
-    carries the GA flags computed at map export."""
+    carries the GA flags computed at map export; reclassify recomputes them
+    around the prediction (a target the point map did not export)."""
     target = crop_box(map_cloud, init_pose_xyyaw[:, :2], cfg.icp.crop_dist)
+    if reclassify:
+        target = classify_ground_adjacent(
+            target, init_pose_xyyaw[:, :2], cfg.icp.ga_num_bins,
+            cfg.icp.ga_resolution, cfg.icp.ga_threshold)
     return icp_fit(scene.xyz[..., :2], scene.valid, scene.is_ga(),
                    target.xyz[..., :2], target.valid, target.is_ga(),
                    init_pose_xyyaw, cfg.icp)
 
 
+def register_scan_to_scan(scene: PointCloud, prev_scene: PointCloud,
+                          prev_pose: torch.Tensor, init_pose: torch.Tensor,
+                          cfg) -> IcpResult:
+    """Scan-to-scan registration: the previous scene, placed at its pose
+    prev_pose (B, >=3), is the model. Returns the scene's absolute pose.
+    Matcher "fused" runs K2 (its plain version on CPU tensors); every other
+    matcher runs icp_fit."""
+    tx, ty = se2_apply_xy(prev_pose[:, :3], prev_scene.xyz[..., 0],
+                          prev_scene.xyz[..., 1])
+    target_xy = torch.stack([tx, ty], -1)
+    args = (scene.xyz[..., :2], scene.valid, scene.is_ga(), target_xy,
+            prev_scene.valid, prev_scene.is_ga(), init_pose, cfg.icp)
+    return icp_fused(*args) if cfg.icp.matcher == "fused" else icp_fit(*args)
+
+
+def _pf_register(state, scene, skeep, pred, cfg, pf_target,
+                 generator) -> IcpResult:
+    """The particle matcher against pf_target (or the robots' own grids),
+    as an IcpResult: num_corr = round(score * scene points), delta 0,
+    mean_residual 1 - score."""
+    r = pf_match(state.map_grid if pf_target is None else pf_target, scene,
+                 pred, cfg.icp.voxel_leaf_obs[0], cfg.pf, generator=generator)
+    n_valid = skeep.sum(-1)
+    return IcpResult(pose=r.pose, ok=r.ok,
+                     num_corr=torch.round(r.score * n_valid).to(torch.int32),
+                     delta=torch.zeros_like(r.score),
+                     mean_residual=1.0 - r.score)
+
+
 def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
-                         cfg, refresh_map: bool = True,
+                         cfg, incremental_map: bool = True,
+                         refresh_map: bool = True,
                          shift_maps: bool = True,
-                         target_planes=None) -> SlamState:
+                         target_planes=None, pf_target=None,
+                         generator: torch.Generator | None = None
+                         ) -> SlamState:
     """Sensor frame -> updated state. scan_x / scan_y / hit: (B, N) in the
     robot frame; gyro: (B,) raw yaw rate; cmd: (B, 3) body velocity command.
 
+    incremental_map: fold the registered scene into state.map_grid (False:
+    the robots keep no map of their own, as in config 5's fleet or graph
+    mode; then the "points" and "fused" targets are re-classified around
+    the prediction, and a particle matcher without pf_target registers
+    with "points" against state.map_cloud, as slam_tpu does).
     target_planes: optional (mx, my, mga, mvalid) registration target that
     the rollout refreshes once per macro; None registers against
-    state.map_cloud. refresh_map re-exports map_cloud after the update;
-    shift_maps re-centres both rolling grids on the fused pose."""
+    state.map_cloud. pf_target: a PointMapGrid (batch 1 when the fleet
+    shares it) that the particle matcher scores instead of state.map_grid;
+    `generator` gives its random draws. refresh_map re-exports map_cloud
+    after the update; shift_maps re-centres both rolling grids on the
+    fused pose."""
     matcher = cfg.icp.matcher
     if matcher not in MATCHERS:
         raise NotImplementedError(
             f"icp.matcher {matcher!r} is not ported yet (have {MATCHERS})")
+    if not incremental_map and matcher == "particle" and pf_target is None:
+        matcher = "points"
     dt = cfg.sim.dt
 
     # non-finite points are misses, and their coordinates are zeroed
@@ -171,24 +226,39 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
 
     sx, sy, sga, skeep = build_scene_planes(scan_x, scan_y, hit, cfg)
     scene = planes_to_cloud(sx, sy, sga, skeep)
-    if matcher == "fused":
-        icp = fused_register(sx, sy, skeep, sga, target_planes,
-                             state.map_cloud, pred, cfg.icp)
+    if matcher == "particle":
+        icp = _pf_register(state, scene, skeep, pred, cfg, pf_target,
+                           generator)
+    elif matcher == "fused":
+        tp = target_planes
+        if not incremental_map:
+            mc = state.map_cloud
+            mpx, mpy = mc.xyz[..., 0], mc.xyz[..., 1]
+            mga = classify_ga_planes(mpx, mpy, mc.valid, pred[:, :2],
+                                     cfg.icp.ga_num_bins,
+                                     cfg.icp.ga_resolution,
+                                     cfg.icp.ga_threshold)
+            tp = (mpx, mpy, mga, mc.valid)
+        icp = fused_register(sx, sy, skeep, sga, tp, state.map_cloud, pred,
+                             cfg.icp)
     else:
-        icp = register_scan(scene, state.map_cloud, pred, cfg)
+        icp = register_scan(scene, state.map_cloud, pred, cfg,
+                            reclassify=not incremental_map)
 
     ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
     fused = ekf.mu[:, [0, 1, 6]]
 
-    res = cfg.icp.voxel_leaf_obs[0]
-    map_pose = torch.where(icp.ok[:, None], icp.pose, pred)
-    qx, qy = se2_apply_xy(map_pose, sx, sy)
-    mg = shift_point_map(state.map_grid, fused[:, :2], res) \
-        if shift_maps else state.map_grid
-    mg = update_point_map_xy(mg, qx, qy, None, skeep, res)
-    map_cloud = export_points(mg, state.map_cloud.capacity,
-                              ga_threshold=cfg.icp.ga_threshold) \
-        if refresh_map else state.map_cloud
+    mg, map_cloud = state.map_grid, state.map_cloud
+    if incremental_map:
+        res = cfg.icp.voxel_leaf_obs[0]
+        map_pose = torch.where(icp.ok[:, None], icp.pose, pred)
+        qx, qy = se2_apply_xy(map_pose, sx, sy)
+        if shift_maps:
+            mg = shift_point_map(mg, fused[:, :2], res)
+        mg = update_point_map_xy(mg, qx, qy, None, skeep, res)
+        if refresh_map:
+            map_cloud = export_points(mg, map_cloud.capacity,
+                                      ga_threshold=cfg.icp.ga_threshold)
 
     grid = shift_origin(state.local_map, fused[:, :2], cfg.mls) \
         if shift_maps else state.local_map
@@ -211,11 +281,12 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
     )
 
 
-def process_frame(state: SlamState, scan_xyz, hit, gyro, cmd,
-                  cfg) -> SlamState:
+def process_frame(state: SlamState, scan_xyz, hit, gyro, cmd, cfg,
+                  incremental_map: bool = True) -> SlamState:
     """process_frame_planes on (B, N, 3) robot-frame scan points."""
     return process_frame_planes(state, scan_xyz[..., 0], scan_xyz[..., 1],
-                                hit, gyro, cmd, cfg)
+                                hit, gyro, cmd, cfg,
+                                incremental_map=incremental_map)
 
 
 def slam_step_io(state: SlamState, scan_xyz, hit, gyro, cmd,
@@ -227,10 +298,12 @@ def slam_step_io(state: SlamState, scan_xyz, hit, gyro, cmd,
 
 
 def slam_step(state: SlamState, world: world2d.World2D, cfg,
-              generator: torch.Generator, refresh_map: bool = True,
-              shift_maps: bool = True, target_planes=None) -> SlamState:
+              generator: torch.Generator, incremental_map: bool = True,
+              refresh_map: bool = True, shift_maps: bool = True,
+              target_planes=None, pf_target=None) -> SlamState:
     """One simulated tick: drive, sense (range and gyro noise drawn from
-    `generator`), then process the frame."""
+    `generator`), then process the frame (the particle matcher draws from
+    `generator` too)."""
     dt = cfg.sim.dt
     cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
     true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
@@ -239,9 +312,11 @@ def slam_step(state: SlamState, world: world2d.World2D, cfg,
     gyro = cmd[:, 2] + cfg.sim.gyro_bias + cfg.sim.gyro_noise * torch.randn(
         cmd.shape[0], generator=generator, device=cmd.device)
     state = process_frame_planes(state, scan_x, scan_y, hit, gyro, cmd, cfg,
+                                 incremental_map=incremental_map,
                                  refresh_map=refresh_map,
                                  shift_maps=shift_maps,
-                                 target_planes=target_planes)
+                                 target_planes=target_planes,
+                                 pf_target=pf_target, generator=generator)
     return state.replace(true_pose=torch.cat(
         [true2, torch.zeros_like(true2[:, :1])], -1))
 
@@ -250,7 +325,8 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
             generator: torch.Generator, field_every: int = 4):
     """Run num_steps ticks, rounded up to whole macros of field_every ticks.
 
-    Each macro exports the registration target from the point map once and
+    Each macro exports the registration target from the point map once
+    (the particle matcher scores the grid itself and skips the export) and
     re-centres both rolling grids once (the robot moves about a cell per
     macro); its ticks then register against that target and skip the
     shifts. Returns (final_state, (est, true)), trajectories (B, num_steps,
@@ -259,12 +335,14 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
     est, true = [], []
     s = state
     for _ in range(num_macro):
-        ex, ey, ez, ega, evalid = export_point_planes(
-            s.map_grid, s.map_cloud.capacity,
-            ga_threshold=cfg.icp.ga_threshold)
-        planes = (ex, ey, ega, evalid)
+        planes = None
+        if cfg.icp.matcher != "particle":
+            ex, ey, ez, ega, evalid = export_point_planes(
+                s.map_grid, s.map_cloud.capacity,
+                ga_threshold=cfg.icp.ga_threshold)
+            planes = (ex, ey, ega, evalid)
+            s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
         s = s.replace(
-            map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez),
             map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
             local_map=shift_origin(s.local_map, s.pose[:, :2], cfg.mls))
         for _ in range(field_every):

@@ -1,0 +1,206 @@
+"""Where a tick's device time goes, on the card: torch.profiler over a few
+macros of config 1 (slam2d.rollout, "fused") or config 5
+(shared_map.fleet_rollout_shared, "particle", stride 4) at B = 1024.
+
+    python3 -m slam_tpu_torch.profile_tick --config 5
+
+The package carries no spans; this script wraps the pipeline's stage
+functions in torch.profiler.record_function ranges for the run. It prints
+the unprofiled ms/tick of three windows, then per stage the kernel time
+(kernels launched inside the stage's range) per tick, the top kernels by
+name, and the device's idle share two ways: against the profiled window's
+timeline (first kernel start to last kernel end), which the profiler's
+own host cost lengthens, and against the median unprofiled ms/tick
+(1 - busy / wall), which assumes the profiler leaves the kernels' own
+times alone. The chrome trace and a JSON summary go to chiprun_out/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import collections
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import tempfile
+
+import torch
+
+from slam_tpu_torch import config as cfg_mod
+from slam_tpu_torch.mapping.point_map import init_point_map
+from slam_tpu_torch.models import ekf as ekf_mod
+from slam_tpu_torch.parallel import shared_map
+from slam_tpu_torch.pipeline import slam2d
+from slam_tpu_torch.sim import world2d
+
+BATCH = 1024
+MACROS = 2          # profiled macros of 4 ticks, and each timed window's
+
+# (module, function name, stage label); each module's own global is wrapped
+STAGES = (
+    (world2d, "raycast", "raycast"),
+    (ekf_mod, "motion_update", "EKF predict"),
+    (ekf_mod, "yaw_rate_update", "EKF gyro"),
+    (ekf_mod, "slam_update", "EKF slam"),
+    (slam2d, "build_scene_planes", "scene build"),
+    (slam2d, "fused_register", "registration, K1"),
+    (slam2d, "pf_match", "registration, particle filter (K5)"),
+    (slam2d, "update_point_map_xy", "point-map update"),
+    (slam2d, "export_point_planes", "map export"),
+    (slam2d, "shift_point_map", "point-map shift"),
+    (slam2d, "shift_origin", "occupancy shift"),
+    (slam2d, "add_to_occupancy_xy", "occupancy update"),
+    (shared_map, "fold_scans", "shared-map fold (once per macro)"),
+)
+
+
+def _wrap_stages():
+    for mod, fn, label in STAGES:
+        orig = getattr(mod, fn)
+
+        @functools.wraps(orig)
+        def wrapped(*a, _orig=orig, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _orig(*a, **k)
+        setattr(mod, fn, wrapped)
+
+
+def _attribute(trace: dict, labels) -> dict:
+    """Kernel microseconds by stage label, by kernel name, the busy union
+    and the timeline of the device events."""
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in ev
+              if e.get("cat") == "cuda_runtime" and "correlation" in
+              e.get("args", {})}
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] in labels)
+    starts = [s[0] for s in spans]
+    gpu = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                            "gpu_memset")]
+    by_stage = collections.Counter()
+    by_name = collections.Counter()
+    for e in gpu:
+        t = launch.get(e.get("args", {}).get("correlation"))
+        stage = "other"
+        if t is not None:
+            best = None
+            for s0, s1, name in spans[:bisect.bisect_right(starts, t)]:
+                if s0 <= t <= s1 and (best is None or s1 - s0 < best[0]):
+                    best = (s1 - s0, name)
+            stage = best[1] if best else "other"
+        by_stage[stage] += e["dur"]
+        by_name[e["name"][:80]] += e["dur"]
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
+    busy, cur0, cur1 = 0.0, None, None
+    for a, b in iv:
+        if cur1 is None or a > cur1:
+            if cur1 is not None:
+                busy += cur1 - cur0
+            cur0, cur1 = a, b
+        else:
+            cur1 = max(cur1, b)
+    if cur1 is not None:
+        busy += cur1 - cur0
+    timeline = (iv[-1][1] - iv[0][0]) if iv else 0.0
+    return dict(by_stage=by_stage, by_name=by_name, busy_us=busy,
+                timeline_us=timeline, kernels=len(gpu))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", type=int, choices=(1, 5), default=5)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_tick needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    cfg = cfg_mod.sim2d_config()
+    if args.config == 5:
+        cfg = dataclasses.replace(
+            cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
+            pf=dataclasses.replace(cfg.pf, score_stride=4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    world = world2d.make_world(gen, cfg.sim, device=dev)
+    state = slam2d.init_state(cfg, BATCH, device=dev, generator=gen)
+    res = cfg.icp.voxel_leaf_obs[0]
+    shared = init_point_map(1, cfg.mls.size_x, res, device=dev)
+
+    def run(s, sh, macros):
+        if args.config == 5:
+            s, sh, _ = shared_map.fleet_rollout_shared(s, sh, world, cfg,
+                                                       macros, generator=gen)
+        else:
+            s, _ = slam2d.rollout(s, world, cfg, 4 * macros, gen)
+        return s, sh
+
+    state, shared = run(state, shared, 1)                    # warm-up
+    windows = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        state, shared = run(state, shared, MACROS)
+        e1.record()
+        torch.cuda.synchronize()
+        windows.append(e0.elapsed_time(e1) / (4 * MACROS))
+
+    _wrap_stages()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, shared = run(state, shared, MACROS)
+        torch.cuda.synchronize()
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"trace_config{args.config}.json")
+    with tempfile.TemporaryDirectory() as d:
+        tmp = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(tmp)
+        with open(tmp) as f:
+            trace = json.load(f)
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    ticks = 4 * MACROS
+    r = _attribute(trace, {label for _, _, label in STAGES})
+    kern_ms = r["busy_us"] / 1e3 / ticks
+    line_ms = r["timeline_us"] / 1e3 / ticks
+    wall_ms = sorted(windows)[len(windows) // 2]
+    print(f"config {args.config}, B={BATCH}, {card}", flush=True)
+    print(f"unprofiled ms/tick over three {ticks}-tick windows: "
+          f"{', '.join(f'{w:.3f}' for w in windows)}")
+    print(f"profiled: {line_ms:.3f} ms/tick of timeline, {kern_ms:.3f} "
+          f"ms/tick device busy, idle share "
+          f"{1 - kern_ms / line_ms if line_ms else float('nan'):.3f} of the "
+          f"timeline, {1 - kern_ms / wall_ms:.3f} of the unprofiled "
+          f"{wall_ms:.3f} ms/tick, {r['kernels'] / ticks:.2f} device ops "
+          f"per tick")
+    print("stage | kernel ms/tick")
+    for stage, us in r["by_stage"].most_common():
+        print(f"  {stage} | {us / 1e3 / ticks:.3f}")
+    print("kernel | ms/tick")
+    for name, us in r["by_name"].most_common(15):
+        print(f"  {name} | {us / 1e3 / ticks:.3f}")
+    summary = dict(config=args.config, batch=BATCH, card=card,
+                   unprofiled_ms_per_tick=windows,
+                   timeline_ms_per_tick=line_ms, busy_ms_per_tick=kern_ms,
+                   idle_share_timeline=1 - kern_ms / line_ms,
+                   idle_share_unprofiled=1 - kern_ms / wall_ms,
+                   stages_ms_per_tick={k: v / 1e3 / ticks
+                                       for k, v in r["by_stage"].items()})
+    with open(os.path.join(args.out, f"profile_config{args.config}.json"),
+              "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from slam_tpu_torch import default_device
+
 
 @dataclasses.dataclass
 class World2D:
@@ -23,7 +25,9 @@ class World2D:
 
 
 def make_world(generator: torch.Generator, cfg, device=None) -> World2D:
-    """Random circular obstacles, pushed out of an 8 m spawn disk."""
+    """Random circular obstacles, pushed out of an 8 m spawn disk; on the
+    card unless `device` says otherwise (`generator` must live there too)."""
+    device = default_device(device)
     M = cfg.num_obstacles
     e = cfg.world_extent * 0.9
     pos = torch.rand(M, 2, generator=generator, device=device) * (2 * e) - e

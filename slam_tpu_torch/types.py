@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from slam_tpu_torch import default_device
+
 
 class Replaceable:
     """`.replace(**fields)`, as flax struct dataclasses have."""
@@ -47,6 +49,8 @@ class PointCloud(Replaceable):
 
 def make_cloud(batch: int, capacity: int, device=None,
                dtype=torch.float32) -> PointCloud:
+    """An empty cloud, on the card unless `device` says otherwise."""
+    device = default_device(device)
     return PointCloud(
         xyz=torch.zeros(batch, capacity, 3, dtype=dtype, device=device),
         valid=torch.zeros(batch, capacity, dtype=torch.bool, device=device),
@@ -95,6 +99,8 @@ class SlamState(Replaceable):
     local_map: OccupancyGrid
     prev_scene: PointCloud
     map_cloud: PointCloud        # scan-to-map target
-    map_grid: object             # PointMapGrid (mapping/point_map.py)
+    map_grid: object             # PointMapGrid (mapping/point_map.py), or
+                                 # None: robots that carry no grid (config
+                                 # 5's fleet scores one shared map)
     step: torch.Tensor           # (B,) int32 tick counter
     true_pose: torch.Tensor      # (B, 4) simulation ground truth

@@ -1,10 +1,16 @@
 """Port parity, the fused matcher: K1's plain version against slam_tpu's
 Pallas kernel (`_icp_batched_planes`, run in interpret mode on the CPU),
-and fused_register's crop and class encoding (CPU).
+fused_register's crop and class encoding, K2's packed adapter against
+`_icp_batched` (interpret mode) and register_scan_to_scan (CPU).
 
 Bounds: pose <= 1e-4, num_corr and ok exact. The two sum the Kabsch
 moments in different orders, and XLA:CPU fuses multiply-adds where the
-port rounds each step; ties (d2 <= rowmin) are averaged by both."""
+port rounds each step; ties (d2 <= rowmin) are averaged by both. The
+"points" form of register_scan_to_scan (icp_fit on both sides) is held to
+the same bound."""
+
+import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +20,15 @@ import torch
 
 from slam_tpu.config import sim2d_config
 from slam_tpu.ops import icp_pallas as jip
+from slam_tpu.pipeline import slam2d as jslam
+from slam_tpu.sim import world2d as jw
 from slam_tpu.types import PointCloud as JCloud
+from slam_tpu_torch import interop
 from slam_tpu_torch.ops import icp_fused as tip
+from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import PointCloud
-from tests.torch_parity import (assert_close, assert_equal, pallas_interpret,
-                                to_torch)
+from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
+                                pallas_interpret, to_torch)
 
 torch.set_num_threads(1)
 
@@ -65,6 +75,71 @@ def test_k1_plain_matches_pallas_interpret():
     assert_close(got.mean_residual, want.mean_residual, atol=1e-5)
     assert got.ok[:-1].all() and not got.ok[-1]
     assert_close(got.pose[-1], init[-1], atol=0)
+
+
+def test_k2_plain_matches_pallas_interpret():
+    sx, sy, sval, sga, mx, my, mval, mga, init = _problem(seed=4)
+    init[0] = [0.1, -0.05, 0.01]
+    s_xy = np.stack([sx, sy], -1)
+    m_xy = np.stack([mx, my], -1)
+    with pallas_interpret():
+        want = jax.vmap(jip.make_icp_fused(CFG))(
+            s_xy, sval, sga, m_xy, mval, mga, init)
+    args = tuple(map(to_torch, (s_xy, sval, sga, m_xy, mval, mga, init)))
+    got = tip.icp_fused(*args, CFG)
+    assert_close(got.pose, want.pose, atol=1e-4)
+    assert_equal(got.num_corr, want.num_corr)
+    assert_equal(got.ok, want.ok)
+    assert_close(got.mean_residual, want.mean_residual, atol=1e-5)
+    assert got.ok[:-1].all() and not got.ok[-1]
+    assert_equal(tip.icp_fused_reference(*args, CFG).pose, got.pose)
+    assert tip.packed_launches == 0 and tip.launches == 0
+
+
+def _consecutive_scenes(cfg):
+    """Two consecutive ticks of a JAX rollout for two robots: (state
+    before, state after)."""
+    world = jw.make_world(jax.random.PRNGKey(42), cfg.sim)
+    st = jax.vmap(lambda k: jslam.init_state(k, cfg))(
+        jax.random.split(jax.random.PRNGKey(3), 2))
+    step = jax.jit(jax.vmap(lambda s: jslam.slam_step(s, world, cfg)))
+    for _ in range(3):
+        st = step(st)
+    return st, step(st)
+
+
+@pytest.mark.parametrize("matcher", ["fused", "points"])
+def test_register_scan_to_scan_matches_jax(matcher):
+    cfg = sim2d_config()
+    cfg = dataclasses.replace(cfg, icp=dataclasses.replace(
+        cfg.icp, matcher=matcher))
+    prev, cur = _consecutive_scenes(cfg)
+    init = prev.pose[:, :3]
+
+    def jax_s2s():
+        return jax.vmap(lambda s, p, pp, i: jslam.register_scan_to_scan(
+            s, p, pp, i, cfg))(cur.prev_scene, prev.prev_scene, prev.pose,
+                               init)
+    if matcher == "fused":
+        # slam_tpu takes the fused kernel only on a TPU
+        spy = mock.Mock(wraps=jip.make_icp_fused)
+        with pallas_interpret(), mock.patch.object(
+                jax, "default_backend", lambda: "tpu"), \
+                mock.patch.object(jip, "make_icp_fused", spy):
+            want = jax_s2s()
+        assert spy.called
+    else:
+        want = jax_s2s()
+    tprev = interop.state_from_numpy(numpy_tree(prev), "cpu")
+    tcur = interop.state_from_numpy(numpy_tree(cur), "cpu")
+    got = tslam.register_scan_to_scan(tcur.prev_scene, tprev.prev_scene,
+                                      tprev.pose, to_torch(init), cfg)
+    assert_close(got.pose, want.pose, atol=1e-4)
+    assert_equal(got.num_corr, want.num_corr)
+    assert_equal(got.ok, want.ok)
+    assert bool(got.ok.all())
+    # the scan-to-scan answer lands near the rollout's own registration
+    assert_close(got.pose[:, :2], cur.pose[:, :2], atol=0.05)
 
 
 def test_fused_register_matches_jax():

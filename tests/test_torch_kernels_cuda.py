@@ -1,4 +1,4 @@
-"""Kernels K1 and K4 against their plain PyTorch versions on a CUDA card
+"""Kernels K1, K2, K4 and K5 against their plain PyTorch versions on a CUDA card
 (the port's counterpart of tests/test_icp_fused_tpu.py). Without a card
 every test skips; with one, they run chip_smoke.py's kernel phases:
 
@@ -37,3 +37,30 @@ def test_k4_matches_plain(card):
 def test_k1_matches_icp_fit_on_k4(card):
     from slam_tpu_torch import config
     assert card.kernel_guard(config) <= card.POSE_TOL
+
+
+@pytest.mark.parametrize("table", ["shared", "per_robot"])
+def test_k5_matches_plain(card, table):
+    from slam_tpu_torch.config import PfConfig
+    from slam_tpu_torch.ops import particle
+    shared, own, scan, valid, parts = card.pf_problem(B=256)
+    grid = shared if table == "shared" else own
+    got = particle.score_particles(grid, scan, valid, parts, 0.5, PfConfig())
+    want = particle.score_particles_reference(grid, scan, valid, parts, 0.5)
+    assert torch.equal(got, want)
+    assert particle.launches > 0
+
+
+def test_k2_matches_plain(card):
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.ops import icp_fused
+    p = card.registration_problem(64, seed=4)
+    args = (torch.stack([p["sx"], p["sy"]], -1), p["s_valid"], p["s_ga"],
+            torch.stack([p["mx"], p["my"]], -1), p["m_valid"], p["m_ga"],
+            p["init"], sim2d_config().icp)
+    got = icp_fused.icp_fused(*args)
+    want = icp_fused.icp_fused_reference(*args)
+    assert float((got.pose - want.pose).abs().max()) <= card.POSE_TOL
+    assert torch.equal(got.ok, want.ok)
+    assert int((got.num_corr - want.num_corr).abs().max()) <= card.NCORR_TOL
+    assert icp_fused.packed_launches > 0

@@ -38,7 +38,7 @@ def _points(B=2, N=200, seed=0, spread=6.0):
 def _both_maps(B=2, steps=3, seed=0):
     """Drive both point maps through updates and rolling shifts."""
     jg = jax.vmap(lambda _: jpm.init_point_map(G, RES))(jnp.arange(B))
-    tg = tpm.init_point_map(B, G, RES)
+    tg = tpm.init_point_map(B, G, RES, device="cpu")
     rng = np.random.default_rng(seed + 100)
     for k in range(steps):
         qx, qy, valid = _points(B, seed=seed + k)
@@ -94,7 +94,7 @@ def test_occupancy_matches_jax():
     mls = CFG.mls
     B = 2
     jgrid = jax.vmap(lambda _: jocc.init_occupancy(mls))(jnp.arange(B))
-    tgrid = tocc.init_occupancy(mls, B)
+    tgrid = tocc.init_occupancy(mls, B, device="cpu")
     rng = np.random.default_rng(9)
     for k in range(4):
         lx, ly, valid = _points(B, N=360, seed=20 + k, spread=25.0)

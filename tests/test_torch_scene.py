@@ -130,6 +130,27 @@ def test_build_scene_planes_needs_capacity():
         tslam.build_scene_planes(x, x, x > 0, CFG)
 
 
+def test_classify_ground_adjacent_matches_jax():
+    from slam_tpu.ops import classify as jcls
+    from slam_tpu_torch.ops import classify as tcls
+    rng = np.random.default_rng(8)
+    B, N = 2, 300
+    xyz = np.concatenate([rng.normal(0, 8, (B, N, 2)),
+                          np.zeros((B, N, 1))], -1).astype(np.float32)
+    xyz[:, :20, :2] += 200.0          # beyond the grid: keep their flags
+    valid = rng.random((B, N)) < 0.9
+    flags = rng.integers(0, 8, (B, N)).astype(np.int32)
+    center = rng.uniform(-2, 2, (B, 2)).astype(np.float32)
+    want = jax.vmap(lambda a, b, c, d: jcls.classify_ground_adjacent(
+        JCloud(a, b, c), d, 64, 0.5, 2))(xyz, valid, flags, center)
+    got = tcls.classify_ground_adjacent(
+        PointCloud(to_torch(xyz), to_torch(valid), to_torch(flags)),
+        to_torch(center), 64, 0.5, 2)
+    assert_equal(got.flags, want.flags)
+    assert (got.flags != to_torch(flags)).any()
+    assert_equal(got.flags[:, :20], flags[:, :20])
+
+
 def test_crop_box_matches_jax():
     rng = np.random.default_rng(5)
     xyz = rng.uniform(-80, 80, (2, 50, 3)).astype(np.float32)

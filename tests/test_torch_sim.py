@@ -40,7 +40,7 @@ def test_raycast_with_noise_matches_jax():
         world, p, CFG.sim, noise_key=k))(jnp.asarray(pose), keys)
     noise = jax.vmap(lambda k: jax.random.normal(
         k, (CFG.sim.num_beams,)))(keys)
-    got_r, got_h = tw.raycast(interop.world_from_numpy(numpy_tree(world)),
+    got_r, got_h = tw.raycast(interop.world_from_numpy(numpy_tree(world), "cpu"),
                               to_torch(pose), CFG.sim, noise=to_torch(noise))
     assert_equal(got_h, want_h)
     assert_close(got_r, want_r, atol=1e-4, rtol=1e-5)
@@ -48,7 +48,8 @@ def test_raycast_with_noise_matches_jax():
 
 def test_raycast_generator_noise():
     cfg = dataclasses.replace(CFG.sim, range_noise=0.05)
-    world = tw.make_world(torch.Generator().manual_seed(1), cfg)
+    world = tw.make_world(torch.Generator().manual_seed(1), cfg,
+                          device="cpu")
     pose = to_torch(_poses(B=4, seed=1))
     exact, hit = tw.raycast(world, pose, cfg)
     a, _ = tw.raycast(world, pose, cfg,
@@ -62,7 +63,8 @@ def test_raycast_generator_noise():
 
 
 def test_make_world_layout():
-    w = tw.make_world(torch.Generator().manual_seed(0), CFG.sim)
+    w = tw.make_world(torch.Generator().manual_seed(0), CFG.sim,
+                      device="cpu")
     M = CFG.sim.num_obstacles
     assert w.centers.shape == (M, 2) and w.radii.shape == (M,)
     assert (w.centers.norm(dim=-1) >= 8.0 - 1e-4).all()

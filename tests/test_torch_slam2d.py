@@ -14,6 +14,7 @@ Tolerances:
 - noise-free rollout, port vs JAX: poses to 1e-5 (measured 4e-7).
 """
 
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from slam_tpu.config import sim2d_config
-from slam_tpu.ops import nn as jnn
+from slam_tpu.ops import icp_pallas as jip, nn as jnn
 from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu.sim import world2d as jw
 from slam_tpu_torch import interop
@@ -33,7 +34,8 @@ from slam_tpu_torch.pipeline import slam2d as tslam
 from tests.golden_cache import cached_oracle
 from tests.test_reference_parity import (_render_frames, oracle_slam,
                                          ours_slam, parity_cfg)
-from tests.torch_parity import assert_close, assert_equal, numpy_tree
+from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
+                                pallas_interpret)
 
 torch.set_num_threads(1)
 
@@ -54,7 +56,7 @@ def port_slam(cfg, frames):
     (ours_slam's loop)."""
     ranges, hits, cmds, _ = frames
     st = jax.tree.map(lambda x: np.asarray(x)[None], _jax_start(cfg))
-    ts = interop.state_from_numpy(st)
+    ts = interop.state_from_numpy(st, "cpu")
     ang0 = np.arange(cfg.sim.num_beams) * (2 * np.pi / cfg.sim.num_beams)
     traj = []
     for t in range(len(ranges)):
@@ -128,8 +130,8 @@ def test_rollout_matches_jax_noise_free():
     st = jax.vmap(lambda k: jslam.init_state(k, cfg))(keys)
     fin, (est, true) = jax.vmap(lambda s: jslam.rollout(s, world, cfg, 7))(st)
     tfin, (test, ttrue) = tslam.rollout(
-        interop.state_from_numpy(numpy_tree(st)),
-        interop.world_from_numpy(numpy_tree(world)), cfg, 7,
+        interop.state_from_numpy(numpy_tree(st), "cpu"),
+        interop.world_from_numpy(numpy_tree(world), "cpu"), cfg, 7,
         torch.Generator().manual_seed(0))
     assert test.shape == (2, 7, 3)        # 7 ticks round up to 2 macros
     assert_close(test, est, atol=1e-5)
@@ -145,13 +147,65 @@ def test_fused_rollout_on_cpu_uses_plain_kernels():
     cfg = sim2d_config()
     gen = torch.Generator().manual_seed(0)
     world = jw.make_world(jax.random.PRNGKey(1), cfg.sim)
-    st = tslam.init_state(cfg, 2, generator=gen)
+    st = tslam.init_state(cfg, 2, device="cpu", generator=gen)
     fin, (est, true) = tslam.rollout(
-        st, interop.world_from_numpy(numpy_tree(world)), cfg, 8, gen)
+        st, interop.world_from_numpy(numpy_tree(world), "cpu"), cfg, 8, gen)
     assert est.shape == (2, 8, 3) and torch.isfinite(est).all()
     assert (tslam.ate(est, true) < 0.05).all()
     assert fin.scan_reg_ok.all() and (fin.map_grid.count > 0).any()
     assert icp_fused.launches == 0 and tnn.launches == 0
+
+
+@pytest.mark.parametrize("matcher", ["points", "particle", "fused"])
+def test_frame_without_incremental_map_matches_jax(matcher):
+    """incremental_map=False: the robots' grid is left alone, and the
+    matcher registers against state.map_cloud, its GA flags re-classified
+    around the prediction: "fused" with the fused fit (JAX's K1 in
+    interpret mode, the TPU path), "points" and "particle" with "points"
+    (a particle matcher with no pf_target has no live grid to score).
+    JAX's direct NN form is patched in, as above; pose 1e-4."""
+    cfg = dataclasses.replace(parity_cfg(), icp=dataclasses.replace(
+        parity_cfg().icp, matcher=matcher))
+    frames = _frames(cfg, n=4)
+    ranges, hits, cmds, _ = frames
+    ang0 = np.arange(cfg.sim.num_beams) * (2 * np.pi / cfg.sim.num_beams)
+    scans = [np.stack([ranges[t] * np.cos(ang0), ranges[t] * np.sin(ang0),
+                       np.zeros_like(ranges[t])], -1).astype(np.float32)
+             for t in range(4)]
+    pts = dataclasses.replace(cfg, icp=dataclasses.replace(
+        cfg.icp, matcher="points"))
+    st = _jax_start(cfg)
+    for t in range(3):                  # build a map with the points matcher
+        st = jslam.slam_step_io(st, scans[t], hits[t], np.float32(cmds[t][2]),
+                                cmds[t], pts)
+    args = (scans[3], hits[3], np.float32(cmds[3][2]), cmds[3])
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(jnn, "pairwise_sq_dist",
+                                              _direct_sq_dist))
+        if matcher == "fused":
+            # slam_tpu takes the fused kernel only on a TPU
+            spy = mock.Mock(wraps=jip.fused_register)
+            stack.enter_context(pallas_interpret())
+            stack.enter_context(mock.patch.object(jax, "default_backend",
+                                                  lambda: "tpu"))
+            stack.enter_context(mock.patch.object(jip, "fused_register",
+                                                  spy))
+        want = jslam.slam_step_io(st, *args, cfg, incremental_map=False)
+    if matcher == "fused":
+        assert spy.called
+    ts = interop.state_from_numpy(jax.tree.map(
+        lambda x: np.asarray(x)[None], st), "cpu")
+    got = tslam.process_frame(ts, torch.from_numpy(scans[3])[None],
+                              torch.from_numpy(np.array(hits[3]))[None],
+                              torch.tensor([cmds[3][2]], dtype=torch.float32),
+                              torch.from_numpy(np.array(cmds[3],
+                                                        np.float32))[None],
+                              cfg, incremental_map=False)
+    assert bool(want.scan_reg_ok) and bool(got.scan_reg_ok[0])
+    assert_close(got.scan_reg_pose[0], want.scan_reg_pose, atol=1e-4)
+    assert_close(got.pose[0], want.pose, atol=1e-4)
+    assert_equal(got.map_grid.count[0], want.map_grid.count)
+    assert_equal(got.map_cloud.valid[0], want.map_cloud.valid)
 
 
 def test_state_round_trip():
@@ -167,7 +221,7 @@ def test_state_round_trip():
                          np.zeros_like(ranges[t])], -1).astype(np.float32)
         st = step(st, scan, hits[t], np.float32(cmds[t][2]), cmds[t])
     stacked = jax.tree.map(lambda x: np.stack([np.asarray(x)] * 2), st)
-    back = interop.state_to_numpy(interop.state_from_numpy(stacked))
+    back = interop.state_to_numpy(interop.state_from_numpy(stacked, "cpu"))
     for path, leaf in jax.tree_util.tree_leaves_with_path(stacked):
         keys = [p.name for p in path]
         if keys[0] in ("rng", "graph_full"):

@@ -120,7 +120,8 @@ def test_clamp_cmd_and_gyro_bias():
 
 def test_init_ekf():
     cfg = EkfConfig()
-    st = tekf.init_ekf(cfg, 2, gyro_bias=torch.tensor([0.01, 0.02]))
+    st = tekf.init_ekf(cfg, 2, gyro_bias=torch.tensor([0.01, 0.02]),
+                       device="cpu")
     want = jekf.init_ekf(cfg, gyro_bias=0.01)
     assert_equal(st.mu[0], want.mu)
     assert_equal(st.sigma[1], want.sigma)

@@ -20,26 +20,37 @@ non-zero:
              table and for per-robot tables, with robots that have no
              valid point, particles off the grid and points on cell edges:
              hit counts must be equal
-7. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
+7. K3      — tiled fused ICP kernel vs its plain version at the reference
+             scale's shapes (B=16, S=4096, C=40960), on a problem whose
+             exact duplicate model points sit in different model tiles, and
+             vs K1's plain version on a problem both take (S=512, C=4096)
+8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
              a warm-up; kernel launch counts, median per-robot ATE,
              robot-steps/s
-8. K2      — register_scan_to_scan (matcher "fused": K2, the packed adapter
+9. K2      — register_scan_to_scan (matcher "fused": K2, the packed adapter
              onto K1's kernel) on the fleet's last two scenes, vs its plain
              version
-9. pf      — config 5: parallel.shared_map.fleet_rollout_shared, particle
+10. pf     — config 5: parallel.shared_map.fleet_rollout_shared, particle
              matcher (K5) against one shared map, B=1024, 10 macros of 4
              ticks after a warm-up macro; ms/tick, robot-steps/s, median
              per-robot ATE, K5 launches
-10. time   — K1, K2, K4 and K5 timed alone against their plain versions at
-             their main path's shapes, beside the least time the card could
-             take for the same work
+11. 3d     — config 2: slam3d.rollout_3d at sim3d_config, B=128, 40 ticks
+             with the "fused" matcher (K1) after a warm-up macro; ms/tick,
+             robot-steps/s, K1 launches, median per-robot ATE, mean |z error|
+12. ref    — config 2 at ref_scale_config (20,480-ray scans, scene 4096,
+             map 40,960: the "fused" matcher takes K3), B=16, 16 ticks after
+             a warm-up macro; ms/tick, robot-steps/s, K3 launches, ATE, z
+             error and the share of ticks whose registration succeeded
+13. time   — K1, K2, K3, K4 and K5 timed alone against their plain
+             versions at their main path's shapes, beside the least time
+             the card could take for the same work
 
-Every kernel launch count is set to 0 just before a main path (7, 8, 9)
-runs and read just after it. The last two lines are the kernels' JSON
-record and the device JSON. Imports torch and the port only: no jax, no
-slam_tpu package.
+Every kernel launch count is set to 0 just before a main path (8-12) runs
+and read just after it. The last two lines are the kernels' JSON record
+and the device JSON. Imports torch and the port only: no jax, no slam_tpu
+package.
 """
 
 from __future__ import annotations
@@ -64,6 +75,16 @@ POINTS_TICKS = 8
 PF_MACROS = 10        # config 5: macros of 4 ticks, after a warm-up macro
 PF_SCORED = 96        # config 5: 384 scene points at score_stride 4
 PF_G = 192            # config 5: shared grid cells a side (0.5 m)
+ATE_3D_LIMIT = 0.5    # m, config 2 sim3d: median per-robot ATE, ticks >= 10
+Z_3D_LIMIT = 0.4      # m, config 2 sim3d: mean |z error|, ticks >= 15
+FLEET_3D = 128
+TICKS_3D = 40
+ATE_REF_LIMIT = 0.2   # m, config 2 ref scale: median ATE, ticks >= 4
+Z_REF_LIMIT = 0.1     # m, config 2 ref scale: mean |z error|, ticks >= 4
+OK_REF_SHARE = 0.9    # ref scale: share of ticks whose registration succeeded
+FLEET_REF = 16
+TICKS_REF = 16
+REF_S, REF_C = 4096, 40960   # ref_scale_config's scene and map capacities
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -78,19 +99,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def registration_problem(B, S=384, C=512, seed=0, device="cuda"):
+KERNEL_NAMES = ("icp_fused_planes_kernel", "k3_setup", "k3_match",
+                "k3_finalize", "nn_kernel", "pf_hits_kernel")
+
+
+def ptxas_summary(path) -> list:
+    """'kernel: registers, spills' for each kernel in the build's ptxas -v
+    report."""
+    out, name = [], "?"
+    for ln in open(path).read().splitlines():
+        if "entry function" in ln:
+            name = next((k for k in KERNEL_NAMES if k in ln), ln)
+        elif "Used" in ln or "spill" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
+def registration_problem(B, S=384, C=512, seed=0, device="cuda", span=20.0,
+                         dup_stride=0, max_rot=0.05):
     """B scan-to-map problems with a known answer: each scene is a noisy,
-    shifted and rotated subset of its model. Robot 0's scene has fewer
-    valid points than min_scene_points, robot 1's model fewer than 5."""
+    shifted and rotated (by up to max_rot rad) subset of its model (points
+    uniform in +-span m).
+    Robot 0's scene has fewer valid points than min_scene_points, robot 1's
+    model fewer than 5. dup_stride > 0 copies model point i to i +
+    dup_stride (exact duplicates, so nearest-point ties)."""
     rng = np.random.default_rng(seed)
-    mx = rng.uniform(-20, 20, (B, C)).astype(np.float32)
-    my = rng.uniform(-20, 20, (B, C)).astype(np.float32)
+    mx = rng.uniform(-span, span, (B, C)).astype(np.float32)
+    my = rng.uniform(-span, span, (B, C)).astype(np.float32)
+    if dup_stride:
+        mx[:, dup_stride:] = mx[:, :C - dup_stride]
+        my[:, dup_stride:] = my[:, :C - dup_stride]
     mga = rng.random((B, C)) < 0.4
     mval = rng.random((B, C)) < 0.95
     idx = rng.integers(0, C, (B, S))
     sx0 = np.take_along_axis(mx, idx, 1) + rng.normal(0, 0.03, (B, S))
     sy0 = np.take_along_axis(my, idx, 1) + rng.normal(0, 0.03, (B, S))
-    th = rng.uniform(-0.05, 0.05, (B, 1))
+    th = rng.uniform(-max_rot, max_rot, (B, 1))
     off = rng.uniform(-0.3, 0.3, (B, 2, 1))
     sx = np.cos(th) * (sx0 + off[:, 0]) + np.sin(th) * (sy0 + off[:, 1])
     sy = -np.sin(th) * (sx0 + off[:, 0]) + np.cos(th) * (sy0 + off[:, 1])
@@ -321,9 +365,46 @@ def check_k5(shared, own, scan_xy, valid, parts) -> dict:
     return dict(max_abs_err=max(out.values()), mismatches=0)
 
 
+def check_k3(cfg) -> dict:
+    """K3 vs its plain version at the reference scale's shapes (ref_scale's
+    IcpConfig; model points spread over +-100 m as a 40,960-point map
+    around a robot), vs its plain version where exact duplicate model
+    points lie 2048 apart (so in different model tiles), and vs K1's plain
+    version on a problem both kernels take."""
+    from slam_tpu_torch.ops import icp_fused
+    out = {}
+    cases = (("ref", FLEET_REF, REF_S, REF_C, 100.0, 0, 0.01,
+              icp_fused.icp_fused_planes_tiled_reference),
+             ("ties", 8, 700, 6000, 20.0, 2048, 0.05,
+              icp_fused.icp_fused_planes_tiled_reference),
+             ("vs K1", 8, 512, 4096, 20.0, 0, 0.05,
+              icp_fused.icp_fused_planes_reference))
+    for name, B, S, C, span, dup, rot, plain in cases:
+        ops = fused_operands(registration_problem(B, S, C, seed=11, span=span,
+                                                  dup_stride=dup,
+                                                  max_rot=rot))
+        got = icp_fused.icp_fused_planes_tiled(*ops, cfg)
+        ref = plain(*ops, cfg)
+        torch.cuda.synchronize()
+        err = float((got.pose - ref.pose).abs().max())
+        ok_mism = int((got.ok != ref.ok).sum())
+        dcorr = int((got.num_corr - ref.num_corr).abs().max())
+        if bool(got.ok[0]) or bool(got.ok[1]) or not bool(got.ok[2:].all()):
+            raise RuntimeError(f"K3 ({name}): ok gates wrong: "
+                               f"{got.ok.tolist()}")
+        if not bool(torch.isfinite(got.pose).all()):
+            raise RuntimeError(f"K3 ({name}) returned non-finite poses")
+        if err > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
+            raise RuntimeError(f"K3 ({name}) disagrees with its plain "
+                               f"version: pose err {err}, ok mismatches "
+                               f"{ok_mism}, |d num_corr| {dcorr}")
+        out[name] = dict(pose_err=err, ok_mismatch=ok_mism, dcorr=dcorr)
+    return out
+
+
 def reset_counts(*modules) -> None:
     for m in modules:
-        for attr in ("launches", "packed_launches"):
+        for attr in ("launches", "packed_launches", "tiled_launches"):
             if hasattr(m, attr):
                 setattr(m, attr, 0)
 
@@ -435,6 +516,72 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     return fcfg, launches
 
 
+def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
+                     ate_limit, z_skip, z_limit, ok_share_min=None):
+    """[3d] / [ref]: config 2's rollout_3d on a fleet of `fleet` robots,
+    `ticks` ticks after a warm-up macro of the same fleet (which builds the
+    first registration target: the first macro registers against an empty
+    map). Gates: median
+    per-robot xy ATE over ticks >= skip, mean |z error| over ticks >=
+    z_skip, the fused matcher's kernel launched every tick, and (ref) the
+    share of (robot, tick) registrations that succeeded. Returns the
+    kernel's launch count."""
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.sim import world3d
+    dev = torch.device("cuda")
+    world = world3d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
+    state = slam3d.init_state_3d(cfg, fleet, world, device=dev,
+                                 generator=gen.manual_seed(0))
+    state, gm, _ = slam3d.rollout_3d(
+        state, world, slam3d.init_ground_map(cfg, fleet, dev), cfg, 4, gen)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    e0.record()
+    state, gm, (est, true, reg_ok) = slam3d.rollout_3d(state, world, gm, cfg,
+                                                       ticks, gen)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = {"K1": icp_fused.launches, "K3": icp_fused.tiled_launches,
+              "K4": nn.launches}
+    ms = e0.elapsed_time(e1) / ticks
+    if est.shape != (fleet, ticks, 4):
+        raise RuntimeError(f"{label} trajectory shape {tuple(est.shape)}")
+    for what, x in (("est", est), ("map", state.map_grid.count),
+                    ("ground map", gm.grid.count),
+                    ("occupancy", state.local_map.counts)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{label}: non-finite values in {what}")
+    ate = slam2d.ate(est[:, skip:], true[:, skip:])
+    med = float(ate.median())
+    z_err = float((est[:, z_skip:, 3] - true[:, z_skip:, 3]).abs().mean())
+    ok_share = float(reg_ok.float().mean())
+    scene_pts = float(state.prev_scene.valid.sum(-1).float().mean())
+    map_pts = float(state.map_cloud.valid.sum(-1).float().mean())
+    if counts[kernel] < ticks:
+        raise RuntimeError(f"{label}: {kernel} launched {counts[kernel]} "
+                           f"times in {ticks} ticks ({counts})")
+    if not med < ate_limit or not z_err < z_limit:
+        raise RuntimeError(f"{label}: median ATE {med} m (limit {ate_limit}),"
+                           f" mean |z error| {z_err} m (limit {z_limit})")
+    if ok_share_min is not None and not ok_share >= ok_share_min:
+        raise RuntimeError(f"{label}: registration succeeded in a share "
+                           f"{ok_share} of ticks (want >= {ok_share_min})")
+    if int((gm.grid.count > 0).sum()) < fleet * 100:
+        raise RuntimeError(f"{label}: the ground maps stayed empty")
+    print(f"[{label}] config 2 B={fleet} {ticks} ticks: {ms:.3f} ms/tick, "
+          f"{fleet * 1000.0 / ms:.1f} robot-steps/s, median ATE {med:.4f} m "
+          f"(ticks>={skip}, {float(ate.max()):.4f} max), mean |z error| "
+          f"{z_err:.4f} m (ticks>={z_skip}), registration ok share "
+          f"{ok_share:.4f}, last scene {scene_pts:.1f} of "
+          f"{state.prev_scene.capacity} points and target {map_pts:.1f} of "
+          f"{state.map_cloud.capacity} (robot mean); launches {counts} | "
+          f"{card}", flush=True)
+    return counts[kernel]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
@@ -455,11 +602,8 @@ def main() -> int:
     lib = cuda_build.build()
     cuda_build.library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.split(":", 1)[-1].strip() for ln in
-             open(f"{lib}.ptxas.txt").read().splitlines()
-             if "Used" in ln or "spill" in ln]
-    print(f"[build] {lib.name} in {secs:.2f} s; ptxas (K1, K4, K5): "
-          f"{' | '.join(ptxas)}", flush=True)
+    print(f"[build] {lib.name} in {secs:.2f} s; ptxas: "
+          f"{' | '.join(ptxas_summary(f'{lib}.ptxas.txt'))}", flush=True)
 
     cfg = cfg_mod.sim2d_config()
     k1 = check_k1(cfg.icp)
@@ -480,6 +624,14 @@ def main() -> int:
           f"G={PF_G}, shared and per-robot tables: hit mismatches "
           f"{k5['mismatches']}, max |d score| {k5['max_abs_err']}",
           flush=True)
+    ref_cfg = cfg_mod.ref_scale_config()
+    k3 = check_k3(ref_cfg.icp)
+    print("[K3] vs plain: " + "; ".join(
+        f"{k} max pose err {v['pose_err']:.3g}, ok mismatches "
+        f"{v['ok_mismatch']}, max |d num_corr| {v['dcorr']}"
+        for k, v in k3.items()) + f" (bounds {POSE_TOL}, 0, {NCORR_TOL}; "
+        f"ref B={FLEET_REF} S={REF_S} C={REF_C}, ties across model tiles "
+        f"S=700 C=6000, vs K1's plain version S=512 C=4096)", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -546,6 +698,12 @@ def main() -> int:
     k2_args = k2["args"]
     del state, pstate
     fcfg, launches["K5"] = shared_fleet_phase(world, cfg, gen, card)
+    launches["K1 (config 2)"] = rollout_3d_phase(
+        cfg_mod.sim3d_config(), FLEET_3D, TICKS_3D, gen, card, "3d", "K1",
+        10, ATE_3D_LIMIT, 15, Z_3D_LIMIT)
+    launches["K3"] = rollout_3d_phase(
+        ref_cfg, FLEET_REF, TICKS_REF, gen, card, "ref", "K3", 4,
+        ATE_REF_LIMIT, 4, Z_REF_LIMIT, OK_REF_SHARE)
 
     # kernels alone, at their main path's shapes
     ops = fused_operands(registration_problem(FLEET, seed=3))
@@ -575,6 +733,16 @@ def main() -> int:
     k5_plain_ms = cuda_ms(lambda: particle.score_particles_reference(
         shared5, scan5, valid5, parts5, 0.5))
     k5_bound = pf_bound(shared5, scan5, valid5, parts5)
+    # K3 at the reference scale's shapes, on the [K3] phase's problem
+    ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
+                                               seed=11, span=100.0,
+                                               max_rot=0.01))
+    k3_ms = cuda_ms(lambda: icp_fused.icp_fused_planes_tiled(*ops3,
+                                                             ref_cfg.icp))
+    k3_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_planes_tiled_reference(
+        *ops3, ref_cfg.icp), reps=2)
+    k3_bound = bound(nbytes(*ops3) + FLEET_REF * 8 * 4,
+                     icp_ops(ops3[:6], ops3[6], ref_cfg.icp))
     print(f"[time] B={FLEET} S=384 C=512: K1 {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.4f} ms, bound {k1_bound[0]:.6f} ms "
           f"({k1_bound[1]}); K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
@@ -582,7 +750,10 @@ def main() -> int:
           f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
           f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); N={PF_SCORED} P=128 "
           f"G={PF_G} shared: K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, "
-          f"bound {k5_bound[0]:.6f} ms ({k5_bound[1]}) | {card}", flush=True)
+          f"bound {k5_bound[0]:.6f} ms ({k5_bound[1]}); B={FLEET_REF} "
+          f"S={REF_S} C={REF_C}: K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} "
+          f"ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]}) | {card}",
+          flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"
@@ -604,6 +775,10 @@ def main() -> int:
                "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:39", "K2", k2_err, k2_ms,
                k2_plain_ms, k2_bound),
+        record("icp_fused_planes_tiled (K3)",
+               "slam_tpu_torch/csrc/icp_tiled.cu",
+               "slam_tpu/ops/icp_pallas.py:271", "K3",
+               k3["ref"]["pose_err"], k3_ms, k3_plain_ms, k3_bound),
         record("nearest_neighbor_planes (K4)", "slam_tpu_torch/csrc/nn.cu",
                "slam_tpu/ops/nn_pallas.py:38", "K4", k4["max_abs_err"],
                k4_ms, k4_plain_ms, k4_bound),

@@ -37,42 +37,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "icp_common.cuh"
+
 namespace {
+
+using slam_icp::sqdist;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMoments = 10;
 
-__device__ __forceinline__ float sqdist(float qx, float qy, float mx, float my) {
-  const float dx = __fsub_rn(qx, mx);
-  const float dy = __fsub_rn(qy, my);
-  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
-
-// Sum v[0..N) over the block; every thread gets the totals in `total`.
 template <int N>
 __device__ __forceinline__ void block_sum(float (&v)[N], float* red, float* total) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) red[warp * N + k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w * N + k];
-      total[k] = s;
-    }
-  }
-  __syncthreads();
+  slam_icp::block_sum<kThreads, N>(v, red, total);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -149,8 +126,8 @@ icp_fused_planes_kernel(const float* __restrict__ sx, const float* __restrict__ 
       const bool part = cls >= 0.f && (cls == 1.f ? ga_on : nga_on);
       if (!part) continue;
       const float px = s_sx[r], py = s_sy[r];
-      const float qx = __fadd_rn(__fsub_rn(__fmul_rn(cth, px), __fmul_rn(sth, py)), tx);
-      const float qy = __fadd_rn(__fadd_rn(__fmul_rn(sth, px), __fmul_rn(cth, py)), ty);
+      float qx, qy;
+      slam_icp::transform(px, py, tx, ty, cth, sth, qx, qy);
       float rowmin = INFINITY;
       for (int c = 0; c < C; ++c) {
         if (s_mc[c] == cls) rowmin = fminf(rowmin, sqdist(qx, qy, s_mx[c], s_my[c]));
@@ -180,45 +157,7 @@ icp_fused_planes_kernel(const float* __restrict__ sx, const float* __restrict__ 
     }
     block_sum<kMoments>(acc, red, tot);
 
-    if (tid == 0) {
-      const float W = tot[0];
-      const float Ws = fmaxf(W, 1e-12f);
-      const float mqx = tot[1] / Ws;
-      const float mqy = tot[2] / Ws;
-      const float mmx = tot[3] / Ws;
-      const float mmy = tot[4] / Ws;
-      const float H00 = tot[5] - W * mqx * mmx;
-      const float H01 = tot[6] - W * mqx * mmy;
-      const float H10 = tot[7] - W * mqy * mmx;
-      const float H11 = tot[8] - W * mqy * mmy;
-      const float a = H00 + H11;
-      const float bb = H01 - H10;
-      const float rn = 1.f / sqrtf(fmaxf(a * a + bb * bb, 1e-24f));
-      const float c_ = a * rn;
-      const float s_ = bb * rn;
-      const float t_x = mmx - (c_ * mqx - s_ * mqy);
-      const float t_y = mmy - (s_ * mqx + c_ * mqy);
-      const float ntx = c_ * tx - s_ * ty + t_x;
-      const float nty = s_ * tx + c_ * ty + t_y;
-      float ncth = c_ * cth - s_ * sth;
-      float nsth = s_ * cth + c_ * sth;
-      const float rnorm = 1.f / sqrtf(fmaxf(ncth * ncth + nsth * nsth, 1e-24f));
-      ncth = ncth * rnorm;
-      nsth = nsth * rnorm;
-      const float frob = sqrtf(fmaxf(4.f - 4.f * c_, 0.f));
-      const bool has_corr = W > 0.f;
-      const float d = has_corr ? fmaxf(frob, sqrtf(t_x * t_x + t_y * t_y)) : -1.f;
-      if (has_corr) {
-        carry[0] = ntx;
-        carry[1] = nty;
-        carry[2] = ncth;
-        carry[3] = nsth;
-      }
-      carry[5] = W;
-      carry[6] = tot[9] / Ws;
-      carry[7] = d;
-      carry[4] = (d < min_delta) ? 1.f : 0.f;
-    }
+    if (tid == 0) slam_icp::pose_update(tot, carry, min_delta);
     __syncthreads();
   }
 

@@ -1,4 +1,5 @@
-"""SE(2) geometry — counterpart of slam_tpu/geometry.py (2D subset).
+"""SE(2) geometry and the roll/pitch rotations of the 3D path — counterpart
+of slam_tpu/geometry.py.
 
 Every function broadcasts over leading batch dims. Yaw follows the
 reference's convention, wrapped to [-pi, pi].
@@ -39,3 +40,23 @@ def se2_apply_xy(pose: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     x = pose[..., 0][..., None]
     y = pose[..., 1][..., None]
     return c * px - s * py + x, s * px + c * py + y
+
+
+def rot3_from_rpy(roll, pitch, yaw) -> torch.Tensor:
+    """(..., 3, 3) rotations R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                        cy * sp * cr + sy * sr], -1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                        sy * sp * cr - cy * sr], -1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], -1)
+    return torch.stack([row0, row1, row2], -2)
+
+
+def rp_compensate(pts: torch.Tensor, roll, pitch) -> torch.Tensor:
+    """Rotate clouds (..., N, 3) upright by R(roll, pitch, yaw = 0); roll
+    and pitch are (...)."""
+    R = rot3_from_rpy(roll, pitch, torch.zeros_like(roll))
+    return torch.einsum("...ij,...nj->...ni", R, pts)

@@ -1,13 +1,14 @@
 """Carry state across from slam_tpu and back.
 
-slam_tpu's SlamState and World2D are pytrees; after
+slam_tpu's SlamState, GroundMap, World2D and World3D are pytrees; after
 `jax.tree.map(np.asarray, ...)` their leaves are numpy arrays, stacked over
-robots (leading dim B) for a fleet. `state_from_numpy` and
-`world_from_numpy` read such objects by attribute (no jax import), so both
-packages can start from the identical state; `point_map_from_numpy` reads
-one unbatched grid (config 5's shared map) as a batch-1 PointMapGrid;
-`state_to_numpy` turns a port state back into a nested dict of numpy arrays
-with the same field names. The JAX state's random key is dropped: the port
+robots (leading dim B) for a fleet. `state_from_numpy`,
+`ground_map_from_numpy`, `world_from_numpy` and `world3d_from_numpy` read
+such objects by attribute (no jax import), so both packages can start from
+the identical state; `point_map_from_numpy` reads one unbatched grid
+(config 5's shared map) as a batch-1 PointMapGrid; `state_to_numpy` turns
+a port state or ground map back into a nested dict of numpy arrays with
+the same field names. The JAX state's random key is dropped: the port
 draws from an explicit torch.Generator. Tensors land on the card unless
 `device` says otherwise.
 """
@@ -20,8 +21,9 @@ import torch
 from slam_tpu_torch import default_device
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
-from slam_tpu_torch.types import (EkfState, OccupancyGrid, PointCloud,
-                                  SlamState)
+from slam_tpu_torch.sim.world3d import World3D
+from slam_tpu_torch.types import (EkfState, GroundMap, OccupancyGrid,
+                                  PointCloud, SlamState)
 
 
 def _t(a, device, dtype=None):
@@ -46,12 +48,15 @@ def _grid(mg, device) -> PointMapGrid:
 
 def state_from_numpy(st, device=None) -> SlamState:
     """Port state from a slam_tpu SlamState with numpy leaves stacked over
-    robots. Only the scan-to-map fields exist in the port so far: a state
-    that carries a pose graph or a metrics ring is refused. A state without
-    a map grid (config 5's fleet) keeps map_grid None."""
-    if st.graph is not None or st.metrics_ring is not None:
-        raise ValueError("the port's SlamState has no pose graph or metrics "
-                         "ring yet")
+    robots. Only the scan-to-map fields and the 3D path's IMU attitude
+    exist in the port so far: a state that carries a pose graph, a metrics
+    ring or a 6-DoF keyframe ground cloud is refused. A state without a map
+    grid (config 5's fleet) keeps map_grid None."""
+    if st.graph is not None or st.metrics_ring is not None or \
+            getattr(st, "prev_ground", None) is not None:
+        raise ValueError("the port's SlamState has no pose graph, metrics "
+                         "ring or keyframe ground cloud yet")
+    attitude = getattr(st, "attitude", None)
     device = default_device(device)
     occ = st.local_map
     return SlamState(
@@ -71,7 +76,17 @@ def state_from_numpy(st, device=None) -> SlamState:
         map_grid=None if st.map_grid is None else _grid(st.map_grid, device),
         step=_t(st.step, device, torch.int32),
         true_pose=_t(st.true_pose, device, torch.float32),
+        attitude=(None if attitude is None
+                  else _t(attitude, device, torch.float32)),
     )
+
+
+def ground_map_from_numpy(gm, device=None) -> GroundMap:
+    """Port GroundMap from a slam_tpu GroundMap with numpy leaves stacked
+    over robots."""
+    device = default_device(device)
+    return GroundMap(grid=_grid(gm.grid, device), cloud=_cloud(gm.cloud,
+                                                              device))
 
 
 def world_from_numpy(world, device=None) -> World2D:
@@ -79,6 +94,16 @@ def world_from_numpy(world, device=None) -> World2D:
     device = default_device(device)
     return World2D(centers=_t(world.centers, device, torch.float32),
                    radii=_t(world.radii, device, torch.float32),
+                   extent=_t(world.extent, device, torch.float32))
+
+
+def world3d_from_numpy(world, device=None) -> World3D:
+    """Port world from a slam_tpu World3D with numpy leaves."""
+    device = default_device(device)
+    return World3D(centers=_t(world.centers, device, torch.float32),
+                   radii=_t(world.radii, device, torch.float32),
+                   heights=_t(world.heights, device, torch.float32),
+                   terrain=_t(world.terrain, device, torch.float32),
                    extent=_t(world.extent, device, torch.float32))
 
 
@@ -100,6 +125,7 @@ def _np(x):
     return x
 
 
-def state_to_numpy(state: SlamState) -> dict:
-    """Nested dict of numpy arrays, keyed by slam_tpu's field names."""
+def state_to_numpy(state) -> dict:
+    """A port SlamState (or GroundMap) as a nested dict of numpy arrays,
+    keyed by slam_tpu's field names."""
     return _np(state)

@@ -1,6 +1,6 @@
 """Rolling occupancy / drivability grid — counterpart of
 slam_tpu/mapping/occupancy.py (`init_occupancy`, `shift_origin`,
-`add_to_occupancy_xy`), batched over robots."""
+`add_to_occupancy_xy`, `add_to_occupancy_xy2`), batched over robots."""
 
 from __future__ import annotations
 
@@ -63,3 +63,24 @@ def add_to_occupancy_xy(grid: OccupancyGrid, lx: torch.Tensor,
     (touch,) = scatter_add_2d_multi(x, y, (None,), keep, (H, W))
     return _apply_counts_drivability(grid, touch * cfg.occupancy_increment,
                                      touch, cfg)
+
+
+def add_to_occupancy_xy2(grid: OccupancyGrid, ox, oy, ovalid, gx, gy, gvalid,
+                         cfg) -> OccupancyGrid:
+    """Obstacle and ground occupancy update (the 3D path): +increment per
+    obstacle point, -decrement per ground point, from robot-centred,
+    world-oriented planes (B, No) and (B, Ng)."""
+    H, W = grid.counts.shape[1:]
+    lx = torch.cat([ox, gx], -1)
+    ly = torch.cat([oy, gy], -1)
+    sign = torch.cat([
+        torch.full(ox.shape, cfg.occupancy_increment, dtype=grid.counts.dtype,
+                   device=ox.device),
+        torch.full(gx.shape, -cfg.occupancy_decrement,
+                   dtype=grid.counts.dtype, device=gx.device)], -1)
+    x = torch.floor(lx / cfg.resolution).to(torch.int32) + cfg.size_x // 2
+    y = torch.floor(ly / cfg.resolution).to(torch.int32) + cfg.size_y // 2
+    keep = torch.cat([ovalid, gvalid], -1) & \
+        (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
+    delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep, (H, W))
+    return _apply_counts_drivability(grid, delta, touch, cfg)

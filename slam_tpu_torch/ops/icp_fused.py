@@ -1,11 +1,17 @@
-"""Fused class-constrained ICP — counterpart of slam_tpu/ops/icp_pallas.py's
-resident kernels, with kernel K1 (`csrc/icp_fused.cu`, replacing
-`_icp_kernel_planes` -> `_icp_core`).
+"""Fused class-constrained ICP — counterpart of slam_tpu/ops/icp_pallas.py,
+with kernels K1 (`csrc/icp_fused.cu`, replacing `_icp_kernel_planes` ->
+`_icp_core`) and K3 (`csrc/icp_tiled.cu`, replacing `_icp_kernel_tiled`).
 
 One call runs the whole fit loop for every robot. Nearest points are
 averaged over ties (`d2 <= rowmin`), unlike icp_fit's first hit; both keep
 their own rule. `icp_fused_planes` launches K1 for CUDA tensors and runs
 `icp_fused_planes_reference`, the plain PyTorch version, for CPU tensors.
+K1 holds a robot's scene and model in one block's shared memory, so it
+takes problems up to RESIDENT_TILE_LIMIT scene x model points;
+`icp_fused_planes_tiled` (K3, plain version `icp_fused_planes_tiled_
+reference`) streams the model through shared memory in tiles and takes
+any size. `fused_register` picks between them by that limit, as slam_tpu
+does.
 
 `icp_fused` is K2's counterpart (`_icp_kernel`, behind `make_icp_fused` and
 `_icp_batched`): the same `_icp_core` on packed (N, 2) points with valid
@@ -24,14 +30,24 @@ from slam_tpu_torch.ops.icp import IcpResult
 
 BIG = 1e30
 
-# (S, C) size above which slam_tpu streams blocks through its tiled kernel
-# (K3); the resident kernel here takes problems up to the same size.
+# scene x model points above which fused_register takes the streaming
+# kernel K3 instead of the resident K1 (slam_tpu's rule and limit)
 RESIDENT_TILE_LIMIT = 2 << 20
 
-# kernel launches made by icp_fused_planes (K1) and icp_fused (K2), the
-# card path only
+# model points per block of the tiled plain version (slam_tpu's c_blk cap)
+TILE_C = 2048
+
+# K3 (csrc/icp_tiled.cu's kRows and kState): scene points per match block,
+# and floats of per-robot state; _tiled_kernel_slab sizes its scratch by them
+_K3_ROWS = 128
+_K3_STATE = 16
+
+# kernel launches made by icp_fused_planes (K1), icp_fused (K2) and
+# icp_fused_planes_tiled (K3), the card path only; a K3 launch is one call,
+# which queues its kernels' whole fit loop
 launches = 0
 packed_launches = 0
+tiled_launches = 0
 
 # K1 stages 3 (S + C) floats in shared memory; 1 KB stays for its static part
 _MAX_SMEM = cuda_build.MAX_SMEM - 1024
@@ -62,21 +78,17 @@ def _decode(out) -> IcpResult:
                      mean_residual=out[:, 6])
 
 
-def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
-    """_icp_core in plain PyTorch over an explicit (B, S, C) tile. Returns
-    the (B, 8) slab and the number of fit iterations each robot ran."""
-    sx, sy, sc = sx[:, :, None], sy[:, :, None], sc[:, :, None]
-    mx, my, mc = mx[:, None, :], my[:, None, :], mc[:, None, :]
-    m_ga = (mc == 1.0).to(torch.float32).sum((1, 2))
-    m_nga = (mc == 0.0).to(torch.float32).sum((1, 2))
-    n_scene = (sc >= 0.0).to(torch.float32).sum((1, 2))
+def _fit_loop(sc, mc, init4, cfg, moments):
+    """_icp_core's fit loop in plain PyTorch around `moments(tx, ty, cth,
+    sth, ga_on, nga_on)`, which returns the ten Kabsch moment sums (W,
+    sum qx, sum qy, sum ux, sum uy, sum qx ux, sum qx uy, sum qy ux,
+    sum qy uy, sum w rowmin), each (B,). Returns the (B, 8) slab and the
+    number of fit iterations each robot ran."""
+    m_ga = (mc == 1.0).to(torch.float32).sum(-1)
+    m_nga = (mc == 0.0).to(torch.float32).sum(-1)
+    n_scene = (sc >= 0.0).to(torch.float32).sum(-1)
     ok = (n_scene >= cfg.min_scene_points) & (m_ga + m_nga >= 5.0)
-
-    class_on = torch.where(sc == 1.0, (m_ga > 3.0)[:, None, None],
-                           (m_nga > 3.0)[:, None, None]).to(torch.float32)
-    participate = (sc >= 0.0).to(torch.float32) * class_on        # (B, S, 1)
-    pair_ok = (sc == mc).to(torch.float32) * (mc < 2.0).to(torch.float32)
-    penalty = (1.0 - pair_ok) * BIG                               # (B, S, C)
+    ga_on, nga_on = m_ga > 3.0, m_nga > 3.0
 
     tx, ty, cth, sth = (init4[:, k].clone() for k in range(4))
     converged = ~ok
@@ -84,38 +96,20 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
     mres = torch.zeros_like(tx)
     delta = torch.full_like(tx, float("inf"))
     iters = torch.zeros_like(tx)
-
-    def col(v):
-        return v[:, None, None]
-
-    def tot(v):
-        return v.sum((1, 2))
-
     for _ in range(cfg.max_iterations):
         if bool(converged.all()):
             break
-        qx = col(cth) * sx - col(sth) * sy + col(tx)              # (B, S, 1)
-        qy = col(sth) * sx + col(cth) * sy + col(ty)
-        dx = qx - mx
-        dy = qy - my
-        d2 = dx * dx + dy * dy + penalty
-        rowmin = d2.amin(-1, keepdim=True)
-        w = participate * (rowmin < cfg.inlier_dist).to(torch.float32)
-        sel = (d2 <= rowmin).to(torch.float32) * w
-        inv_nt = 1.0 / torch.clamp(sel.sum(-1, keepdim=True), min=1.0)
-        ux = (sel * mx).sum(-1, keepdim=True) * inv_nt
-        uy = (sel * my).sum(-1, keepdim=True) * inv_nt
-
-        W = tot(w)
+        (W, Swqx, Swqy, Sux, Suy, A00, A01, A10, A11, Sres) = moments(
+            tx, ty, cth, sth, ga_on, nga_on)
         Ws = torch.clamp(W, min=1e-12)
-        mqx = tot(w * qx) / Ws
-        mqy = tot(w * qy) / Ws
-        mmx = tot(ux) / Ws
-        mmy = tot(uy) / Ws
-        H00 = tot(qx * ux) - W * mqx * mmx
-        H01 = tot(qx * uy) - W * mqx * mmy
-        H10 = tot(qy * ux) - W * mqy * mmx
-        H11 = tot(qy * uy) - W * mqy * mmy
+        mqx = Swqx / Ws
+        mqy = Swqy / Ws
+        mmx = Sux / Ws
+        mmy = Suy / Ws
+        H00 = A00 - W * mqx * mmx
+        H01 = A01 - W * mqx * mmy
+        H10 = A10 - W * mqy * mmx
+        H11 = A11 - W * mqy * mmy
         a = H00 + H11
         b = H01 - H10
         rn = torch.rsqrt(torch.clamp(a * a + b * b, min=1e-24))
@@ -135,7 +129,6 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
         d = torch.maximum(frob, torch.sqrt(t_x * t_x + t_y * t_y))
         has_corr = W > 0.0
         d = torch.where(has_corr, d, -1.0)
-        new_mres = tot(w * rowmin) / Ws
 
         upd = ~converged
         iters = iters + upd.to(torch.float32)
@@ -145,7 +138,7 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
         cth = torch.where(go, ncth, cth)
         sth = torch.where(go, nsth, sth)
         ncorr = torch.where(upd, W, ncorr)
-        mres = torch.where(upd, new_mres, mres)
+        mres = torch.where(upd, Sres / Ws, mres)
         delta = torch.where(upd, d, delta)
         converged = converged | (d < cfg.min_delta)
 
@@ -153,6 +146,99 @@ def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
             for k, v in enumerate((tx, ty, cth, sth))]
     return torch.stack(pose + [ok.to(torch.float32), ncorr, mres, delta],
                        -1), iters
+
+
+def _transform(sx, sy, tx, ty, cth, sth):
+    """Scene planes (B, S, 1) under the carried poses (B,)."""
+    def col(v):
+        return v[:, None, None]
+    return (col(cth) * sx - col(sth) * sy + col(tx),
+            col(sth) * sx + col(cth) * sy + col(ty))
+
+
+def _participation(sc, ga_on, nga_on):
+    """(B, S, 1) f32: valid scene points whose class the model holds > 3
+    points of."""
+    class_on = torch.where(sc == 1.0, ga_on[:, None, None],
+                           nga_on[:, None, None])
+    return ((sc >= 0.0) & class_on).to(torch.float32)
+
+
+def _moment_sums(w, qx, qy, ux, uy, rowmin):
+    def tot(v):
+        return v.sum((1, 2))
+    return (tot(w), tot(w * qx), tot(w * qy), tot(ux), tot(uy),
+            tot(qx * ux), tot(qx * uy), tot(qy * ux), tot(qy * uy),
+            tot(w * rowmin))
+
+
+def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
+    """_icp_core in plain PyTorch over an explicit (B, S, C) tile. Returns
+    the (B, 8) slab and the number of fit iterations each robot ran."""
+    sx, sy, sc3 = sx[:, :, None], sy[:, :, None], sc[:, :, None]
+    mx3, my3, mc3 = mx[:, None, :], my[:, None, :], mc[:, None, :]
+    pair_ok = (sc3 == mc3).to(torch.float32) * (mc3 < 2.0).to(torch.float32)
+    penalty = (1.0 - pair_ok) * BIG                               # (B, S, C)
+
+    def moments(tx, ty, cth, sth, ga_on, nga_on):
+        qx, qy = _transform(sx, sy, tx, ty, cth, sth)             # (B, S, 1)
+        dx = qx - mx3
+        dy = qy - my3
+        d2 = dx * dx + dy * dy + penalty
+        rowmin = d2.amin(-1, keepdim=True)
+        w = _participation(sc3, ga_on, nga_on) * \
+            (rowmin < cfg.inlier_dist).to(torch.float32)
+        sel = (d2 <= rowmin).to(torch.float32) * w
+        inv_nt = 1.0 / torch.clamp(sel.sum(-1, keepdim=True), min=1.0)
+        ux = (sel * mx3).sum(-1, keepdim=True) * inv_nt
+        uy = (sel * my3).sum(-1, keepdim=True) * inv_nt
+        return _moment_sums(w, qx, qy, ux, uy, rowmin)
+
+    return _fit_loop(sc, mc, init4, cfg, moments)
+
+
+def _tiled_reference_slab(sx, sy, sc, mx, my, mc, init4, cfg,
+                          c_blk=TILE_C):
+    """_icp_kernel_tiled in plain PyTorch: each fit iteration streams the
+    model through blocks of c_blk points, penalises other-class pairs by
+    BIG (sc - mc)^2 and merges each block's (row minimum, tie sums, tie
+    count) into running ones: a strictly smaller minimum replaces them, an
+    equal one adds. Memory is O(B S c_blk), never (B, S, C). Returns the
+    (B, 8) slab and the fit iterations each robot ran."""
+    sx, sy, sc3 = sx[:, :, None], sy[:, :, None], sc[:, :, None]
+    C = mx.shape[-1]
+
+    def moments(tx, ty, cth, sth, ga_on, nga_on):
+        qx, qy = _transform(sx, sy, tx, ty, cth, sth)             # (B, S, 1)
+        rowmin = torch.full_like(qx, BIG)
+        sxa = torch.zeros_like(qx)
+        sya = torch.zeros_like(qx)
+        nt = torch.zeros_like(qx)
+        for c0 in range(0, C, c_blk):
+            mxc = mx[:, None, c0:c0 + c_blk]
+            myc = my[:, None, c0:c0 + c_blk]
+            pc = sc3 - mc[:, None, c0:c0 + c_blk]
+            dx = qx - mxc
+            dy = qy - myc
+            d2 = dx * dx + dy * dy + BIG * (pc * pc)
+            m = d2.amin(-1, keepdim=True)
+            sel = (d2 <= m).to(torch.float32)
+            sxc = (sel * mxc).sum(-1, keepdim=True)
+            syc = (sel * myc).sum(-1, keepdim=True)
+            nc = sel.sum(-1, keepdim=True)
+            better = m < rowmin
+            equal = (m == rowmin).to(torch.float32)
+            sxa = torch.where(better, sxc, sxa + equal * sxc)
+            sya = torch.where(better, syc, sya + equal * syc)
+            nt = torch.where(better, nc, nt + equal * nc)
+            rowmin = torch.minimum(rowmin, m)
+        w = _participation(sc3, ga_on, nga_on) * \
+            (rowmin < cfg.inlier_dist).to(torch.float32)
+        inv_nt = 1.0 / torch.clamp(nt, min=1.0)
+        return _moment_sums(w, qx, qy, w * sxa * inv_nt, w * sya * inv_nt,
+                            rowmin)
+
+    return _fit_loop(sc, mc, init4, cfg, moments)
 
 
 def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
@@ -183,11 +269,10 @@ def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
 
 def _check_resident(S, C):
     if S * C > RESIDENT_TILE_LIMIT:
-        raise NotImplementedError(
+        raise ValueError(
             f"S*C = {S * C} exceeds RESIDENT_TILE_LIMIT "
-            f"({RESIDENT_TILE_LIMIT}): this needs the C-tiled streaming "
-            "kernel K3 (slam_tpu/ops/icp_pallas.py:_icp_kernel_tiled), "
-            "not yet ported")
+            f"({RESIDENT_TILE_LIMIT}): use icp_fused_planes_tiled (K3), "
+            "which fused_register takes above the limit")
 
 
 def icp_fused_planes_reference(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
@@ -199,10 +284,11 @@ def icp_fused_planes_reference(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
 
 
 def fit_iterations(sx, sy, sc, mx, my, mc, init, cfg) -> torch.Tensor:
-    """(B,) fit iterations each robot runs (the plain version's count; K1
-    converges on the same ones): what the kernel's work depends on."""
-    return _reference_slab(sx, sy, sc, mx, my, mc, _pack_init4(init),
-                           cfg)[1]
+    """(B,) fit iterations each robot runs (the plain version's count; the
+    kernels converge on the same ones): what the kernels' work depends on.
+    Streams the model as K3's plain version does, so it takes any size."""
+    return _tiled_reference_slab(sx, sy, sc, mx, my, mc, _pack_init4(init),
+                                 cfg)[1]
 
 
 def _slab(sx, sy, sc, mx, my, mc, init, cfg, packed=False):
@@ -222,6 +308,52 @@ def icp_fused_planes(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
     """Fused ICP over a robot batch: K1 for CUDA tensors, its plain version
     for CPU tensors. Same contract as icp_fused_planes_reference."""
     return _decode(_slab(sx, sy, sc, mx, my, mc, init, cfg))
+
+
+def icp_fused_planes_tiled_reference(sx, sy, sc, mx, my, mc, init,
+                                     cfg) -> IcpResult:
+    """Plain PyTorch version of K3, on any device; same contract as
+    icp_fused_planes_reference, any S and C."""
+    return _decode(_tiled_reference_slab(sx, sy, sc, mx, my, mc,
+                                         _pack_init4(init), cfg)[0])
+
+
+def _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
+    """Launch K3: one call queues its set-up kernel and max_iterations
+    (match, finalize) kernel pairs on the current stream, no host sync."""
+    global tiled_launches
+    dev = sx.device
+    B, S = sx.shape
+    C = mx.shape[1]
+    cuda_build.check_operands("K3", (sx, sy, sc, mx, my, mc, init4),
+                              [(B, S)] * 3 + [(B, C)] * 3 + [(B, 4)])
+    n_chunks = -(-S // _K3_ROWS)
+    out = torch.empty((B, 8), dtype=torch.float32, device=dev)
+    state = torch.empty((B, _K3_STATE), dtype=torch.float32, device=dev)
+    partial = torch.empty((B, n_chunks, 10), dtype=torch.float32, device=dev)
+    err = cuda_build.library().slam_icp_tiled_planes(
+        sx.data_ptr(), sy.data_ptr(), sc.data_ptr(), mx.data_ptr(),
+        my.data_ptr(), mc.data_ptr(), init4.data_ptr(), out.data_ptr(),
+        state.data_ptr(), partial.data_ptr(), B, S, C, cfg.max_iterations,
+        cfg.inlier_dist, cfg.min_delta, cfg.min_scene_points,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "slam_icp_tiled_planes")
+    tiled_launches += 1
+    return out
+
+
+def icp_fused_planes_tiled(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
+    """Fused ICP of any size: K3 for CUDA tensors, its plain version for
+    CPU tensors. Same contract as icp_fused_planes_reference."""
+    init4 = _pack_init4(init)
+    dev = sx.device
+    if dev.type == "cpu":
+        return _decode(_tiled_reference_slab(sx, sy, sc, mx, my, mc, init4,
+                                             cfg)[0])
+    if dev.type == "cuda":
+        return _decode(_tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4,
+                                          cfg))
+    raise ValueError(f"fused ICP: unsupported device {dev}")
 
 
 def packed_planes(scene_xy, scene_valid, scene_ga, model_xy, model_valid,
@@ -257,7 +389,8 @@ def fused_register(sx, sy, s_valid, s_ga, target_planes, map_cloud, pred,
                    cfg) -> IcpResult:
     """Fused scan-to-map registration: take the target planes (or the map
     cloud's columns), mask the +-crop_dist box around the prediction and
-    run the fused fit. pred: (B, 3)."""
+    run the fused fit: K1 up to RESIDENT_TILE_LIMIT scene x model points,
+    K3 above it. pred: (B, 3)."""
     if target_planes is None:
         mpx = map_cloud.xyz[..., 0]
         mpy = map_cloud.xyz[..., 1]
@@ -268,8 +401,10 @@ def fused_register(sx, sy, s_valid, s_ga, target_planes, map_cloud, pred,
     d = cfg.crop_dist
     inb = mvalid & ((mpx - pred[:, :1]).abs() <= d) & \
         ((mpy - pred[:, 1:2]).abs() <= d)
-    return icp_fused_planes(
-        sx.contiguous(), sy.contiguous(),
-        encode_scene_class(s_valid, s_ga).contiguous(),
-        mpx.contiguous(), mpy.contiguous(),
-        encode_model_class(inb, mga).contiguous(), pred, cfg)
+    fit = (icp_fused_planes_tiled
+           if sx.shape[-1] * mpx.shape[-1] > RESIDENT_TILE_LIMIT
+           else icp_fused_planes)
+    return fit(sx.contiguous(), sy.contiguous(),
+               encode_scene_class(s_valid, s_ga).contiguous(),
+               mpx.contiguous(), mpy.contiguous(),
+               encode_model_class(inb, mga).contiguous(), pred, cfg)

@@ -1,5 +1,12 @@
-"""Small-matrix linear algebra — counterpart of slam_tpu/ops/linalg.py
-(`inv3` only: the EKF's SLAM update inverts its 3x3 innovation covariance)."""
+"""Small-matrix linear algebra — counterpart of slam_tpu/ops/linalg.py:
+`inv3` for the EKF's 3x3 innovation covariance, and the batched SPD solve
+of the ground segmentation's GP (`cholesky`, `forward_substitute`).
+
+The JAX package unrolls Cholesky and substitution column by column because
+XLA's TPU lowering of small batched factorizations is slow; here each is one
+batched library call over every robot and sector (a column loop would issue
+hundreds of tiny launches a tick). The factors agree to rounding.
+"""
 
 from __future__ import annotations
 
@@ -22,3 +29,17 @@ def inv3(M: torch.Tensor) -> torch.Tensor:
         torch.stack([C, b * g - a * h, a * e - b * d], -1),
     ], -2)
     return adj * (1.0 / det)[..., None, None]
+
+
+def cholesky(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of batched SPD matrices (..., C, C). Checks
+    nothing, so it never waits for the card; the GP system (kernel plus
+    noise on the model, identity elsewhere) is SPD, where slam_tpu's
+    diagonal floor of sqrt(1e-12) never binds."""
+    return torch.linalg.cholesky_ex(M, check_errors=False).L
+
+
+def forward_substitute(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """Solve L Y = R for batched lower-triangular L (..., C, C) and
+    right-hand sides R (..., C, Q)."""
+    return torch.linalg.solve_triangular(L, R, upper=False)

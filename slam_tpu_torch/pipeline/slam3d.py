@@ -1,0 +1,292 @@
+"""3D Velodyne fleet SLAM, BASELINE config 2 — counterpart of
+slam_tpu/pipeline/slam3d.py for the scan-to-map path.
+
+One tick (slam_step_3d) runs: drive on the terrain and cast the tilted
+ring scan -> IMU roll / pitch compensation -> EKF predict + gyro update ->
+GP-INSAC ground segmentation -> obstacle scene (compaction, ground
+adjacency and pairwise voxels for small scans, the scatter-to-grid builder
+for reference-scale scans) -> registration (kernel K1, or K3 above
+RESIDENT_TILE_LIMIT, for matcher "fused"; icp_fit on kernel K4 for
+"points") -> EKF SLAM update -> wheel-contact height interpolation ->
+obstacle and ground point maps -> occupancy. Every function takes and
+returns the whole robot batch; the scan-completeness gate is a tensor op,
+so a tick never waits for the card.
+
+On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
+swapped for "points". The grid matcher, graph mode (config 4) and the
+metrics ring belong to later slices and raise or are absent here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from slam_tpu_torch.geometry import rp_compensate, se2_apply_xy
+from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy2,
+                                              shift_origin)
+from slam_tpu_torch.mapping.point_map import (export_point_planes,
+                                              export_points, init_point_map,
+                                              shift_point_map,
+                                              update_point_map_xy)
+from slam_tpu_torch.models import ekf as ekf_mod
+from slam_tpu_torch.ops.classify import classify_ga_planes
+from slam_tpu_torch.ops.ground import segment_ground, split_ground_obstacle
+from slam_tpu_torch.ops.height import (height_interpolate,
+                                       height_interpolate_grid,
+                                       height_interpolate_planes)
+from slam_tpu_torch.ops.icp import icp_fit
+from slam_tpu_torch.ops.icp_fused import fused_register
+from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
+from slam_tpu_torch.ops.voxel import (compact_planes, crop_box,
+                                      voxel_downsample_pairwise_planes)
+from slam_tpu_torch.pipeline.slam2d import init_state, planes_to_cloud
+from slam_tpu_torch.sim import world2d, world3d
+from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
+    make_cloud
+
+MATCHERS = ("fused", "points")
+
+
+def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
+                  generator: torch.Generator | None = None):
+    """init_state with z anchored at the true sensor height over the start
+    point (the estimated z drifts from there), and a zero IMU attitude."""
+    s = init_state(cfg, batch, device=device, generator=generator)
+    z0 = world3d.terrain_height(world, torch.zeros(2, device=s.pose.device)) \
+        + cfg.sim.sensor_height
+    pose = s.pose.clone()
+    pose[:, 3] = z0
+    true_pose = s.true_pose.clone()
+    true_pose[:, 3] = z0
+    return s.replace(pose=pose, true_pose=true_pose,
+                     attitude=torch.zeros(batch, 2, device=s.pose.device))
+
+
+def init_ground_map(cfg, batch: int, device=None) -> GroundMap:
+    """Empty ground stores. With grid-direct height interpolation the
+    exported ground cloud is never read, so it is a stub of 8 slots."""
+    cap = 8 if cfg.height.source == "grid" else cfg.cloud.map_capacity
+    return GroundMap(grid=init_point_map(batch, cfg.mls.size_x,
+                                         cfg.icp.voxel_leaf_obs[0],
+                                         device=device),
+                     cloud=make_cloud(batch, cap, device=device))
+
+
+def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
+    """Segment upright scans (B, N, 3) and build the obstacle scene.
+
+    Returns obstacle planes (ox, oy, oz, oga, odrv, ovalid), capacity
+    cfg.cloud.scene_capacity, and ground planes (gx, gy, gz, gvalid) in scan
+    slots. Builder "incidence" (the default, "auto", up to 4096 points)
+    compacts the obstacles, flags ground adjacency and voxel-downsamples;
+    "grid" (above) scatters them into a scan-local centroid grid. The
+    ground class is not downsampled: its consumers re-bin it."""
+    seg = segment_ground(cloud_from_xyz(scan_xyz, valid=hit), cfg.ground)
+    obstacle, ground, _ = split_ground_obstacle(seg.cloud)
+    x, y, z = scan_xyz.unbind(-1)
+    drv = ((seg.cloud.flags & PointCloud.FLAG_DRIVABLE) != 0).to(x.dtype)
+    builder = cfg.cloud.scene_builder
+    if builder == "auto":
+        builder = "grid" if x.shape[-1] > 4096 else "incidence"
+    if builder == "grid":
+        ox, oy, oz, oga, odrv, okeep = build_scene_grid_planes(
+            x, y, z, obstacle, drv, cfg.cloud.scene_capacity,
+            cfg.icp.ga_resolution, cfg.icp.scan_grid_bins,
+            cfg.icp.ga_threshold)
+        return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
+    (ox, oy, oz, odrv), ovalid = compact_planes((x, y, z, drv), obstacle,
+                                                cfg.cloud.scene_capacity)
+    oga = classify_ga_planes(ox, oy, ovalid, torch.zeros_like(ox[:, :2]),
+                             cfg.icp.ga_num_bins, cfg.icp.ga_resolution,
+                             cfg.icp.ga_threshold)
+    (ox, oy, oz), okeep, (oga, odrv) = voxel_downsample_pairwise_planes(
+        ox, oy, oz, ovalid, (oga.to(x.dtype), odrv), cfg.icp.voxel_leaf_obs)
+    return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
+
+
+def _planes_to_cloud_3d(px, py, pz, ga, drv, valid) -> PointCloud:
+    xyz = torch.where(valid[..., None], torch.stack([px, py, pz], -1), 0.0)
+    flags = torch.where(ga, PointCloud.FLAG_GA, 0) | \
+        torch.where(drv, PointCloud.FLAG_DRIVABLE, 0)
+    return PointCloud(xyz=xyz, valid=valid,
+                      flags=torch.where(valid, flags, 0).to(torch.int32))
+
+
+def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
+                     pitch, gyro, cmd, cfg, refresh_map: bool = True,
+                     shift_maps: bool = True, target_planes=None):
+    """Sensor frames -> updated (state, ground_map). scan_tilted (B, N, 3)
+    in the tilted sensor frame, hit (B, N), measured roll / pitch (B,), raw
+    gyro z (B,), commanded body velocity cmd (B, 3).
+
+    target_planes: optional (mx, my, mga, mvalid) registration target that
+    the rollout refreshes once per macro; None registers against
+    state.map_cloud. refresh_map re-exports the targets after the update;
+    shift_maps re-centres the rolling grids on the fused pose."""
+    matcher = cfg.icp.matcher
+    if matcher == "grid":
+        raise NotImplementedError(
+            "icp.matcher 'grid' (slam_tpu/ops/grid_icp.py, the nearest-"
+            "centroid field) is not ported yet")
+    if matcher not in MATCHERS:
+        raise ValueError(f"unknown 3D icp.matcher {matcher!r} (have "
+                         f"{MATCHERS}; 'grid' is not ported yet)")
+    dt = cfg.sim.dt
+
+    # non-finite points are misses; an incomplete scan masks every point
+    # (registration fails, the EKF dead-reckons, the maps stay)
+    hit = hit & torch.isfinite(scan_tilted).all(-1)
+    if cfg.cloud.min_scan_points > 0:
+        hit = hit & (hit.sum(-1, keepdim=True) >= cfg.cloud.min_scan_points)
+    roll = torch.where(torch.isfinite(roll), roll, 0.0)
+    pitch = torch.where(torch.isfinite(pitch), pitch, 0.0)
+    scan_xyz = rp_compensate(torch.where(hit[..., None], scan_tilted, 0.0),
+                             roll, pitch)
+
+    ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
+    ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
+    pred = ekf.mu[:, [0, 1, 6]]
+
+    (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
+        build_scene_3d_planes(scan_xyz, hit, cfg)
+    if matcher == "fused":
+        icp = fused_register(ox, oy, ovalid, oga, target_planes,
+                             state.map_cloud, pred, cfg.icp)
+    else:
+        target = crop_box(state.map_cloud, pred[:, :2], cfg.icp.crop_dist)
+        icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
+                      target.xyz[..., :2], target.valid, target.is_ga(),
+                      pred, cfg.icp)
+
+    ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
+    fused = ekf.mu[:, [0, 1, 6]]
+    z_prev = state.pose[:, 3:4]
+    pose4_pre = torch.cat([fused, z_prev], -1)
+    map_pose = torch.cat([torch.where(icp.ok[:, None], icp.pose, pred),
+                          z_prev], -1)
+    if cfg.height.source == "grid":
+        new_z = height_interpolate_grid(ground_map.grid, pose4_pre,
+                                        cfg.height)
+        have_map = (ground_map.grid.count >= 1.0).sum((1, 2)) >= \
+            cfg.height.min_corr_points
+    else:
+        new_z = height_interpolate(ground_map.cloud, pose4_pre, cfg.height)
+        have_map = ground_map.cloud.valid.sum(-1) >= \
+            cfg.height.min_corr_points
+    # with no ground map yet, this scan's own ground points at the pose
+    gwx, gwy = se2_apply_xy(map_pose[:, :3], gx, gy)
+    z_scan = height_interpolate_planes(gwx, gwy, gz + map_pose[:, 3:4],
+                                       gvalid, pose4_pre, cfg.height)
+    z = torch.where(have_map, new_z, z_scan)[:, None]
+    pose4 = torch.cat([fused, z], -1)
+    map_pose = torch.cat([map_pose[:, :3], z], -1)
+    gwz = gz + z
+
+    res = cfg.icp.voxel_leaf_obs[0]
+    owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
+    mg = shift_point_map(state.map_grid, fused[:, :2], res) \
+        if shift_maps else state.map_grid
+    mg = update_point_map_xy(mg, owx, owy, oz + z, ovalid, res)
+    gg = shift_point_map(ground_map.grid, fused[:, :2], res) \
+        if shift_maps else ground_map.grid
+    gg = update_point_map_xy(gg, gwx, gwy, gwz, gvalid, res)
+    map_cloud, gnd_cloud = state.map_cloud, ground_map.cloud
+    if refresh_map:
+        map_cloud = export_points(mg, map_cloud.capacity,
+                                  ga_threshold=cfg.icp.ga_threshold)
+        if cfg.height.source != "grid":
+            gnd_cloud = export_points(gg, gnd_cloud.capacity)
+
+    grid = shift_origin(state.local_map, fused[:, :2], cfg.mls) \
+        if shift_maps else state.local_map
+    rel = torch.stack([fused[:, 0] - grid.center[:, 0],
+                       fused[:, 1] - grid.center[:, 1], fused[:, 2]], -1)
+    olx, oly = se2_apply_xy(rel, ox, oy)
+    glx, gly = se2_apply_xy(rel, gx, gy)
+    grid = add_to_occupancy_xy2(grid, olx, oly, ovalid & ~odrv, glx, gly,
+                                gvalid, cfg.mls)
+
+    # both scene builders fill cfg.cloud.scene_capacity slots, the
+    # capacity of state.prev_scene
+    prev_scene = _planes_to_cloud_3d(ox, oy, oz, oga, odrv, ovalid)
+    new_state = state.replace(
+        ekf=ekf, pose=pose4, scan_reg_pose=map_pose, scan_reg_ok=icp.ok,
+        local_map=grid, prev_scene=prev_scene, map_cloud=map_cloud,
+        map_grid=mg, step=state.step + 1,
+        attitude=(None if state.attitude is None
+                  else torch.stack([roll, pitch], -1)))
+    return new_state, GroundMap(grid=gg, cloud=gnd_cloud)
+
+
+def slam_step_3d_io(state, ground_map: GroundMap, scan_tilted, hit, roll,
+                    pitch, gyro, cmd, cfg, refresh_map: bool = True,
+                    shift_maps: bool = True):
+    """A tick driven by external sensor frames (replay, live transport or
+    oracle comparison); the arguments are process_frame_3d's."""
+    return process_frame_3d(state, ground_map, scan_tilted, hit, roll, pitch,
+                            gyro, cmd, cfg, refresh_map=refresh_map,
+                            shift_maps=shift_maps)
+
+
+def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
+                 generator: torch.Generator | None = None,
+                 refresh_map: bool = True, shift_maps: bool = True,
+                 target_planes=None):
+    """One simulated tick: drive on the terrain, sense (the robot tilts
+    with the surface; range and IMU noise drawn from `generator`, none
+    without one), then process the frame. Returns (state, ground_map)."""
+    dt = cfg.sim.dt
+    cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
+    true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
+    true_z = world3d.terrain_height(world, true2[:, :2]) + cfg.sim.sensor_height
+    roll, pitch = world3d.terrain_attitude(world, true2[:, :2])
+    scan, hit = world3d.raycast(world, true2, cfg.sim, generator=generator,
+                                roll=roll, pitch=pitch)
+    imu = torch.zeros_like(true2) if generator is None else \
+        cfg.sim.gyro_noise * torch.randn(true2.shape, generator=generator,
+                                         device=true2.device)
+    gyro = cmd[:, 2] + cfg.sim.gyro_bias + imu[:, 2]
+    state, gm = process_frame_3d(
+        state, ground_map, scan, hit, roll + imu[:, 0],
+        pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
+        refresh_map=refresh_map, shift_maps=shift_maps,
+        target_planes=target_planes)
+    return state.replace(true_pose=torch.cat([true2, true_z[:, None]], -1)), gm
+
+
+def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
+               num_steps: int, generator: torch.Generator | None = None,
+               field_every: int = 4):
+    """Run num_steps ticks, rounded up to whole macros of field_every.
+
+    Each macro re-centres the rolling grids once, exports the registration
+    target from the obstacle point map (and, for cfg.height.source
+    "cloud", the ground cloud) once; its ticks then register against that
+    target and skip the shifts. Returns (final state, final ground map,
+    (est, true, reg_ok)): trajectories (B, num_steps, 4) [x, y, yaw, z]
+    and each tick's registration flag (B, num_steps) (slam_tpu returns
+    the first two)."""
+    num_macro = -(-num_steps // field_every)
+    s, gm = state, ground_map
+    est, true, reg_ok = [], [], []
+    for _ in range(num_macro):
+        s = s.replace(map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
+                      local_map=shift_origin(s.local_map, s.pose[:, :2],
+                                             cfg.mls))
+        gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
+        ex, ey, ez, ega, evalid = export_point_planes(
+            s.map_grid, s.map_cloud.capacity,
+            ga_threshold=cfg.icp.ga_threshold)
+        planes = (ex, ey, ega, evalid)
+        s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
+        if cfg.height.source != "grid":
+            gm = gm.replace(cloud=export_points(gm.grid, gm.cloud.capacity))
+        for _ in range(field_every):
+            s, gm = slam_step_3d(s, world, gm, cfg, generator,
+                                 refresh_map=False, shift_maps=False,
+                                 target_planes=planes)
+            est.append(s.pose)
+            true.append(s.true_pose)
+            reg_ok.append(s.scan_reg_ok)
+    return s, gm, tuple(torch.stack(t, 1)[:, :num_steps]
+                        for t in (est, true, reg_ok))

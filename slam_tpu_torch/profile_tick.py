@@ -1,12 +1,15 @@
 """Where a tick's device time goes, on the card: torch.profiler over a few
-macros of config 1 (slam2d.rollout, "fused") or config 5
-(shared_map.fleet_rollout_shared, "particle", stride 4) at B = 1024.
+macros of config 1 (slam2d.rollout, "fused", B = 1024), config 5
+(shared_map.fleet_rollout_shared, "particle", stride 4, B = 1024) or config
+2 (slam3d.rollout_3d, "fused": at sim3d_config with K1, B = 128, or at
+ref_scale_config with K3, B = 16).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5
+    python3 -m slam_tpu_torch.profile_tick --config 5    # 1, 5, 2 or ref
 
 The package carries no spans; this script wraps the pipeline's stage
-functions in torch.profiler.record_function ranges for the run. It prints
-the unprofiled ms/tick of three windows, then per stage the kernel time
+functions in torch.profiler.record_function ranges for the run (a kernel
+counts toward the innermost stage it was launched in). It prints the
+unprofiled ms/tick of three windows, then per stage the kernel time
 (kernels launched inside the stage's range) per tick, the top kernels by
 name, and the device's idle share two ways: against the profiled window's
 timeline (first kernel start to last kernel end), which the profiler's
@@ -33,18 +36,17 @@ from slam_tpu_torch import config as cfg_mod
 from slam_tpu_torch.mapping.point_map import init_point_map
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.parallel import shared_map
-from slam_tpu_torch.pipeline import slam2d
-from slam_tpu_torch.sim import world2d
+from slam_tpu_torch.pipeline import slam2d, slam3d
+from slam_tpu_torch.sim import world2d, world3d
 
-BATCH = 1024
 MACROS = 2          # profiled macros of 4 ticks, and each timed window's
 
+_EKF = ((ekf_mod, "motion_update", "EKF predict"),
+        (ekf_mod, "yaw_rate_update", "EKF gyro"),
+        (ekf_mod, "slam_update", "EKF slam"))
+
 # (module, function name, stage label); each module's own global is wrapped
-STAGES = (
-    (world2d, "raycast", "raycast"),
-    (ekf_mod, "motion_update", "EKF predict"),
-    (ekf_mod, "yaw_rate_update", "EKF gyro"),
-    (ekf_mod, "slam_update", "EKF slam"),
+STAGES_2D = ((world2d, "raycast", "raycast"),) + _EKF + (
     (slam2d, "build_scene_planes", "scene build"),
     (slam2d, "fused_register", "registration, K1"),
     (slam2d, "pf_match", "registration, particle filter (K5)"),
@@ -55,10 +57,23 @@ STAGES = (
     (slam2d, "add_to_occupancy_xy", "occupancy update"),
     (shared_map, "fold_scans", "shared-map fold (once per macro)"),
 )
+STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
+    (slam3d, "segment_ground", "ground segmentation"),
+    (slam3d, "build_scene_3d_planes", "obstacle scene (besides ground)"),
+    (slam3d, "fused_register", "registration, K1 / K3"),
+    (slam3d, "height_interpolate_grid", "height interpolation"),
+    (slam3d, "height_interpolate", "height interpolation"),
+    (slam3d, "height_interpolate_planes", "height interpolation"),
+    (slam3d, "update_point_map_xy", "point-map updates (obstacle, ground)"),
+    (slam3d, "export_point_planes", "map export (once per macro)"),
+    (slam3d, "shift_point_map", "point-map shifts (once per macro)"),
+    (slam3d, "shift_origin", "occupancy shift (once per macro)"),
+    (slam3d, "add_to_occupancy_xy2", "occupancy update"),
+)
 
 
-def _wrap_stages():
-    for mod, fn, label in STAGES:
+def _wrap_stages(stages):
+    for mod, fn, label in stages:
         orig = getattr(mod, fn)
 
         @functools.wraps(orig)
@@ -112,7 +127,7 @@ def _attribute(trace: dict, labels) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(1, 5), default=5)
+    ap.add_argument("--config", choices=("1", "5", "2", "ref"), default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -122,43 +137,58 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cfg = cfg_mod.sim2d_config()
-    if args.config == 5:
-        cfg = dataclasses.replace(
-            cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
-            pf=dataclasses.replace(cfg.pf, score_stride=4))
     gen = torch.Generator(device=dev).manual_seed(0)
-    world = world2d.make_world(gen, cfg.sim, device=dev)
-    state = slam2d.init_state(cfg, BATCH, device=dev, generator=gen)
-    res = cfg.icp.voxel_leaf_obs[0]
-    shared = init_point_map(1, cfg.mls.size_x, res, device=dev)
+    three_d = args.config in ("2", "ref")
+    if three_d:
+        cfg = (cfg_mod.sim3d_config() if args.config == "2"
+               else cfg_mod.ref_scale_config())
+        batch = 128 if args.config == "2" else 16
+        stages = STAGES_3D
+        world = world3d.make_world(gen, cfg.sim, device=dev)
+        state = slam3d.init_state_3d(cfg, batch, world, device=dev,
+                                     generator=gen)
+        aux = slam3d.init_ground_map(cfg, batch, device=dev)
+    else:
+        cfg = cfg_mod.sim2d_config()
+        if args.config == "5":
+            cfg = dataclasses.replace(
+                cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
+                pf=dataclasses.replace(cfg.pf, score_stride=4))
+        batch = 1024
+        stages = STAGES_2D
+        world = world2d.make_world(gen, cfg.sim, device=dev)
+        state = slam2d.init_state(cfg, batch, device=dev, generator=gen)
+        aux = init_point_map(1, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
+                             device=dev)
 
-    def run(s, sh, macros):
-        if args.config == 5:
-            s, sh, _ = shared_map.fleet_rollout_shared(s, sh, world, cfg,
-                                                       macros, generator=gen)
+    def run(s, a, macros):
+        if three_d:
+            s, a, _ = slam3d.rollout_3d(s, world, a, cfg, 4 * macros, gen)
+        elif args.config == "5":
+            s, a, _ = shared_map.fleet_rollout_shared(s, a, world, cfg,
+                                                      macros, generator=gen)
         else:
             s, _ = slam2d.rollout(s, world, cfg, 4 * macros, gen)
-        return s, sh
+        return s, a
 
-    state, shared = run(state, shared, 1)                    # warm-up
+    state, aux = run(state, aux, 1)                          # warm-up
     windows = []
     for _ in range(3):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         e0.record()
-        state, shared = run(state, shared, MACROS)
+        state, aux = run(state, aux, MACROS)
         e1.record()
         torch.cuda.synchronize()
         windows.append(e0.elapsed_time(e1) / (4 * MACROS))
 
-    _wrap_stages()
+    _wrap_stages(stages)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        state, shared = run(state, shared, MACROS)
+        state, aux = run(state, aux, MACROS)
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"trace_config{args.config}.json")
@@ -170,11 +200,11 @@ def main(argv=None) -> int:
     with open(path, "w") as f:
         json.dump(trace, f)
     ticks = 4 * MACROS
-    r = _attribute(trace, {label for _, _, label in STAGES})
+    r = _attribute(trace, {label for _, _, label in stages})
     kern_ms = r["busy_us"] / 1e3 / ticks
     line_ms = r["timeline_us"] / 1e3 / ticks
     wall_ms = sorted(windows)[len(windows) // 2]
-    print(f"config {args.config}, B={BATCH}, {card}", flush=True)
+    print(f"config {args.config}, B={batch}, {card}", flush=True)
     print(f"unprofiled ms/tick over three {ticks}-tick windows: "
           f"{', '.join(f'{w:.3f}' for w in windows)}")
     print(f"profiled: {line_ms:.3f} ms/tick of timeline, {kern_ms:.3f} "
@@ -189,7 +219,7 @@ def main(argv=None) -> int:
     print("kernel | ms/tick")
     for name, us in r["by_name"].most_common(15):
         print(f"  {name} | {us / 1e3 / ticks:.3f}")
-    summary = dict(config=args.config, batch=BATCH, card=card,
+    summary = dict(config=args.config, batch=batch, card=card,
                    unprofiled_ms_per_tick=windows,
                    timeline_ms_per_tick=line_ms, busy_ms_per_tick=kern_ms,
                    idle_share_timeline=1 - kern_ms / line_ms,

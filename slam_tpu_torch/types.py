@@ -46,6 +46,20 @@ class PointCloud(Replaceable):
     def is_ga(self) -> torch.Tensor:
         return (self.flags & PointCloud.FLAG_GA) != 0
 
+    def is_ground(self) -> torch.Tensor:
+        return (self.flags & PointCloud.FLAG_GROUND) != 0
+
+
+def cloud_from_xyz(xyz: torch.Tensor, valid: torch.Tensor | None = None,
+                   flags: torch.Tensor | None = None) -> PointCloud:
+    """A cloud of points (B, N, 3), all valid and unflagged unless given."""
+    shape = xyz.shape[:-1]
+    if valid is None:
+        valid = torch.ones(shape, dtype=torch.bool, device=xyz.device)
+    if flags is None:
+        flags = torch.zeros(shape, dtype=torch.int32, device=xyz.device)
+    return PointCloud(xyz=xyz, valid=valid, flags=flags)
+
 
 def make_cloud(batch: int, capacity: int, device=None,
                dtype=torch.float32) -> PointCloud:
@@ -87,10 +101,10 @@ class OccupancyGrid(Replaceable):
 class SlamState(Replaceable):
     """Per-robot SLAM state of the 2D scan-to-map pipeline, batched.
 
-    Slice 1 carries the scan-to-map fields only. The pose graph, IMU
-    attitude, 3D ground cloud and device metrics ring of slam_tpu's
-    SlamState belong to later slices; the random stream is not state here
-    but an explicit torch.Generator argument."""
+    The scan-to-map fields, and the IMU attitude of the 3D path. The pose
+    graph, the 6-DoF keyframe ground cloud and the device metrics ring of
+    slam_tpu's SlamState belong to later slices; the random stream is not
+    state here but an explicit torch.Generator argument."""
 
     ekf: EkfState
     pose: torch.Tensor           # (B, 4) fused pose x, y, yaw, z
@@ -104,3 +118,15 @@ class SlamState(Replaceable):
                                  # 5's fleet scores one shared map)
     step: torch.Tensor           # (B,) int32 tick counter
     true_pose: torch.Tensor      # (B, 4) simulation ground truth
+    attitude: object = None      # (B, 2) last measured IMU roll / pitch
+                                 # (3D path), or None
+
+
+@dataclasses.dataclass
+class GroundMap(Replaceable):
+    """World-frame ground store of the 3D path: a centroid grid
+    (mapping/point_map.py's PointMapGrid) and its exported cloud, which
+    height interpolation reads when cfg.height.source is "cloud"."""
+
+    grid: object
+    cloud: PointCloud

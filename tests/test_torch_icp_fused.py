@@ -179,11 +179,13 @@ def test_class_encodings_match_jax():
 
 
 def test_resident_limit_names_k3():
+    """K1 takes problems up to the limit and names K3 for larger ones
+    (fused_register routes those to K3 itself)."""
     assert tip.RESIDENT_TILE_LIMIT == jip.RESIDENT_TILE_LIMIT
     S, C = 2048, tip.RESIDENT_TILE_LIMIT // 2048 + 1
     z = torch.zeros(1, S)
     m = torch.zeros(1, C)
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="K3"):
         tip.icp_fused_planes(z, z, z, m, m, m, torch.zeros(1, 3), CFG)
 
 
@@ -198,4 +200,8 @@ def test_wrappers_refuse_other_devices():
                              CFG)
     with pytest.raises(ValueError, match="unsupported device"):
         tnn.nearest_neighbor_planes(z, z, z, z, z, z)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tip.icp_fused_planes_tiled(z, z, z, z, z, z,
+                                   torch.zeros(1, 3, device="meta"), CFG)
     assert tip.launches == 0 and tnn.launches == 0
+    assert tip.tiled_launches == 0

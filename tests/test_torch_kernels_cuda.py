@@ -1,6 +1,6 @@
-"""Kernels K1, K2, K4 and K5 against their plain PyTorch versions on a CUDA card
-(the port's counterpart of tests/test_icp_fused_tpu.py). Without a card
-every test skips; with one, they run chip_smoke.py's kernel phases:
+"""Kernels K1, K2, K3, K4 and K5 against their plain PyTorch versions on a
+CUDA card (the port's counterpart of tests/test_icp_fused_tpu.py). Without
+a card every test skips; with one, they run chip_smoke.py's kernel phases:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
@@ -64,3 +64,16 @@ def test_k2_matches_plain(card):
     assert torch.equal(got.ok, want.ok)
     assert int((got.num_corr - want.num_corr).abs().max()) <= card.NCORR_TOL
     assert icp_fused.packed_launches > 0
+
+
+def test_k3_matches_plain_and_k1(card):
+    """The reference scale's shapes, ties across model tiles, and K3 vs K1's
+    plain version: pose <= POSE_TOL, ok exact, num_corr +-NCORR_TOL."""
+    from slam_tpu_torch.config import ref_scale_config
+    from slam_tpu_torch.ops import icp_fused
+    r = card.check_k3(ref_scale_config().icp)
+    assert set(r) == {"ref", "ties", "vs K1"}
+    for v in r.values():
+        assert v["pose_err"] <= card.POSE_TOL and v["ok_mismatch"] == 0
+        assert v["dcorr"] <= card.NCORR_TOL
+    assert icp_fused.tiled_launches >= 3

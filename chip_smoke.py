@@ -12,7 +12,10 @@ non-zero:
              source, in parallel) and link them, timed
 3. K1      — fused ICP kernel vs its plain PyTorch version at the main
              path's shapes (B=1024, S=384, C=512), with degenerate robots
-             below the ok gates
+             below the ok gates, and on fleets (S=384 and S=2048) with
+             robots whose GA or NGA class is off, a robot without a scene,
+             and equal model points of one class with other-class points
+             between them
 4. K4      — nearest-neighbour kernel vs its plain version
 5. guard   — K1 vs icp_fit (which runs on K4), as bench.py's kernel guard
 6. K5      — particle-scoring kernel vs its plain version at config 5's
@@ -21,9 +24,13 @@ non-zero:
              valid point, particles off the grid and points on cell edges:
              hit counts must be equal
 7. K3      — tiled fused ICP kernel vs its plain version at the reference
-             scale's shapes (B=16, S=4096, C=40960), on a problem whose
-             exact duplicate model points sit in different model tiles, and
-             vs K1's plain version on a problem both take (S=512, C=4096)
+             scale's shapes (B=16, S=4096, C=40960): a full problem, and
+             the main path's occupancy (70 scene and 140 model points, in
+             the first slots and scattered over all of them, with a robot
+             without a scene and robots with one class off); on a problem
+             whose exact duplicate model points sit in different model
+             splits; vs K1's plain version on a problem both take (S=512,
+             C=4096); repeated calls must give the same bits
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
@@ -44,8 +51,10 @@ non-zero:
              a warm-up macro; ms/tick, robot-steps/s, K3 launches, ATE, z
              error and the share of ticks whose registration succeeded
 13. time   — K1, K2, K3, K4 and K5 timed alone against their plain
-             versions at their main path's shapes, beside the least time
-             the card could take for the same work
+             versions at their main path's shapes (K3 on the full and on
+             the sparse problem), beside the least time the card could take
+             for the same work; K1 against K3 on problems both take around
+             RESIDENT_TILE_LIMIT
 
 Every kernel launch count is set to 0 just before a main path (8-12) runs
 and read just after it. The last two lines are the kernels' JSON record
@@ -85,6 +94,8 @@ OK_REF_SHARE = 0.9    # ref scale: share of ticks whose registration succeeded
 FLEET_REF = 16
 TICKS_REF = 16
 REF_S, REF_C = 4096, 40960   # ref_scale_config's scene and map capacities
+REF_SCENE, REF_TARGET = 70, 140   # valid points a robot holds on [ref]'s path
+CROSSOVER_C = (256, 512, 2048)    # K1 vs K3 at B=16, S=4096: S*C = 1M, 2M, 8M
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -99,8 +110,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-KERNEL_NAMES = ("icp_fused_planes_kernel", "k3_setup", "k3_match",
-                "k3_finalize", "nn_kernel", "pf_hits_kernel")
+# mangled-name fragment -> the name [build] prints
+KERNEL_NAMES = {"icp_fused_planes_kernelILi1E": "icp_fused_planes_kernel<1>",
+                "icp_fused_planes_kernelILi2E": "icp_fused_planes_kernel<2>",
+                "k3_setup": "k3_setup", "k3_match": "k3_match",
+                "nn_kernel": "nn_kernel", "pf_hits_kernel": "pf_hits_kernel"}
 
 
 def ptxas_summary(path) -> list:
@@ -109,20 +123,24 @@ def ptxas_summary(path) -> list:
     out, name = [], "?"
     for ln in open(path).read().splitlines():
         if "entry function" in ln:
-            name = next((k for k in KERNEL_NAMES if k in ln), ln)
+            name = next((v for k, v in KERNEL_NAMES.items() if k in ln), ln)
         elif "Used" in ln or "spill" in ln:
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
 
 
 def registration_problem(B, S=384, C=512, seed=0, device="cuda", span=20.0,
-                         dup_stride=0, max_rot=0.05):
+                         dup_stride=0, max_rot=0.05, special=False):
     """B scan-to-map problems with a known answer: each scene is a noisy,
     shifted and rotated (by up to max_rot rad) subset of its model (points
     uniform in +-span m).
     Robot 0's scene has fewer valid points than min_scene_points, robot 1's
     model fewer than 5. dup_stride > 0 copies model point i to i +
-    dup_stride (exact duplicates, so nearest-point ties)."""
+    dup_stride (exact duplicates, so nearest-point ties). With `special`
+    (B >= 5) robot 2 has no valid scene point, robot 3's model holds 3 GA
+    points (GA off, NGA on), robot 4's 3 NGA points (NGA off, GA on), and
+    every robot's model points 8k and 8k + 3 are equal and of one class,
+    with two points of the other class between them."""
     rng = np.random.default_rng(seed)
     mx = rng.uniform(-span, span, (B, C)).astype(np.float32)
     my = rng.uniform(-span, span, (B, C)).astype(np.float32)
@@ -131,6 +149,14 @@ def registration_problem(B, S=384, C=512, seed=0, device="cuda", span=20.0,
         my[:, dup_stride:] = my[:, :C - dup_stride]
     mga = rng.random((B, C)) < 0.4
     mval = rng.random((B, C)) < 0.95
+    if special:
+        n = len(mx[0, 3::8])
+        mx[:, 3::8], my[:, 3::8] = mx[:, ::8][:, :n], my[:, ::8][:, :n]
+        mga[:, 3::8], mval[:, 3::8] = mga[:, ::8][:, :n], mval[:, ::8][:, :n]
+        mga[:, 1::8] = ~mga[:, ::8][:, :len(mga[0, 1::8])]
+        mga[:, 2::8] = ~mga[:, ::8][:, :len(mga[0, 2::8])]
+        mval[3, np.flatnonzero(mval[3] & mga[3])[3:]] = False
+        mval[4, np.flatnonzero(mval[4] & ~mga[4])[3:]] = False
     idx = rng.integers(0, C, (B, S))
     sx0 = np.take_along_axis(mx, idx, 1) + rng.normal(0, 0.03, (B, S))
     sy0 = np.take_along_axis(my, idx, 1) + rng.normal(0, 0.03, (B, S))
@@ -145,6 +171,8 @@ def registration_problem(B, S=384, C=512, seed=0, device="cuda", span=20.0,
         sval[0, :3] = True
         mval[1] = False
         mval[1, :4] = True
+    if special:
+        sval[2] = False
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -153,6 +181,35 @@ def registration_problem(B, S=384, C=512, seed=0, device="cuda", span=20.0,
                 s_ga=t(sga, torch.bool), mx=t(mx), my=t(my),
                 m_valid=t(mval, torch.bool), m_ga=t(mga, torch.bool),
                 init=torch.zeros(B, 3, device=device))
+
+
+def sparse_problem(B, S, C, n_scene, n_model, scattered, seed=0,
+                   device="cuda"):
+    """A registration_problem(special) of n_scene scene and n_model model
+    points (+-20 m) in S scene and C model slots, the other slots invalid:
+    the occupancy of the reference scale's scenes and targets. The points
+    fill the first slots, or with `scattered` random slots over the whole
+    range, in their order."""
+    p = registration_problem(B, n_scene, n_model, seed=seed, device=device,
+                             max_rot=0.01, special=True)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+
+    def slots(n, N):
+        if not scattered:
+            return torch.arange(n).expand(B, n).to(device)
+        return torch.stack([torch.randperm(N, generator=gen)[:n].sort().values
+                            for _ in range(B)]).to(device)
+    s_at, m_at = slots(n_scene, S), slots(n_model, C)
+
+    def spread(v, at, N):
+        return torch.zeros((B, N), dtype=v.dtype, device=device).scatter_(
+            1, at, v)
+    return dict(
+        sx=spread(p["sx"], s_at, S), sy=spread(p["sy"], s_at, S),
+        s_valid=spread(p["s_valid"], s_at, S),
+        s_ga=spread(p["s_ga"], s_at, S), mx=spread(p["mx"], m_at, C),
+        my=spread(p["my"], m_at, C), m_valid=spread(p["m_valid"], m_at, C),
+        m_ga=spread(p["m_ga"], m_at, C), init=p["init"])
 
 
 def fused_operands(p):
@@ -180,24 +237,43 @@ def cuda_ms(fn, reps=5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def check_k1(cfg, B=FLEET, seed=0) -> dict:
-    from slam_tpu_torch.ops import icp_fused
-    ops = fused_operands(registration_problem(B, seed=seed))
-    got = icp_fused.icp_fused_planes(*ops, cfg)
-    ref = icp_fused.icp_fused_planes_reference(*ops, cfg)
+def agreement(name, got, ref, not_ok=(0, 1)) -> dict:
+    """A fused-ICP kernel's result against a plain version's: pose within
+    POSE_TOL, ok equal, num_corr within NCORR_TOL; the robots `not_ok` are
+    refused and every other one is accepted."""
     torch.cuda.synchronize()
-    pose_err = float((got.pose - ref.pose).abs().max())
+    err = float((got.pose - ref.pose).abs().max())
     ok_mism = int((got.ok != ref.ok).sum())
     dcorr = int((got.num_corr - ref.num_corr).abs().max())
-    if bool(got.ok[0]) or bool(got.ok[1]):
-        raise RuntimeError("K1 accepted a degenerate robot (below the gates)")
+    want_ok = torch.ones_like(got.ok)
+    want_ok[list(not_ok)] = False
+    if not bool((got.ok == want_ok).all()):
+        raise RuntimeError(f"{name}: ok gates wrong: {got.ok.tolist()}")
     if not bool(torch.isfinite(got.pose).all()):
-        raise RuntimeError("K1 returned non-finite poses")
-    if pose_err > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version: pose err "
-                           f"{pose_err}, ok mismatches {ok_mism}, "
+        raise RuntimeError(f"{name} returned non-finite poses")
+    if err > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
+        raise RuntimeError(f"{name} disagrees with its plain version: pose "
+                           f"err {err}, ok mismatches {ok_mism}, "
                            f"|d num_corr| {dcorr}")
-    return dict(pose_err=pose_err, ok_mismatch=ok_mism, dcorr=dcorr)
+    return dict(pose_err=err, ok_mismatch=ok_mism, dcorr=dcorr)
+
+
+def check_k1(cfg, B=FLEET, seed=0) -> dict:
+    """K1 vs its plain version at the main path's shapes, on a fleet of 64
+    with the special robots of registration_problem (classes off, no
+    scene, separated duplicates), and the same at S=2048, where the kernel
+    keeps two scene points a thread; the largest disagreement."""
+    from slam_tpu_torch.ops import icp_fused
+    out = []
+    for b, S, special, not_ok in ((B, 384, False, (0, 1)),
+                                  (64, 384, True, (0, 1, 2)),
+                                  (16, 2048, True, (0, 1, 2))):
+        ops = fused_operands(registration_problem(b, S, seed=seed,
+                                                  special=special))
+        out.append(agreement(
+            "K1", icp_fused.icp_fused_planes(*ops, cfg),
+            icp_fused.icp_fused_planes_reference(*ops, cfg), not_ok))
+    return {k: max(r[k] for r in out) for k in out[0]}
 
 
 def check_k4(B=FLEET, seed=1) -> dict:
@@ -273,6 +349,15 @@ def bound(moved: float, ops: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def icp_bytes(planes, init) -> int:
+    """Bytes K1 / K3 must move on this data: both class planes whole (they
+    say which slots count), x and y at the valid slots only (padding is
+    never needed), init, and the (B, 8) output slab."""
+    sc, mc = planes[2], planes[5]
+    valid = int((sc >= 0).sum()) + int((mc < 2).sum())
+    return nbytes(sc, mc, init) + 8 * valid + sc.shape[0] * 8 * 4
 
 
 def same_class_pairs(sc, mc) -> torch.Tensor:
@@ -367,38 +452,39 @@ def check_k5(shared, own, scan_xy, valid, parts) -> dict:
 
 def check_k3(cfg) -> dict:
     """K3 vs its plain version at the reference scale's shapes (ref_scale's
-    IcpConfig; model points spread over +-100 m as a 40,960-point map
-    around a robot), vs its plain version where exact duplicate model
-    points lie 2048 apart (so in different model tiles), and vs K1's plain
-    version on a problem both kernels take."""
+    IcpConfig): a full problem (model points spread over +-100 m as a
+    40,960-point map around a robot) and the main path's sparse occupancy,
+    in the first slots and scattered; vs its plain version where exact
+    duplicate model points lie 12,000 slots apart (so in different model
+    splits); vs K1's plain version on a problem both kernels take. Every
+    case runs twice and must give the same bits."""
     from slam_tpu_torch.ops import icp_fused
+    tiled = icp_fused.icp_fused_planes_tiled_reference
+
+    def dense(B, S, C, span, dup, rot):
+        return registration_problem(B, S, C, seed=11, span=span,
+                                    dup_stride=dup, max_rot=rot)
+
+    def sparse(scattered):
+        return sparse_problem(FLEET_REF, REF_S, REF_C, REF_SCENE, REF_TARGET,
+                              scattered, seed=21)
+    cases = (("ref", dense(FLEET_REF, REF_S, REF_C, 100.0, 0, 0.01), tiled,
+              (0, 1)),
+             ("sparse", sparse(False), tiled, (0, 1, 2)),
+             ("scattered", sparse(True), tiled, (0, 1, 2)),
+             ("ties", dense(8, 700, 24000, 20.0, 12000, 0.05), tiled, (0, 1)),
+             ("vs K1", dense(8, 512, 4096, 20.0, 0, 0.05),
+              icp_fused.icp_fused_planes_reference, (0, 1)))
     out = {}
-    cases = (("ref", FLEET_REF, REF_S, REF_C, 100.0, 0, 0.01,
-              icp_fused.icp_fused_planes_tiled_reference),
-             ("ties", 8, 700, 6000, 20.0, 2048, 0.05,
-              icp_fused.icp_fused_planes_tiled_reference),
-             ("vs K1", 8, 512, 4096, 20.0, 0, 0.05,
-              icp_fused.icp_fused_planes_reference))
-    for name, B, S, C, span, dup, rot, plain in cases:
-        ops = fused_operands(registration_problem(B, S, C, seed=11, span=span,
-                                                  dup_stride=dup,
-                                                  max_rot=rot))
+    for name, problem, plain, not_ok in cases:
+        ops = fused_operands(problem)
         got = icp_fused.icp_fused_planes_tiled(*ops, cfg)
-        ref = plain(*ops, cfg)
-        torch.cuda.synchronize()
-        err = float((got.pose - ref.pose).abs().max())
-        ok_mism = int((got.ok != ref.ok).sum())
-        dcorr = int((got.num_corr - ref.num_corr).abs().max())
-        if bool(got.ok[0]) or bool(got.ok[1]) or not bool(got.ok[2:].all()):
-            raise RuntimeError(f"K3 ({name}): ok gates wrong: "
-                               f"{got.ok.tolist()}")
-        if not bool(torch.isfinite(got.pose).all()):
-            raise RuntimeError(f"K3 ({name}) returned non-finite poses")
-        if err > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
-            raise RuntimeError(f"K3 ({name}) disagrees with its plain "
-                               f"version: pose err {err}, ok mismatches "
-                               f"{ok_mism}, |d num_corr| {dcorr}")
-        out[name] = dict(pose_err=err, ok_mismatch=ok_mism, dcorr=dcorr)
+        out[name] = agreement(f"K3 ({name})", got, plain(*ops, cfg), not_ok)
+        again = icp_fused.icp_fused_planes_tiled(*ops, cfg)
+        if not (torch.equal(got.pose, again.pose) and
+                torch.equal(got.num_corr, again.num_corr)):
+            raise RuntimeError(f"K3 ({name}): two calls on the same inputs "
+                               f"differ")
     return out
 
 
@@ -607,9 +693,11 @@ def main() -> int:
 
     cfg = cfg_mod.sim2d_config()
     k1 = check_k1(cfg.icp)
-    print(f"[K1] vs plain at B={FLEET} S=384 C=512: max pose err "
-          f"{k1['pose_err']:.3g} (bound {POSE_TOL}), ok mismatches "
-          f"{k1['ok_mismatch']}, max |d num_corr| {k1['dcorr']}", flush=True)
+    print(f"[K1] vs plain at B={FLEET} S=384 C=512 and, with classes off, "
+          f"an empty scene and separated duplicates, at B=64 S=384 and B=16 "
+          f"S=2048: max pose err {k1['pose_err']:.3g} (bound {POSE_TOL}), ok "
+          f"mismatches {k1['ok_mismatch']}, max |d num_corr| {k1['dcorr']}",
+          flush=True)
     k4 = check_k4()
     print(f"[K4] vs plain at B={FLEET} S=384 C=512: dist rel err "
           f"{k4['dist_rel_err']:.3g} (bound {DIST_RTOL}), idx mismatches "
@@ -630,8 +718,10 @@ def main() -> int:
         f"{k} max pose err {v['pose_err']:.3g}, ok mismatches "
         f"{v['ok_mismatch']}, max |d num_corr| {v['dcorr']}"
         for k, v in k3.items()) + f" (bounds {POSE_TOL}, 0, {NCORR_TOL}; "
-        f"ref B={FLEET_REF} S={REF_S} C={REF_C}, ties across model tiles "
-        f"S=700 C=6000, vs K1's plain version S=512 C=4096)", flush=True)
+        f"ref, sparse and scattered B={FLEET_REF} S={REF_S} C={REF_C}, the "
+        f"sparse ones with {REF_SCENE} scene and {REF_TARGET} model points, "
+        f"ties across model splits S=700 C=24000, vs K1's plain version "
+        f"S=512 C=4096; every case twice with equal bits)", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -710,9 +800,8 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: icp_fused.icp_fused_planes(*ops, cfg.icp))
     k1_plain_ms = cuda_ms(
         lambda: icp_fused.icp_fused_planes_reference(*ops, cfg.icp), reps=3)
-    # K1 reads the planes and init once and writes one (B, 8) slab
-    k1_bound = bound(nbytes(*ops) + FLEET * 8 * 4, icp_ops(ops[:6], ops[6],
-                                                           cfg.icp))
+    k1_bound = bound(icp_bytes(ops[:6], ops[6]),
+                     icp_ops(ops[:6], ops[6], cfg.icp))
     k4_ms = cuda_ms(lambda: nn.nearest_neighbor_planes(*ops[:6]))
     k4_plain_ms = cuda_ms(lambda: nn.nearest_neighbor_reference(*ops[:6]))
     k4_bound = bound(nbytes(*ops[:6]) + FLEET * 384 * 8,
@@ -741,8 +830,28 @@ def main() -> int:
                                                              ref_cfg.icp))
     k3_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_planes_tiled_reference(
         *ops3, ref_cfg.icp), reps=2)
-    k3_bound = bound(nbytes(*ops3) + FLEET_REF * 8 * 4,
+    k3_bound = bound(icp_bytes(ops3[:6], ops3[6]),
                      icp_ops(ops3[:6], ops3[6], ref_cfg.icp))
+    # K3 at the main path's occupancy, and K1 against K3 around the limit
+    sp3 = fused_operands(sparse_problem(FLEET_REF, REF_S, REF_C, REF_SCENE,
+                                        REF_TARGET, True, seed=21))
+    k3s_ms = cuda_ms(lambda: icp_fused.icp_fused_planes_tiled(*sp3,
+                                                              ref_cfg.icp),
+                     reps=20)
+    k3s_plain_ms = cuda_ms(
+        lambda: icp_fused.icp_fused_planes_tiled_reference(*sp3, ref_cfg.icp),
+        reps=2)
+    k3s_bound = bound(icp_bytes(sp3[:6], sp3[6]),
+                      icp_ops(sp3[:6], sp3[6], ref_cfg.icp))
+    crossover = []
+    for C in CROSSOVER_C:
+        o = fused_operands(registration_problem(FLEET_REF, REF_S, C, seed=13))
+        i4 = icp_fused._pack_init4(o[6])
+        # the kernels alone, K1 past fused_register's limit too
+        crossover.append((C, cuda_ms(lambda: icp_fused._kernel_slab(
+            *o[:6], i4, cfg.icp, False), reps=10), cuda_ms(
+            lambda: icp_fused._tiled_kernel_slab(*o[:6], i4, cfg.icp),
+            reps=10)))
     print(f"[time] B={FLEET} S=384 C=512: K1 {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.4f} ms, bound {k1_bound[0]:.6f} ms "
           f"({k1_bound[1]}); K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
@@ -752,8 +861,13 @@ def main() -> int:
           f"G={PF_G} shared: K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, "
           f"bound {k5_bound[0]:.6f} ms ({k5_bound[1]}); B={FLEET_REF} "
           f"S={REF_S} C={REF_C}: K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} "
-          f"ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]}) | {card}",
-          flush=True)
+          f"ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]}); the same slots "
+          f"with {REF_SCENE} scene and {REF_TARGET} model points scattered: "
+          f"K3 {k3s_ms:.4f} ms, plain {k3s_plain_ms:.4f} ms, bound "
+          f"{k3s_bound[0]:.6f} ms ({k3s_bound[1]}); kernels alone at "
+          f"B={FLEET_REF} S={REF_S}, K1 / K3 ms: " + ", ".join(
+              f"C={C} {a:.4f} / {b:.4f}" for C, a, b in crossover) +
+          f" | {card}", flush=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"

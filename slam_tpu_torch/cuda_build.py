@@ -38,7 +38,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "slam_icp_fused_planes": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
-    "slam_icp_tiled_planes": [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P],
+    "slam_icp_tiled_planes": [_P] * 12 + [_I] * 4 + [_F, _F, _I, _P],
     "slam_nn": [_P] * 8 + [_I] * 3 + [_P],
     "slam_pf_hits": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
 }

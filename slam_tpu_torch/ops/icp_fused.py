@@ -9,9 +9,17 @@ their own rule. `icp_fused_planes` launches K1 for CUDA tensors and runs
 K1 holds a robot's scene and model in one block's shared memory, so it
 takes problems up to RESIDENT_TILE_LIMIT scene x model points;
 `icp_fused_planes_tiled` (K3, plain version `icp_fused_planes_tiled_
-reference`) streams the model through shared memory in tiles and takes
-any size. `fused_register` picks between them by that limit, as slam_tpu
-does.
+reference`) takes any size. `fused_register` picks between them by that
+limit, as slam_tpu does.
+
+Both kernels first group a robot's points by class, stably
+(`group_by_class` is that step in plain PyTorch): a scene point then walks
+only its own class's model points, its minimum starting at inlier_dist.
+K3 keeps a robot whose grouped points are few in one block and cuts the
+others' model segments into splits of K3_SPLIT_LEN points that separate
+blocks take, merged per scene point in split order;
+`_grouped_split_slab` is that algorithm in plain PyTorch, which the tests
+hold equal to the plain versions.
 
 `icp_fused` is K2's counterpart (`_icp_kernel`, behind `make_icp_fused` and
 `_icp_batched`): the same `_icp_core` on packed (N, 2) points with valid
@@ -37,10 +45,13 @@ RESIDENT_TILE_LIMIT = 2 << 20
 # model points per block of the tiled plain version (slam_tpu's c_blk cap)
 TILE_C = 2048
 
-# K3 (csrc/icp_tiled.cu's kRows and kState): scene points per match block,
-# and floats of per-robot state; _tiled_kernel_slab sizes its scratch by them
-_K3_ROWS = 128
-_K3_STATE = 16
+# K3's scratch (csrc/icp_tiled.cu's kState and kPlan): floats of per-robot
+# state and ints of per-robot plan; and kSplit, the model points of one
+# class that one match block walks (the kernel cuts a class's segment into
+# ceil(points / K3_SPLIT_LEN) even splits). k3_scratch_shapes sizes by them.
+_K3_STATE = 8
+_K3_PLAN = 12
+K3_SPLIT_LEN = 2048
 
 # kernel launches made by icp_fused_planes (K1), icp_fused (K2) and
 # icp_fused_planes_tiled (K3), the card path only; a K3 launch is one call,
@@ -49,8 +60,9 @@ launches = 0
 packed_launches = 0
 tiled_launches = 0
 
-# K1 stages 3 (S + C) floats in shared memory; 1 KB stays for its static part
-_MAX_SMEM = cuda_build.MAX_SMEM - 1024
+# K1 stages S + C packed (x, y) points in dynamic shared memory; 4 KB stay
+# for its static part (warp counts, reduction slots, the carry)
+_MAX_SMEM = cuda_build.MAX_SMEM - 4096
 
 
 def encode_scene_class(valid, ga):
@@ -164,12 +176,15 @@ def _participation(sc, ga_on, nga_on):
     return ((sc >= 0.0) & class_on).to(torch.float32)
 
 
+def _moment_terms(w, qx, qy, ux, uy, rowmin):
+    """Each scene point's share of the ten Kabsch moments."""
+    return (w, w * qx, w * qy, ux, uy, qx * ux, qx * uy, qy * ux, qy * uy,
+            w * rowmin)
+
+
 def _moment_sums(w, qx, qy, ux, uy, rowmin):
-    def tot(v):
-        return v.sum((1, 2))
-    return (tot(w), tot(w * qx), tot(w * qy), tot(ux), tot(uy),
-            tot(qx * ux), tot(qx * uy), tot(qy * ux), tot(qy * uy),
-            tot(w * rowmin))
+    return tuple(v.sum((1, 2)) for v in _moment_terms(w, qx, qy, ux, uy,
+                                                      rowmin))
 
 
 def _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg):
@@ -241,6 +256,94 @@ def _tiled_reference_slab(sx, sy, sc, mx, my, mc, init4, cfg,
     return _fit_loop(sc, mc, init4, cfg, moments)
 
 
+def group_by_class(x, y, cls):
+    """Stable grouping of (B, N) planes by class, the kernels' first step in
+    plain PyTorch: each robot's class-1 points first, then its class-0
+    points, then the rest, each group in the input's order. Returns the
+    permuted (x, y, cls) and the (B,) counts of class 1 and class 0."""
+    one, zero = cls == 1.0, cls == 0.0
+    key = torch.where(one, 0, torch.where(zero, 1, 2))
+    order = torch.sort(key, dim=-1, stable=True).indices
+    return (torch.gather(x, -1, order), torch.gather(y, -1, order),
+            torch.gather(cls, -1, order), one.sum(-1), zero.sum(-1))
+
+
+def split_bounds(n, split_len):
+    """The kernels' even cut of n points into ceil(n / split_len) splits:
+    [(begin, end), ...]."""
+    k = -(-n // split_len)
+    return [(s * n // k, (s + 1) * n // k) for s in range(k)]
+
+
+def _grouped_split_slab(sx, sy, sc, mx, my, mc, init4, cfg, split_len):
+    """The kernels' algorithm in plain PyTorch, robot by robot: group scene
+    and model by class; a scene point of a class that is on walks only that
+    class's model segment, split by split, its (minimum, tie sums, tie
+    count) starting at (inlier_dist, 0, 0, 0); the splits' results merge in
+    split order: a strictly smaller minimum replaces, an equal one adds.
+    Returns the (B, 8) slab and the fit iterations each robot ran."""
+    gsx, gsy, _, n1, n0 = group_by_class(sx, sy, sc)
+    gmx, gmy, _, m1, m0 = group_by_class(mx, my, mc)
+    B = sx.shape[0]
+    n1, n0, m1, m0 = (v.tolist() for v in (n1, n0, m1, m0))
+    inlier = cfg.inlier_dist
+
+    def moments(tx, ty, cth, sth, ga_on, nga_on):
+        out = sx.new_zeros((10, B))
+        for b in range(B):
+            for on, r0, nr, c0, nm in (
+                    (ga_on[b], 0, n1[b], 0, m1[b]),
+                    (nga_on[b], n1[b], n0[b], m1[b], m0[b])):
+                if not bool(on) or nr == 0:
+                    continue
+                px, py = gsx[b, r0:r0 + nr, None], gsy[b, r0:r0 + nr, None]
+                qx = cth[b] * px - sth[b] * py + tx[b]
+                qy = sth[b] * px + cth[b] * py + ty[b]
+                rowmin = torch.full_like(qx, inlier)
+                sxa = torch.zeros_like(qx)
+                sya = torch.zeros_like(qx)
+                nt = torch.zeros_like(qx)
+                for a, e in split_bounds(nm, split_len):
+                    mxc = gmx[b, None, c0 + a:c0 + e]
+                    myc = gmy[b, None, c0 + a:c0 + e]
+                    dx = qx - mxc
+                    dy = qy - myc
+                    d2 = dx * dx + dy * dy
+                    m = d2.amin(-1, keepdim=True).clamp(max=inlier)
+                    sel = (d2 <= m).to(torch.float32)
+                    sxc = (sel * mxc).sum(-1, keepdim=True)
+                    syc = (sel * myc).sum(-1, keepdim=True)
+                    nc = sel.sum(-1, keepdim=True)
+                    better = m < rowmin
+                    equal = (m == rowmin).to(torch.float32)
+                    sxa = torch.where(better, sxc, sxa + equal * sxc)
+                    sya = torch.where(better, syc, sya + equal * syc)
+                    nt = torch.where(better, nc, nt + equal * nc)
+                    rowmin = torch.minimum(rowmin, m)
+                w = (rowmin < inlier).to(torch.float32)
+                inv_nt = 1.0 / torch.clamp(nt, min=1.0)
+                out[:, b] += torch.stack([v.sum() for v in _moment_terms(
+                    w, qx, qy, w * sxa * inv_nt, w * sya * inv_nt, rowmin)])
+        return tuple(out)
+
+    return _fit_loop(sc, mc, init4, cfg, moments)
+
+
+def k1_shared_bytes(S, C):
+    """Dynamic shared memory of one K1 block: S + C packed (x, y) points."""
+    return 8 * (S + C)
+
+
+def k3_scratch_shapes(B, S, C):
+    """Shapes of K3's scratch: per-robot state (f32) and plan (i32), the
+    grouped model and scene points (f32 pairs), and every scene point's
+    (minimum, tie sums, tie count) for each of the most splits one class's
+    model segment can have (f32)."""
+    return {"state": (B, _K3_STATE), "plan": (B, _K3_PLAN),
+            "grouped": (B, S + C, 2),
+            "partial": (B, -(-C // K3_SPLIT_LEN), S, 4)}
+
+
 def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
     """Launch K1; `packed` counts the launch as K2's (icp_fused)."""
     global launches, packed_launches
@@ -249,8 +352,8 @@ def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
     C = mx.shape[1]
     cuda_build.check_operands("K1", (sx, sy, sc, mx, my, mc, init4),
                               [(B, S)] * 3 + [(B, C)] * 3 + [(B, 4)])
-    if 12 * (S + C) > _MAX_SMEM:
-        raise ValueError(f"K1 holds 3 (S + C) floats in shared memory: "
+    if k1_shared_bytes(S, C) > _MAX_SMEM:
+        raise ValueError(f"K1 holds S + C packed points in shared memory: "
                          f"S={S}, C={C} exceeds {_MAX_SMEM} bytes")
     out = torch.empty((B, 8), dtype=torch.float32, device=dev)
     lib = cuda_build.library()
@@ -320,23 +423,27 @@ def icp_fused_planes_tiled_reference(sx, sy, sc, mx, my, mc, init,
 
 def _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
     """Launch K3: one call queues its set-up kernel and max_iterations
-    (match, finalize) kernel pairs on the current stream, no host sync."""
+    match kernels on the current stream, no host sync."""
     global tiled_launches
     dev = sx.device
     B, S = sx.shape
     C = mx.shape[1]
     cuda_build.check_operands("K3", (sx, sy, sc, mx, my, mc, init4),
                               [(B, S)] * 3 + [(B, C)] * 3 + [(B, 4)])
-    n_chunks = -(-S // _K3_ROWS)
+    if B > 65535:
+        raise ValueError(f"K3 takes one grid row a robot: B={B} exceeds "
+                         "65535")
     out = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    state = torch.empty((B, _K3_STATE), dtype=torch.float32, device=dev)
-    partial = torch.empty((B, n_chunks, 10), dtype=torch.float32, device=dev)
+    scratch = {k: torch.empty(shape, device=dev, dtype=torch.int32
+                              if k == "plan" else torch.float32)
+               for k, shape in k3_scratch_shapes(B, S, C).items()}
     err = cuda_build.library().slam_icp_tiled_planes(
         sx.data_ptr(), sy.data_ptr(), sc.data_ptr(), mx.data_ptr(),
         my.data_ptr(), mc.data_ptr(), init4.data_ptr(), out.data_ptr(),
-        state.data_ptr(), partial.data_ptr(), B, S, C, cfg.max_iterations,
-        cfg.inlier_dist, cfg.min_delta, cfg.min_scene_points,
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch["state"].data_ptr(), scratch["plan"].data_ptr(),
+        scratch["grouped"].data_ptr(), scratch["partial"].data_ptr(),
+        B, S, C, cfg.max_iterations, cfg.inlier_dist, cfg.min_delta,
+        cfg.min_scene_points, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "slam_icp_tiled_planes")
     tiled_launches += 1
     return out

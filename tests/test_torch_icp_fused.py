@@ -205,3 +205,38 @@ def test_wrappers_refuse_other_devices():
                                    torch.zeros(1, 3, device="meta"), CFG)
     assert tip.launches == 0 and tnn.launches == 0
     assert tip.tiled_launches == 0
+
+
+def test_k1_shared_memory_follows_the_packed_layout():
+    """K1 stages S + C packed (x, y) points; the wrapper refuses what does
+    not fit beside the kernel's static part."""
+    from slam_tpu_torch import cuda_build
+    assert tip.k1_shared_bytes(384, 512) == 8 * (384 + 512)
+    assert tip._MAX_SMEM < cuda_build.MAX_SMEM
+    assert tip.k1_shared_bytes(4096, 512) <= tip._MAX_SMEM
+    assert tip.k1_shared_bytes(8, tip.RESIDENT_TILE_LIMIT // 8) > tip._MAX_SMEM
+
+
+@pytest.mark.parametrize("off", ["ga", "nga"])
+def test_k1_algorithm_with_a_class_off_and_separated_duplicates(off):
+    """The kernels' grouped algorithm on K1's shapes: robot 0's model holds
+    3 points of one class (that class is off), and the `_problem`
+    duplicates (model points 7k and 7k + 1 equal, classes independent) and
+    a second set (14k + 2 and 14k + 9) put equal points of one class on
+    both sides of other-class points; splits of 100 model points."""
+    sx, sy, sval, sga, mx, my, mval, mga, init = _problem(seed=6)
+    cls = mga[0] if off == "ga" else ~mga[0]
+    mval[0, np.flatnonzero(mval[0] & cls)[3:]] = False
+    mx[:, 9::14], my[:, 9::14] = mx[:, 2::14][:, :mx[:, 9::14].shape[1]], \
+        my[:, 2::14][:, :my[:, 9::14].shape[1]]
+    args = [to_torch(a) for a in (
+        sx, sy, np.asarray(jip.encode_scene_class(sval, sga)), mx, my,
+        np.asarray(jip.encode_model_class(mval, mga)))]
+    init4 = tip._pack_init4(to_torch(init))
+    want = tip._decode(tip._reference_slab(*args, init4, CFG)[0])
+    got = tip._decode(tip._grouped_split_slab(*args, init4, CFG, 100)[0])
+    assert_equal(got.ok, want.ok)
+    assert_equal(got.num_corr, want.num_corr)
+    assert_close(got.pose, want.pose, atol=1e-6)
+    on_rows = ((sga[0] != (off == "ga")) & sval[0]).sum()
+    assert 0 < int(want.num_corr[0]) <= on_rows

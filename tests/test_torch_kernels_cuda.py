@@ -67,13 +67,46 @@ def test_k2_matches_plain(card):
 
 
 def test_k3_matches_plain_and_k1(card):
-    """The reference scale's shapes, ties across model tiles, and K3 vs K1's
-    plain version: pose <= POSE_TOL, ok exact, num_corr +-NCORR_TOL."""
+    """The reference scale's shapes (full, and the main path's sparse
+    occupancy in the first slots and scattered), ties across model splits,
+    and K3 vs K1's plain version: pose <= POSE_TOL, ok exact, num_corr
+    +-NCORR_TOL; check_k3 also holds two calls to the same bits."""
     from slam_tpu_torch.config import ref_scale_config
     from slam_tpu_torch.ops import icp_fused
     r = card.check_k3(ref_scale_config().icp)
-    assert set(r) == {"ref", "ties", "vs K1"}
+    assert set(r) == {"ref", "sparse", "scattered", "ties", "vs K1"}
     for v in r.values():
         assert v["pose_err"] <= card.POSE_TOL and v["ok_mismatch"] == 0
         assert v["dcorr"] <= card.NCORR_TOL
-    assert icp_fused.tiled_launches >= 3
+    assert icp_fused.tiled_launches >= 10
+
+
+@pytest.mark.parametrize("B,S", [(64, 384), (16, 2048)])
+def test_k1_special_robots_match_plain(card, B, S):
+    """Robots with the GA or the NGA class off, a robot without a scene and
+    equal model points of one class with other-class points between them,
+    at one and at two scene points a thread."""
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.ops import icp_fused
+    cfg = sim2d_config().icp
+    ops = card.fused_operands(card.registration_problem(B, S, 512, seed=8,
+                                                        special=True))
+    r = card.agreement("K1", icp_fused.icp_fused_planes(*ops, cfg),
+                       icp_fused.icp_fused_planes_reference(*ops, cfg),
+                       (0, 1, 2))
+    assert r["pose_err"] <= card.POSE_TOL and r["dcorr"] <= card.NCORR_TOL
+
+
+@pytest.mark.parametrize("scattered", [False, True])
+def test_k3_resident_branch_matches_streaming_plain(card, scattered):
+    """A sparse problem in large slot arrays (K3 keeps it in one block)
+    against the streaming plain version."""
+    from slam_tpu_torch.config import ref_scale_config
+    from slam_tpu_torch.ops import icp_fused
+    cfg = ref_scale_config().icp
+    ops = card.fused_operands(card.sparse_problem(8, 2048, 8192, 200, 900,
+                                                  scattered, seed=5))
+    r = card.agreement("K3", icp_fused.icp_fused_planes_tiled(*ops, cfg),
+                       icp_fused.icp_fused_planes_tiled_reference(*ops, cfg),
+                       (0, 1, 2))
+    assert r["pose_err"] <= card.POSE_TOL and r["dcorr"] <= card.NCORR_TOL

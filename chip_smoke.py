@@ -16,13 +16,21 @@ non-zero:
              robots whose GA or NGA class is off, a robot without a scene,
              and equal model points of one class with other-class points
              between them
-4. K4      — nearest-neighbour kernel vs its plain version
+4. K4      — nearest-neighbour kernel vs its plain version, idx equal on
+             every query and dist equal in bits: the main path's shapes
+             (B=1024, S=384, C=512) through nearest_neighbor (the model a
+             view of (B, C, 3)) and nearest_neighbor_planes (class -1
+             pads), exact duplicate model points, robots with a class
+             nearly empty, empty or without a model, unconstrained classes,
+             the model walked in tiles
 5. guard   — K1 vs icp_fit (which runs on K4), as bench.py's kernel guard
 6. K5      — particle-scoring kernel vs its plain version at config 5's
-             shapes (B=1024, N=96, P=128 and P=1, G=192), for one shared
-             table and for per-robot tables, with robots that have no
-             valid point, particles off the grid and points on cell edges:
-             hit counts must be equal
+             shapes (B=1024, N=96 of a 384-point scan read at stride 4,
+             and all 384 at stride 1; P=128 and P=1; G=192), for one
+             shared table and for per-robot tables, with robots that have
+             no valid point, particles off the grid, points on cell edges,
+             NaN counts, resolution 0.3 and a 100 x 100 grid: fractions
+             must be equal, and the bit tables equal their plain version
 7. K3      — tiled fused ICP kernel vs its plain version at the reference
              scale's shapes (B=16, S=4096, C=40960): a full problem, and
              the main path's occupancy (70 scene and 140 model points, in
@@ -34,15 +42,17 @@ non-zero:
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
-             a warm-up; kernel launch counts, median per-robot ATE,
-             robot-steps/s
+             a warm-up macro, and K4 held to its plain version on one more
+             macro's calls; kernel launch counts, median per-robot ATE,
+             robot-steps/s, ms/tick of both
 9. K2      — register_scan_to_scan (matcher "fused": K2, the packed adapter
              onto K1's kernel) on the fleet's last two scenes, vs its plain
              version
 10. pf     — config 5: parallel.shared_map.fleet_rollout_shared, particle
              matcher (K5) against one shared map, B=1024, 10 macros of 4
              ticks after a warm-up macro; ms/tick, robot-steps/s, median
-             per-robot ATE, K5 launches
+             per-robot ATE, K5 launches (two scorings and one bit table a
+             tick)
 11. 3d     — config 2: slam3d.rollout_3d at sim3d_config, B=128, 40 ticks
              with the "fused" matcher (K1) after a warm-up macro; ms/tick,
              robot-steps/s, K1 launches, median per-robot ATE, mean |z error|
@@ -53,8 +63,12 @@ non-zero:
 13. time   — K1, K2, K3, K4 and K5 timed alone against their plain
              versions at their main path's shapes (K3 on the full and on
              the sparse problem), beside the least time the card could take
-             for the same work; K1 against K3 on problems both take around
-             RESIDENT_TILE_LIMIT
+             for the same work; K4 and K5 (P=128 and P=1) both as the
+             wrapper's call and as the C entry point alone (device time,
+             launches queued back to back), and K5's bit
+             table alone; K1 against K3 on problems both take around
+             RESIDENT_TILE_LIMIT; the device operations one
+             nearest_neighbor, score_particles and pf_match call runs
 
 Every kernel launch count is set to 0 just before a main path (8-12) runs
 and read just after it. The last two lines are the kernels' JSON record
@@ -75,7 +89,6 @@ import torch
 
 POSE_TOL = 1e-3       # max |pose| error, kernel vs plain and K1 vs icp_fit
 NCORR_TOL = 2         # max |num_corr| difference, K1 (and K2) vs plain
-DIST_RTOL = 1e-6      # K4 distance relative error vs plain
 ATE_LIMIT = 0.1       # m, config 1: median per-robot ATE over ticks >= 10
 PF_ATE_LIMIT = 0.5    # m, config 5: median per-robot ATE over ticks >= 8
 FLEET = 1024
@@ -114,7 +127,10 @@ def card_line() -> str:
 KERNEL_NAMES = {"icp_fused_planes_kernelILi1E": "icp_fused_planes_kernel<1>",
                 "icp_fused_planes_kernelILi2E": "icp_fused_planes_kernel<2>",
                 "k3_setup": "k3_setup", "k3_match": "k3_match",
-                "nn_kernel": "nn_kernel", "pf_hits_kernel": "pf_hits_kernel"}
+                "nn_kernel": "nn_kernel",
+                "pf_pack_kernel": "pf_pack_kernel",
+                "pf_score_kernel": "pf_score_kernel",
+                "pf_score_warp_kernel": "pf_score_warp_kernel"}
 
 
 def ptxas_summary(path) -> list:
@@ -237,6 +253,24 @@ def cuda_ms(fn, reps=5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def kernel_ms(fn, reps=20) -> float:
+    """Mean device milliseconds per launch of `fn` (a C entry point called
+    with fixed arguments): the launches are queued behind a sleep kernel,
+    so they run back to back and the host's cost of issuing them (ctypes,
+    tens of microseconds) is not in the time."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def agreement(name, got, ref, not_ok=(0, 1)) -> dict:
     """A fused-ICP kernel's result against a plain version's: pose within
     POSE_TOL, ok equal, num_corr within NCORR_TOL; the robots `not_ok` are
@@ -276,28 +310,90 @@ def check_k1(cfg, B=FLEET, seed=0) -> dict:
     return {k: max(r[k] for r in out) for k in out[0]}
 
 
-def check_k4(B=FLEET, seed=1) -> dict:
+def replay(lib, name, call):
+    """Run `call` once, recording the arguments it passes to the C entry
+    point `name` of `lib`; return (its result, a function that launches
+    that entry point alone with the same arguments). The result holds the
+    outputs the arguments point to, so keep it while replaying."""
+    fn, rec = getattr(lib, name), []
+    setattr(lib, name, lambda *a: rec.append(a) or fn(*a))
+    try:
+        out = call()
+    finally:
+        setattr(lib, name, fn)
+    args = rec[-1]
+    return out, lambda: fn(*args)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def nn_plain(q, m, m_valid, q_class=None, m_class=None):
+    """nearest_neighbor's plain version on the card: the planes it builds
+    for the CPU, through nearest_neighbor_reference."""
     from slam_tpu_torch.ops import nn
-    q = fused_operands(registration_problem(B, seed=seed))[:6]
-    idx, dist = nn.nearest_neighbor_planes(*q)
-    ridx, rdist = nn.nearest_neighbor_reference(*q)
-    torch.cuda.synchronize()
-    rel = float(((dist - rdist).abs() / rdist.abs().clamp(min=1e-30)).max())
-    # the best distance is unique where the second best is strictly larger
-    dx = q[0][..., :, None] - q[3][..., None, :]
-    dy = q[1][..., :, None] - q[4][..., None, :]
-    d2 = dx * dx + dy * dy
-    mc = q[5][..., None, :]
-    bad = (mc >= 2.0) | (q[2][..., :, None] != mc)
-    two = torch.where(bad, nn.BIG + d2, d2).topk(2, -1, largest=False).values
-    unique = two[..., 1] > two[..., 0]
-    idx_mism = int(((idx != ridx) & unique).sum())
-    if rel > DIST_RTOL or idx_mism:
-        raise RuntimeError(f"K4 disagrees with its plain version: dist rel "
-                           f"err {rel}, idx mismatches {idx_mism}")
-    return dict(dist_rel_err=rel, idx_mismatch=idx_mism,
-                max_abs_err=float((dist - rdist).abs().max()),
-                unique_frac=float(unique.float().mean()))
+    if q_class is None or m_class is None:
+        qc = torch.zeros(q.shape[:-1], device=q.device)
+        mc = torch.zeros(m.shape[:-1], device=m.device)
+    else:
+        qc, mc = q_class.float(), m_class.float()
+    return nn.nearest_neighbor_reference(
+        q[..., 0], q[..., 1], qc, m[..., 0], m[..., 1],
+        torch.where(m_valid, mc, 2.0))
+
+
+def nn_inputs(p):
+    """nearest_neighbor's operands on a registration_problem, as the
+    "points" matcher passes them: queries (B, S, 2), the model a view of
+    (B, C, 3), bool valid and GA masks."""
+    m3 = torch.stack([p["mx"], p["my"], torch.zeros_like(p["mx"])], -1)
+    return (torch.stack([p["sx"], p["sy"]], -1), m3[..., :2], p["m_valid"],
+            p["s_ga"], p["m_ga"])
+
+
+def check_k4(B=FLEET, seed=1) -> dict:
+    """K4 against its plain version, idx equal on every query and dist
+    equal in bits: the main path's shapes through nearest_neighbor (model
+    strided from (B, C, 3)) and through nearest_neighbor_planes (with
+    class -1 pads); exact duplicate model points (ties); the special robots
+    (a class nearly empty, no scene, no model, the GA class empty);
+    unconstrained classes; the model
+    walked in tiles of 100 points."""
+    from slam_tpu_torch.ops import nn
+    main = registration_problem(B, seed=seed)
+    small = registration_problem(64, seed=seed + 1)
+    special = registration_problem(64, seed=seed + 3, special=True)
+    special["m_valid"][5] = False                  # no model point
+    special["m_valid"][6] &= ~special["m_ga"][6]   # no GA model point
+    cases = {
+        "main": (nn.nearest_neighbor, nn_plain, nn_inputs(main)),
+        "planes": (nn.nearest_neighbor_planes, nn.nearest_neighbor_reference,
+                   fused_operands(main)[:6]),
+        "ties": (nn.nearest_neighbor, nn_plain, nn_inputs(
+            registration_problem(256, seed=seed + 2, dup_stride=7))),
+        "special": (nn.nearest_neighbor, nn_plain, nn_inputs(special)),
+        "unconstrained": (nn.nearest_neighbor, nn_plain,
+                          nn_inputs(main)[:3]),
+    }
+    cases["tiles of 100"] = (
+        lambda q, m, mv, qg, mg: nn._launch(q[..., 0], q[..., 1], qg,
+                                            m[..., 0], m[..., 1], mv, mg,
+                                            tile=100),
+        nn_plain, nn_inputs(small))
+    out = {}
+    for label, (fn, plain, args) in cases.items():
+        idx, dist = fn(*args)
+        ridx, rdist = plain(*args)
+        torch.cuda.synchronize()
+        mism = int((idx != ridx).sum())
+        if mism or not same_bits(dist, rdist):
+            raise RuntimeError(f"K4 ({label}) disagrees with its plain "
+                               f"version: {mism} idx mismatches, "
+                               f"{int((dist != rdist).sum())} dist")
+        out[label] = float((dist - rdist).abs().max())
+    return dict(max_abs_err=max(out.values()), idx_mismatch=0, cases=out)
 
 
 def kernel_guard(cfg_mod) -> float:
@@ -374,27 +470,33 @@ def icp_ops(planes, init, cfg) -> float:
     return 5.0 * float((iters * same_class_pairs(planes[2], planes[5])).sum())
 
 
-def pf_problem(B=FLEET, N=PF_SCORED, P=128, G=PF_G, seed=5, device="cuda"):
-    """Config 5's scoring problem: each robot's N scan points are world
+def pf_problem(B=FLEET, N=PF_SCORED, P=128, G=PF_G, seed=5, device="cuda",
+               stride=4):
+    """Config 5's scoring problem: each robot's scan of stride * N points
+    (B, stride * N, 3), scored at `stride` as pf_match reads it, holds world
     points seen from its true pose; its P particles scatter around that
     pose. Robots 0-7 have no valid point (the denominator of 1); particle
     1 of every robot is off the grid; robots 8-15 put particle 2 at the
-    origin and their scan points on cell edges. Returns (shared grid,
-    per-robot grids, scan_xy (B, N, 2), valid (B, N), particles (B, P, 3))."""
+    origin and their scan points on cell edges. Returns a dict: the shared
+    grid, per-robot grids ("own"), the scan "xyz" (B, stride * N, 3) and
+    "mask" (B, stride * N), the scored views "scan" (B, N, 2) and "valid"
+    (B, N), and "parts" (B, P, 3)."""
     from slam_tpu_torch.mapping.point_map import (init_point_map,
                                                   update_point_map_xy)
     rng = np.random.default_rng(seed)
+    n = stride * N
     world = rng.uniform(-40, 40, (4000, 2)).astype(np.float32)
     true = np.stack([rng.uniform(-10, 10, B), rng.uniform(-10, 10, B),
                      rng.uniform(-np.pi, np.pi, B)], -1).astype(np.float32)
-    pick = world[rng.integers(0, len(world), (B, N))]          # (B, N, 2)
+    pick = world[rng.integers(0, len(world), (B, n))]          # (B, n, 2)
     c, s = np.cos(true[:, 2:3]), np.sin(true[:, 2:3])
     d = pick - true[:, None, :2]
-    scan = np.stack([c * d[..., 0] + s * d[..., 1],
-                     -s * d[..., 0] + c * d[..., 1]], -1)
-    scan[8:16] = rng.integers(-60, 60, (8, N, 2)) * 0.5
-    valid = rng.random((B, N)) < 0.9
-    valid[:8] = False
+    xyz = np.stack([c * d[..., 0] + s * d[..., 1],
+                    -s * d[..., 0] + c * d[..., 1],
+                    rng.normal(0, 1, (B, n))], -1)
+    xyz[8:16, :, :2] = rng.integers(-60, 60, (8, n, 2)) * 0.5
+    mask = rng.random((B, n)) < 0.9
+    mask[:8] = False
     parts = true[:, None] + rng.normal(0, 1, (B, P, 3)) * [0.3, 0.3, 0.05]
     parts[:, 0] = true
     parts[:, 1, :2] += 60.0
@@ -414,40 +516,152 @@ def pf_problem(B=FLEET, N=PF_SCORED, P=128, G=PF_G, seed=5, device="cuda"):
                          sum_y=shared.sum_y.expand(B, -1, -1),
                          sum_z=shared.sum_z.expand(B, -1, -1),
                          center=t(rng.uniform(-1, 1, (B, 2))))
-    return shared, own, t(scan), t(valid, torch.bool), t(parts)
+    xyz, mask = t(xyz), t(mask, torch.bool)
+    return dict(shared=shared, own=own, xyz=xyz, mask=mask,
+                scan=xyz[:, ::stride, :2], valid=mask[:, ::stride],
+                parts=t(parts))
 
 
 def pf_bound(grid, scan_xy, valid, parts):
-    """K5: read the scan, masks, particles and the count grid once, write
-    one hit count per particle; 12 f32 operations per (particle, valid
-    point) pair (rotate and translate: 4 products, 4 sums; centre: 2
-    differences; 2 divisions)."""
+    """K5: read the scored scan points, masks, particles and the count grid
+    once, write one fraction per particle; 12 f32 operations per
+    (particle, valid point) pair (rotate and translate: 4 products, 4 sums;
+    centre: 2 differences; 2 products by the scale)."""
     B, P, _ = parts.shape
     moved = nbytes(scan_xy, valid, parts, grid.count, grid.center) + B * P * 4
     return bound(moved, 12.0 * P * float(valid.sum()))
 
 
-def check_k5(shared, own, scan_xy, valid, parts) -> dict:
+def check_k5(pf) -> dict:
+    """K5 against its plain version, fractions exactly equal: shared and
+    per-robot tables, P = 128 and P = 1, the scan read at stride 4 and 1
+    from (B, 384, 3), a count grid with NaN counts, resolution 0.5 and 0.3
+    (not a power of two), and a 100 x 100 grid; the bit tables equal to
+    occupancy_bits_reference."""
     from slam_tpu_torch.config import PfConfig
+    from slam_tpu_torch.mapping.point_map import init_point_map
     from slam_tpu_torch.ops import particle
     cfg = PfConfig()
+    shared, own, parts = pf["shared"], pf["own"], pf["parts"]
+    nan = shared.replace(count=shared.count.clone())
+    occ = torch.nonzero(nan.count[0] > 0)[::3]
+    nan.count[0, occ[:, 0], occ[:, 1]] = float("nan")
+    small = init_point_map(1, 100, 0.5, device="cuda")
+    small = small.replace(count=(torch.rand(1, 100, 100, device="cuda",
+                                            generator=torch.Generator(
+                                                "cuda").manual_seed(9))
+                                 < 0.3).float())
+    views = {4: (pf["scan"], pf["valid"]),
+             1: (pf["xyz"][..., :2], pf["mask"])}
+    cases = [(f"{name} P={P} stride {st}", grid, P, st, 0.5)
+             for name, grid in (("shared", shared), ("per-robot", own))
+             for P in (parts.shape[1], 1) for st in (4, 1)]
+    cases += [("NaN counts P=128", nan, 128, 4, 0.5),
+              ("res 0.3 P=128", shared, 128, 4, 0.3),
+              ("res 0.3 P=1", shared, 1, 4, 0.3),
+              ("G=100 P=128", small, 128, 4, 0.5)]
     out = {}
-    for name, grid in (("shared", shared), ("per-robot", own)):
-        for P in (parts.shape[1], 1):
-            p = parts[:, :P].contiguous()
-            got = particle.score_particles(grid, scan_xy, valid, p, 0.5, cfg)
-            ref = particle.score_particles_reference(grid, scan_xy, valid, p,
-                                                     0.5)
-            torch.cuda.synchronize()
-            mism = int((got != ref).sum())
-            if mism or got.shape != (scan_xy.shape[0], P):
-                raise RuntimeError(f"K5 disagrees with its plain version "
-                                   f"({name} table, P={P}): {mism} "
-                                   f"mismatched hit counts")
-            out[(name, P)] = float((got - ref).abs().max())
+    for label, grid, P, st, res in cases:
+        scan, valid = views[st]
+        p = parts[:, :P]
+        got = particle.score_particles(grid, scan, valid, p, res, cfg)
+        ref = particle.score_particles_reference(grid, scan, valid, p, res)
+        torch.cuda.synchronize()
+        if not same_bits(got, ref):
+            raise RuntimeError(f"K5 ({label}) disagrees with its plain "
+                               f"version: {int((got != ref).sum())} "
+                               f"mismatched fractions")
+        out[label] = float((got - ref).abs().max())
+    bits_err = {}   # words of each bit table unequal to the plain version's
+    for label, grid in (("shared", shared), ("per-robot", own),
+                        ("NaN", nan), ("G=100", small)):
+        words = particle.occupancy_bits(grid)
+        ref = particle.occupancy_bits_reference(grid.count)
+        bits_err[label] = int((words != ref).sum()) if \
+            words.shape == ref.shape else ref.numel()
+        if bits_err[label]:
+            raise RuntimeError(f"K5's bit table ({label}) differs from "
+                               f"occupancy_bits_reference in "
+                               f"{bits_err[label]} words")
     if not bool((got[:8] == 0).all()):
         raise RuntimeError("K5 scored robots without valid points")
-    return dict(max_abs_err=max(out.values()), mismatches=0)
+    return dict(max_abs_err=max(out.values()), mismatches=0,
+                cases=len(cases), bits_err=max(bits_err.values()))
+
+
+def time_k4(p, reps=20) -> dict:
+    """K4 on a registration_problem as the "points" matcher calls it
+    (nearest_neighbor, model strided from (B, C, 3)): ms of the call and
+    of its C entry point alone, the plain version's ms and the bound (the
+    operands read once, idx and dist written, 5 operations a same-class
+    pair)."""
+    from slam_tpu_torch import cuda_build
+    from slam_tpu_torch.ops import nn
+    from slam_tpu_torch.ops.icp_fused import encode_model_class
+    args = nn_inputs(p)
+    out, alone = replay(cuda_build.library(), "slam_nn",
+                        lambda: nn.nearest_neighbor(*args))
+    q, m, mv, qg, mg = args
+    B, S, _ = q.shape
+    return dict(
+        call=cuda_ms(lambda: nn.nearest_neighbor(*args), reps),
+        alone=kernel_ms(alone, reps), plain=cuda_ms(lambda: nn_plain(*args)),
+        bound=bound(nbytes(q, mv, qg, mg) + m.numel() * 4 + B * S * 8,
+                    5.0 * float(same_class_pairs(
+                        qg.float(), encode_model_class(mv, mg)).sum())))
+
+
+def time_k5(pf, P, cfg, reps=20) -> dict:
+    """K5 on pf_problem's shared table, scan read at stride 4, P particles:
+    ms of a score_particles call and of its scoring entry point alone,
+    the plain version's ms and the bound."""
+    from slam_tpu_torch import cuda_build
+    from slam_tpu_torch.ops import particle
+    grid, scan, valid = pf["shared"], pf["scan"], pf["valid"]
+    parts = pf["parts"][:, :P]
+
+    def call():
+        return particle.score_particles(grid, scan, valid, parts, 0.5, cfg)
+    out, alone = replay(cuda_build.library(), "slam_pf_score", call)
+    return dict(call=cuda_ms(call, reps), alone=kernel_ms(alone, reps),
+                plain=cuda_ms(lambda: particle.score_particles_reference(
+                    grid, scan, valid, parts, 0.5)),
+                bound=pf_bound(grid, scan, valid, parts))
+
+
+def device_ops(fn) -> dict:
+    """Device operations (kernels, copies, fills) that one call of `fn`
+    runs, by torch.profiler, after a warm-up call: their total and their
+    names."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(n=len(names), names=names)
+
+
+def call_ops(pf, cfg) -> dict:
+    """device_ops of one nearest_neighbor call (the main path's shapes),
+    one score_particles call and one pf_match (config 5's shapes)."""
+    from slam_tpu_torch.ops import nn, particle
+    from slam_tpu_torch.types import PointCloud
+    args = nn_inputs(registration_problem(FLEET, seed=3))
+    scan = PointCloud(xyz=pf["xyz"], valid=pf["mask"],
+                      flags=torch.zeros_like(pf["mask"], dtype=torch.int32))
+    pred = pf["parts"][:, 0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"nearest_neighbor": device_ops(lambda: nn.nearest_neighbor(*args)),
+           "score_particles": device_ops(lambda: particle.score_particles(
+               pf["shared"], pf["scan"], pf["valid"], pf["parts"], 0.5,
+               cfg)),
+           "pf_match": device_ops(lambda: particle.pf_match(
+               pf["shared"], scan, pred, 0.5, cfg, generator=gen))}
+    out["pf_match"]["K5"] = sum("pf_" in n for n in out["pf_match"]["names"])
+    return out
 
 
 def check_k3(cfg) -> dict:
@@ -490,7 +704,8 @@ def check_k3(cfg) -> dict:
 
 def reset_counts(*modules) -> None:
     for m in modules:
-        for attr in ("launches", "packed_launches", "tiled_launches"):
+        for attr in ("launches", "packed_launches", "tiled_launches",
+                     "pack_launches"):
             if hasattr(m, attr):
                 setattr(m, attr, 0)
 
@@ -575,6 +790,7 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     e1.record()
     torch.cuda.synchronize()
     launches = particle.launches
+    packs = particle.pack_launches
     ticks = 4 * macros
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (fleet_size, ticks, 3) or fleet.map_grid is not None:
@@ -585,9 +801,10 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     ate = slam2d.ate(est[:, 8:], true[:, 8:])
     med = float(ate.median())
     ok_share = float(fleet.scan_reg_ok.float().mean())
-    if launches < 2 * ticks:
-        raise RuntimeError(f"K5 launched {launches} times in {ticks} ticks "
-                           f"(want 2 a tick)")
+    if launches < 2 * ticks or packs < ticks:
+        raise RuntimeError(f"K5 launched {launches} times and packed "
+                           f"{packs} tables in {ticks} ticks (want 2 and 1 "
+                           f"a tick)")
     if not med < PF_ATE_LIMIT:
         raise RuntimeError(f"config 5 median ATE {med} m not below "
                            f"{PF_ATE_LIMIT} m")
@@ -597,9 +814,9 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
           f"{ms:.3f} ms/tick, {fleet_size * 1000.0 / ms:.1f} robot-steps/s, "
           f"median ATE {med:.4f} m (ticks>=8, {float(ate.max()):.4f} max), "
           f"ok share {ok_share:.4f}, shared cells "
-          f"{int((shared.count > 0).sum())}; K5 launches {launches} "
-          f"| {card}", flush=True)
-    return fcfg, launches
+          f"{int((shared.count > 0).sum())}; K5 launches {launches}, bit "
+          f"tables {packs} | {card}", flush=True)
+    return fcfg, launches, packs
 
 
 def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
@@ -679,6 +896,7 @@ def main() -> int:
 
     from slam_tpu_torch import config as cfg_mod
     from slam_tpu_torch import cuda_build
+    from slam_tpu_torch.ops import icp as icp_mod
     from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.sim import world2d
@@ -699,19 +917,19 @@ def main() -> int:
           f"mismatches {k1['ok_mismatch']}, max |d num_corr| {k1['dcorr']}",
           flush=True)
     k4 = check_k4()
-    print(f"[K4] vs plain at B={FLEET} S=384 C=512: dist rel err "
-          f"{k4['dist_rel_err']:.3g} (bound {DIST_RTOL}), idx mismatches "
-          f"where unique {k4['idx_mismatch']} "
-          f"({k4['unique_frac']:.4f} unique)", flush=True)
+    print(f"[K4] vs plain, idx equal on every query and dist equal in bits: "
+          f"{', '.join(k4['cases'])} (B={FLEET} S=384 C=512 and smaller "
+          f"fleets; model strided from (B, C, 3))", flush=True)
     guard = kernel_guard(cfg_mod)
     print(f"[guard] K1 vs icp_fit (K4): max pose err {guard:.3g} "
           f"(bound {POSE_TOL})", flush=True)
-    pf_ops = pf_problem()
-    k5 = check_k5(*pf_ops)
-    print(f"[K5] vs plain at B={FLEET} N={PF_SCORED} P=128 and P=1 "
-          f"G={PF_G}, shared and per-robot tables: hit mismatches "
-          f"{k5['mismatches']}, max |d score| {k5['max_abs_err']}",
-          flush=True)
+    pf = pf_problem()
+    k5 = check_k5(pf)
+    print(f"[K5] vs plain at B={FLEET} N={PF_SCORED} of 384 (stride 4) and "
+          f"384 (stride 1), P=128 and P=1, G={PF_G}, shared and per-robot "
+          f"tables, NaN counts, resolution 0.5 and 0.3, G=100: "
+          f"{k5['cases']} cases, fraction mismatches {k5['mismatches']}; "
+          f"bit tables equal to occupancy_bits_reference", flush=True)
     ref_cfg = cfg_mod.ref_scale_config()
     k3 = check_k3(ref_cfg.icp)
     print("[K3] vs plain: " + "; ".join(
@@ -756,8 +974,26 @@ def main() -> int:
         cfg, icp=dataclasses.replace(cfg.icp, matcher="points"))
     pstate = slam2d.init_state(cfg, FLEET, device=dev,
                                generator=gen.manual_seed(2))
-    pstate, (pe, pt) = slam2d.rollout(pstate, world, pcfg, POINTS_TICKS, gen)
+    # rollout runs whole macros: a warm-up macro, the timed ticks, and one
+    # more macro whose nearest_neighbor calls are recorded
+    pstate, _ = slam2d.rollout(pstate, world, pcfg, field_every, gen)
     torch.cuda.synchronize()
+    e0.record()
+    pstate, (pe, pt) = slam2d.rollout(pstate, world, pcfg, POINTS_TICKS, gen)
+    e1.record()
+    torch.cuda.synchronize()
+    points_ms = e0.elapsed_time(e1) / POINTS_TICKS
+    seen = []
+    nn_call = icp_mod.nearest_neighbor
+
+    def keep(*a, **k):
+        seen.append((a, k))
+        return nn_call(*a, **k)
+    icp_mod.nearest_neighbor = keep
+    try:
+        pstate, _ = slam2d.rollout(pstate, world, pcfg, field_every, gen)
+    finally:
+        icp_mod.nearest_neighbor = nn_call
     launches = {"K1": icp_fused.launches, "K4": nn.launches}
 
     est = torch.cat(est, 1)
@@ -778,16 +1014,30 @@ def main() -> int:
     if not med < ATE_LIMIT or not p_ate < ATE_LIMIT:
         raise RuntimeError(f"median ATE {med} m (fused), {p_ate} m (points)"
                            f" not below {ATE_LIMIT} m")
+    path_k4 = []
+    for a, k in seen:
+        args = (*a, k["q_class"], k["m_class"])
+        (idx, dist), ((ridx, rdist)) = nn.nearest_neighbor(*args), nn_plain(
+            *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ridx) and same_bits(dist, rdist)):
+            raise RuntimeError(f"K4 disagrees with its plain version on the "
+                               f"points run's data: "
+                               f"{int((idx != ridx).sum())} idx mismatches")
+        path_k4.append(args)
     print(f"[main] B={FLEET} fused {TICKS} ticks: {ms_tick:.3f} ms/tick, "
           f"{FLEET * 1000.0 / ms_tick:.1f} robot-steps/s, median ATE "
           f"{med:.4f} m (ticks>=10, {float(ate.max()):.4f} max); points "
-          f"{POINTS_TICKS} ticks: median ATE {p_ate:.4f} m; launches "
+          f"{POINTS_TICKS} ticks after a warm-up macro: {points_ms:.3f} "
+          f"ms/tick, median ATE {p_ate:.4f} m, K4 equal to its plain "
+          f"version on one more macro's {len(path_k4)} calls; launches "
           f"{launches} | {card}", flush=True)
 
     k2, launches["K2"] = scan_to_scan_phase(state, world, cfg, gen)
     k2_args = k2["args"]
     del state, pstate
-    fcfg, launches["K5"] = shared_fleet_phase(world, cfg, gen, card)
+    fcfg, launches["K5"], launches["K5 table"] = shared_fleet_phase(
+        world, cfg, gen, card)
     launches["K1 (config 2)"] = rollout_3d_phase(
         cfg_mod.sim3d_config(), FLEET_3D, TICKS_3D, gen, card, "3d", "K1",
         10, ATE_3D_LIMIT, 15, Z_3D_LIMIT)
@@ -802,10 +1052,11 @@ def main() -> int:
         lambda: icp_fused.icp_fused_planes_reference(*ops, cfg.icp), reps=3)
     k1_bound = bound(icp_bytes(ops[:6], ops[6]),
                      icp_ops(ops[:6], ops[6], cfg.icp))
-    k4_ms = cuda_ms(lambda: nn.nearest_neighbor_planes(*ops[:6]))
-    k4_plain_ms = cuda_ms(lambda: nn.nearest_neighbor_reference(*ops[:6]))
-    k4_bound = bound(nbytes(*ops[:6]) + FLEET * 384 * 8,
-                     5.0 * float(same_class_pairs(ops[2], ops[5]).sum()))
+    t4 = time_k4(registration_problem(FLEET, seed=3))
+    k4_path_out, k4_path_alone = replay(cuda_build.library(), "slam_nn",
+                                        lambda: nn.nearest_neighbor(
+                                            *path_k4[-1]))
+    t4["path"] = kernel_ms(k4_path_alone)
     k2_ms = cuda_ms(lambda: icp_fused.icp_fused(*k2_args))
     k2_err = k2["pose_err"]
     k2_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*k2_args),
@@ -815,13 +1066,21 @@ def main() -> int:
     k2_bound = bound(nbytes(*k2_args[:7]) + FLEET * (3 * 4 + 1 + 3 * 4),
                      icp_ops(icp_fused.packed_planes(*k2_args[:6]),
                              k2_args[6], cfg.icp))
-    shared5, _, scan5, valid5, parts5 = pf_ops
-    pcfg5 = fcfg.pf
-    k5_ms = cuda_ms(lambda: particle.score_particles(
-        shared5, scan5, valid5, parts5, 0.5, pcfg5))
-    k5_plain_ms = cuda_ms(lambda: particle.score_particles_reference(
-        shared5, scan5, valid5, parts5, 0.5))
-    k5_bound = pf_bound(shared5, scan5, valid5, parts5)
+    t5 = time_k5(pf, 128, fcfg.pf)
+    t51 = time_k5(pf, 1, fcfg.pf)
+    count5 = pf["shared"].count
+    bits5, pack_alone = replay(cuda_build.library(), "slam_pf_pack",
+                               lambda: particle.occupancy_bits(pf["shared"]))
+    pack = dict(alone=kernel_ms(pack_alone),
+                plain=cuda_ms(lambda: particle.occupancy_bits_reference(
+                    count5)), bound=bound(nbytes(count5, bits5), 0.0))
+    ops_a_call = call_ops(pf, fcfg.pf)
+    nn_ops = ops_a_call["nearest_neighbor"]["n"]
+    k5_ops = ops_a_call["score_particles"]["n"]
+    if nn_ops != 1 or k5_ops != 2 or ops_a_call["pf_match"]["K5"] != 3:
+        raise RuntimeError(f"device ops a call: nearest_neighbor {nn_ops}, "
+                           f"score_particles {k5_ops}, K5 in pf_match "
+                           f"{ops_a_call['pf_match']['K5']} (want 1, 2, 3)")
     # K3 at the reference scale's shapes, on the [K3] phase's problem
     ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
                                                seed=11, span=100.0,
@@ -854,12 +1113,23 @@ def main() -> int:
             reps=10)))
     print(f"[time] B={FLEET} S=384 C=512: K1 {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.4f} ms, bound {k1_bound[0]:.6f} ms "
-          f"({k1_bound[1]}); K4 {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
-          f"bound {k4_bound[0]:.6f} ms ({k4_bound[1]}); S=C=384: K2 "
+          f"({k1_bound[1]}); K4 call {t4['call']:.4f} ms, kernel alone "
+          f"{t4['alone']:.4f} ms (on the points path's last call "
+          f"{t4['path']:.4f} ms), plain {t4['plain']:.4f} ms, bound "
+          f"{t4['bound'][0]:.6f} ms ({t4['bound'][1]}); S=C=384: K2 "
           f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
-          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); N={PF_SCORED} P=128 "
-          f"G={PF_G} shared: K5 {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms, "
-          f"bound {k5_bound[0]:.6f} ms ({k5_bound[1]}); B={FLEET_REF} "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); N={PF_SCORED} of 384 "
+          f"G={PF_G} shared: K5 P=128 call (table and scores) "
+          f"{t5['call']:.4f} ms, scoring kernel alone {t5['alone']:.4f} ms, "
+          f"plain {t5['plain']:.4f} ms, bound {t5['bound'][0]:.6f} ms "
+          f"({t5['bound'][1]}); K5 P=1 call {t51['call']:.4f} ms, kernel "
+          f"alone {t51['alone']:.4f} ms, plain {t51['plain']:.4f} ms, bound "
+          f"{t51['bound'][0]:.6f} ms ({t51['bound'][1]}); bit table alone "
+          f"{pack['alone']:.4f} ms, plain {pack['plain']:.4f} ms, bound "
+          f"{pack['bound'][0]:.6f} ms; device ops a call: nearest_neighbor "
+          f"{nn_ops}, score_particles {k5_ops}, pf_match "
+          f"{ops_a_call['pf_match']['n']} (K5 "
+          f"{ops_a_call['pf_match']['K5']}); B={FLEET_REF} "
           f"S={REF_S} C={REF_C}: K3 {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} "
           f"ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]}); the same slots "
           f"with {REF_SCENE} scene and {REF_TARGET} model points scattered: "
@@ -893,12 +1163,16 @@ def main() -> int:
                "slam_tpu_torch/csrc/icp_tiled.cu",
                "slam_tpu/ops/icp_pallas.py:271", "K3",
                k3["ref"]["pose_err"], k3_ms, k3_plain_ms, k3_bound),
-        record("nearest_neighbor_planes (K4)", "slam_tpu_torch/csrc/nn.cu",
+        record("nearest_neighbor (K4)", "slam_tpu_torch/csrc/nn.cu",
                "slam_tpu/ops/nn_pallas.py:38", "K4", k4["max_abs_err"],
-               k4_ms, k4_plain_ms, k4_bound),
+               t4["call"], t4["plain"], t4["bound"]),
         record("score_particles (K5)", "slam_tpu_torch/csrc/particle.cu",
                "slam_tpu/ops/particle.py:160", "K5", k5["max_abs_err"],
-               k5_ms, k5_plain_ms, k5_bound),
+               t5["call"], t5["plain"], t5["bound"]),
+        record("occupancy_bits (K5's bit table)",
+               "slam_tpu_torch/csrc/particle.cu",
+               "slam_tpu/ops/particle.py:160", "K5 table", k5["bits_err"],
+               pack["alone"], pack["plain"], pack["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -36,11 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "slam_icp_fused_planes": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
     "slam_icp_tiled_planes": [_P] * 12 + [_I] * 4 + [_F, _F, _I, _P],
-    "slam_nn": [_P] * 8 + [_I] * 3 + [_P],
-    "slam_pf_hits": [_P] * 7 + [_I] * 4 + [_F, _I, _P],
+    "slam_nn": [_P] * 9 + [_I] * 5 + [_P, _I, _I, _P],
+    "slam_pf_pack": [_P, _L, _L, _L, _I, _I, _P, _P],
+    "slam_pf_score": [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_F, _P, _I, _I,
+                                                           _P],
 }
 
 # dynamic shared memory one block may use on sm_90
@@ -118,16 +121,21 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check_operands(name: str, tensors, shapes, dtypes=None) -> None:
-    """Raise unless every tensor is a contiguous tensor of its shape and
-    type (f32 unless `dtypes` says otherwise), all on the first tensor's
+def check_operands(name: str, tensors, shapes, dtypes=None,
+                   contiguous=None) -> None:
+    """Raise unless every tensor is a tensor of its shape and type (f32
+    unless `dtypes` says otherwise), contiguous unless `contiguous` says
+    the kernel reads it through its strides, all on the first tensor's
     device: what a kernel reads through a raw pointer."""
     dev = tensors[0].device
     dtypes = dtypes or [torch.float32] * len(tensors)
-    for t, shape, dtype in zip(tensors, shapes, dtypes):
+    contiguous = contiguous or [True] * len(tensors)
+    for t, shape, dtype, cont in zip(tensors, shapes, dtypes, contiguous):
         if (t.device != dev or t.dtype != dtype
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-            raise ValueError(f"{name} takes contiguous tensors on one "
+                or tuple(t.shape) != tuple(shape)
+                or (cont and not t.is_contiguous())):
+            raise ValueError(f"{name} takes {'contiguous ' if cont else ''}"
+                             f"tensors on one "
                              f"device: got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, want {dtype} {tuple(shape)}")
 

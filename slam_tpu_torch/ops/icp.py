@@ -53,9 +53,8 @@ def fit_step(q_xyz, q_valid, q_ga, m_xyz, m_valid, m_ga, pose, inlier_dist):
     q = torch.einsum("...ij,...nj->...ni", R, q_xyz) + t[..., None, :]
 
     participate = q_valid & _class_participation(q_ga, m_ga, m_valid)
-    idx, d2 = nearest_neighbor(q, m_xyz, m_valid,
-                               q_class=q_ga.to(torch.int32),
-                               m_class=m_ga.to(torch.int32))
+    idx, d2 = nearest_neighbor(q, m_xyz, m_valid, q_class=q_ga,
+                               m_class=m_ga)
     inlier = participate & (d2 < inlier_dist)
     m_corr = torch.gather(m_xyz, -2, idx.long()[..., None].expand(
         *idx.shape, 2))

@@ -11,13 +11,18 @@ own (batch B) or one map the fleet shares (batch 1).
 `score_particles` launches K5 for CUDA tensors (scorer "auto", "pallas" or
 "kernel") and runs `score_particles_reference`, the plain PyTorch gather
 form of `score_pose`, for CPU tensors and for scorers "gather" and "dense";
-every engine gives the same scores.
+every engine gives the same scores. On the card K5 packs the grid into a
+bit table (`occupancy_bits`, one launch) and scores from it (one launch,
+reading the scan, mask, particles and centre as they lie); `pf_match`
+packs once and scores twice.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from slam_tpu_torch import cuda_build
@@ -27,8 +32,10 @@ from slam_tpu_torch.mapping.point_map import PointMapGrid
 KERNEL_SCORERS = ("auto", "pallas", "kernel")
 PLAIN_SCORERS = ("gather", "dense")
 
-# kernel launches made by score_particles (the card path only)
+# kernel launches made on the card path: scoring calls, and bit tables
+# packed (one a score_particles call, one a pf_match)
 launches = 0
+pack_launches = 0
 
 
 class PFResult(NamedTuple):
@@ -42,6 +49,35 @@ def occupancy_flat(grid: PointMapGrid) -> torch.Tensor:
     """(Bg, G*G) bool occupancy table (count > 0; a NaN count, the mark of
     a misaligned merge, is not occupied)."""
     return grid.count.reshape(grid.count.shape[0], -1) > 0
+
+
+def occupancy_bits_reference(count: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5's table packing: (Bg, G, G) counts -> (Bg, W)
+    int32 words, W = ceil(G*G / 32); cell (ix, iy) is bit (ix*G + iy) % 32
+    of word (ix*G + iy) // 32, set where count > 0."""
+    Bg, G, _ = count.shape
+    W = (G * G + 31) // 32
+    occ = count.reshape(Bg, -1) > 0
+    occ = torch.nn.functional.pad(occ, (0, W * 32 - G * G))
+    shifts = torch.arange(32, device=count.device, dtype=torch.int64)
+    words = (occ.reshape(Bg, W, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def cell_scale(resolution: float) -> float:
+    """The factor K5 multiplies by: the f32 reciprocal of the f32
+    resolution. PyTorch on the card computes `tensor / python_float` as
+    this multiply, so the plain version there does too; for a power-of-two
+    resolution it equals the CPU's division bit for bit."""
+    return float(np.float32(1.0) / np.float32(resolution))
+
+
+def score_layout(scan_xy, valid, particles, center) -> list[int]:
+    """The element strides K5 reads its operands with: scan view (B, N, 2),
+    mask view (B, N), particles (B, P, 3), centre (Bg, 2)."""
+    return [*scan_xy.stride(), *valid.stride(), *particles.stride(),
+            *center.stride()]
 
 
 def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution):
@@ -64,39 +100,72 @@ def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution):
     return (inb & hit.reshape(B, P, N)).sum(-1).to(torch.float32)
 
 
-def _hits_kernel(grid, sx, sy, valid, px, py, c, s, resolution):
-    """K5 on the card: the same counts as _hits_reference."""
+def occupancy_bits(grid: PointMapGrid) -> torch.Tensor:
+    """K5's bit table of the grid: packed on the card by one launch, by
+    occupancy_bits_reference for a grid on the CPU."""
+    global pack_launches
+    count = grid.count
+    if count.device.type == "cpu":
+        return occupancy_bits_reference(count)
+    Bg, G, G2 = count.shape
+    if count.dtype != torch.float32 or G != G2:
+        raise ValueError(f"K5 packs an f32 (Bg, G, G) count grid, got "
+                         f"{count.dtype} {tuple(count.shape)}")
+    bits = torch.empty((Bg, (G * G + 31) // 32), dtype=torch.int32,
+                       device=count.device)
+    err = cuda_build.library().slam_pf_pack(
+        count.data_ptr(), *count.stride(), Bg, G, bits.data_ptr(),
+        torch.cuda.current_stream(count.device).cuda_stream)
+    cuda_build.check(err, "slam_pf_pack")
+    pack_launches += 1
+    return bits
+
+
+def _score_kernel(bits, grid, scan_xy, valid, particles, resolution):
+    """K5 on the card: (B, P) hit fractions from the bit table `bits` of
+    `grid`, reading the other operands through their strides."""
     global launches
-    B, N = sx.shape
-    P = px.shape[1]
+    B, N = valid.shape
+    P = particles.shape[1]
     Bg, G, _ = grid.count.shape
     if Bg not in (1, B):
         raise ValueError(f"K5 takes a grid of batch 1 or {B}, not {Bg}")
-    occ = (grid.count > 0).to(torch.uint8)
-    parts = torch.stack([px, py, c, s], -1).contiguous()
-    sx, sy, valid = sx.contiguous(), sy.contiguous(), valid.contiguous()
-    center = grid.center.contiguous()
+    W = (G * G + 31) // 32
+    center = grid.center
     cuda_build.check_operands(
-        "K5", (sx, sy, valid, parts, occ, center),
-        [(B, N), (B, N), (B, N), (B, P, 4), (Bg, G, G), (Bg, 2)],
-        [torch.float32, torch.float32, torch.bool, torch.float32,
-         torch.uint8, torch.float32])
-    if ((G * G + 15) & ~15) + 9 * N > cuda_build.MAX_SMEM:
-        raise ValueError(f"K5 stages a {G}x{G} table and {N} points in "
+        "K5", (scan_xy, valid, particles, center, bits),
+        [(B, N, 2), (B, N), (B, P, 3), (Bg, 2), (Bg, W)],
+        [torch.float32, torch.bool, torch.float32, torch.float32,
+         torch.int32], contiguous=(False,) * 4 + (True,))
+    warp = P < 32
+    smem = 4 * ((W + 1) & ~1) + 8 * N
+    if not warp and smem > cuda_build.MAX_SMEM:
+        raise ValueError(f"K5 stages a {G}x{G} bit table and {N} points in "
                          f"shared memory: over {cuda_build.MAX_SMEM} bytes")
-    hits = torch.empty((B, P), dtype=torch.float32, device=sx.device)
-    err = cuda_build.library().slam_pf_hits(
-        sx.data_ptr(), sy.data_ptr(), valid.data_ptr(), parts.data_ptr(),
-        occ.data_ptr(), center.data_ptr(), hits.data_ptr(), B, N, P, G,
-        resolution, int(Bg == 1),
-        torch.cuda.current_stream(sx.device).cuda_stream)
-    cuda_build.check(err, "slam_pf_hits")
+    out = torch.empty((B, P), dtype=torch.float32, device=valid.device)
+    layout = (ctypes.c_longlong * 10)(*score_layout(scan_xy, valid,
+                                                    particles, center))
+    err = cuda_build.library().slam_pf_score(
+        bits.data_ptr(), G, int(Bg == 1), center.data_ptr(),
+        scan_xy.data_ptr(), valid.data_ptr(), particles.data_ptr(),
+        out.data_ptr(), B, N, P, cell_scale(resolution), layout, int(warp),
+        smem, torch.cuda.current_stream(valid.device).cuda_stream)
+    cuda_build.check(err, "slam_pf_score")
     launches += 1
-    return hits
+    return out
 
 
 def _fractions(hits, valid):
     return hits / valid.sum(-1, keepdim=True).clamp(min=1).to(torch.float32)
+
+
+def _uses_kernel(engine: str, dev: torch.device) -> bool:
+    if engine not in KERNEL_SCORERS + PLAIN_SCORERS:
+        raise ValueError(f"unknown pf.scorer {engine!r} "
+                         f"(have {KERNEL_SCORERS + PLAIN_SCORERS})")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"score_particles: unsupported device {dev}")
+    return dev.type == "cuda" and engine in KERNEL_SCORERS
 
 
 def score_particles_reference(grid: PointMapGrid, scan_xy: torch.Tensor,
@@ -114,23 +183,14 @@ def score_particles_reference(grid: PointMapGrid, scan_xy: torch.Tensor,
 def score_particles(grid: PointMapGrid, scan_xy, valid, particles,
                     resolution: float, cfg) -> torch.Tensor:
     """(B, P) hit fractions — engine dispatch on cfg.scorer (a PfConfig).
-    On CUDA tensors "auto", "pallas" and "kernel" launch K5; "gather" and
-    "dense" (and every scorer on CPU tensors) run the plain version."""
-    engine = cfg.scorer
-    if engine not in KERNEL_SCORERS + PLAIN_SCORERS:
-        raise ValueError(f"unknown pf.scorer {engine!r} "
-                         f"(have {KERNEL_SCORERS + PLAIN_SCORERS})")
-    dev = scan_xy.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"score_particles: unsupported device {dev}")
-    if dev.type == "cpu" or engine in PLAIN_SCORERS:
+    On CUDA tensors "auto", "pallas" and "kernel" launch K5 (a bit table,
+    then the scores); "gather" and "dense" (and every scorer on CPU
+    tensors) run the plain version."""
+    if not _uses_kernel(cfg.scorer, scan_xy.device):
         return score_particles_reference(grid, scan_xy, valid, particles,
                                          resolution)
-    yaw = particles[..., 2]
-    hits = _hits_kernel(grid, scan_xy[..., 0], scan_xy[..., 1], valid,
-                        particles[..., 0], particles[..., 1], torch.cos(yaw),
-                        torch.sin(yaw), resolution)
-    return _fractions(hits, valid)
+    return _score_kernel(occupancy_bits(grid), grid, scan_xy, valid,
+                         particles, resolution)
 
 
 def score_pose(grid: PointMapGrid, scan_xy, valid, pose,
@@ -139,6 +199,18 @@ def score_pose(grid: PointMapGrid, scan_xy, valid, pose,
     occupied cells at its pose (B, 3); plain PyTorch."""
     return score_particles_reference(grid, scan_xy, valid, pose[:, None, :],
                                      resolution)[:, 0]
+
+
+_SIGMA: dict = {}
+
+
+def _sigma(cfg, dev) -> torch.Tensor:
+    """(3,) proposal scales [pos, pos, yaw], made once per device."""
+    key = (cfg.pos_sigma, cfg.yaw_sigma, dev)
+    if key not in _SIGMA:
+        _SIGMA[key] = torch.tensor([cfg.pos_sigma, cfg.pos_sigma,
+                                    cfg.yaw_sigma], device=dev)
+    return _SIGMA[key]
 
 
 def pf_match(grid: PointMapGrid, scan, pred_pose: torch.Tensor,
@@ -162,16 +234,22 @@ def pf_match(grid: PointMapGrid, scan, pred_pose: torch.Tensor,
             noise = torch.randn((B, P, 3), generator=generator, device=dev)
         if u is None:
             u = torch.rand((B,), generator=generator, device=dev)
-    sigma = torch.tensor([cfg.pos_sigma, cfg.pos_sigma, cfg.yaw_sigma],
-                         device=dev)
-    particles = pred_pose[:, None, :] + noise * sigma
+    particles = pred_pose[:, None, :] + noise * _sigma(cfg, dev)
     particles[:, 0] = pred_pose
 
     st = max(1, int(cfg.score_stride))
     scan_xy = scan.xyz[:, ::st, :2]
     valid = scan.valid[:, ::st]
-    scores = score_particles(grid, scan_xy, valid, particles, resolution,
-                             cfg)                                 # (B, P)
+    if _uses_kernel(cfg.scorer, dev):
+        bits = occupancy_bits(grid)        # one table for both scorings
+
+        def score(p):
+            return _score_kernel(bits, grid, scan_xy, valid, p, resolution)
+    else:
+        def score(p):
+            return score_particles_reference(grid, scan_xy, valid, p,
+                                             resolution)
+    scores = score(particles)                                     # (B, P)
 
     w = torch.softmax(scores / cfg.temperature, -1)
     mx = (w * particles[..., 0]).sum(-1)
@@ -187,8 +265,7 @@ def pf_match(grid: PointMapGrid, scan, pred_pose: torch.Tensor,
     resampled = torch.gather(particles, 1, idx[..., None].expand(-1, -1, 3))
 
     # the gate reads the score of the returned pose, not the best particle
-    out_score = score_particles(grid, scan_xy, valid, pose[:, None, :],
-                                resolution, cfg)[:, 0]
+    out_score = score(pose[:, None, :])[:, 0]
     return PFResult(pose=pose, score=out_score, ok=out_score >= cfg.min_score,
                     particles=resampled)
 

@@ -1,10 +1,11 @@
 """Where a tick's device time goes, on the card: torch.profiler over a few
-macros of config 1 (slam2d.rollout, "fused", B = 1024), config 5
+macros of config 1 (slam2d.rollout, "fused", B = 1024, or with
+`--config 1points` the "points" matcher: icp_fit on K4), config 5
 (shared_map.fleet_rollout_shared, "particle", stride 4, B = 1024) or config
 2 (slam3d.rollout_3d, "fused": at sim3d_config with K1, B = 128, or at
 ref_scale_config with K3, B = 16).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5    # 1, 5, 2 or ref
+    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref
 
 The package carries no spans; this script wraps the pipeline's stage
 functions in torch.profiler.record_function ranges for the run (a kernel
@@ -49,6 +50,7 @@ _EKF = ((ekf_mod, "motion_update", "EKF predict"),
 STAGES_2D = ((world2d, "raycast", "raycast"),) + _EKF + (
     (slam2d, "build_scene_planes", "scene build"),
     (slam2d, "fused_register", "registration, K1"),
+    (slam2d, "register_scan", "registration, icp_fit (K4)"),
     (slam2d, "pf_match", "registration, particle filter (K5)"),
     (slam2d, "update_point_map_xy", "point-map update"),
     (slam2d, "export_point_planes", "map export"),
@@ -127,7 +129,8 @@ def _attribute(trace: dict, labels) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "5", "2", "ref"), default="5")
+    ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref"),
+                    default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -150,6 +153,9 @@ def main(argv=None) -> int:
         aux = slam3d.init_ground_map(cfg, batch, device=dev)
     else:
         cfg = cfg_mod.sim2d_config()
+        if args.config == "1points":
+            cfg = dataclasses.replace(
+                cfg, icp=dataclasses.replace(cfg.icp, matcher="points"))
         if args.config == "5":
             cfg = dataclasses.replace(
                 cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),

@@ -30,8 +30,16 @@ def test_k1_matches_plain(card):
 
 
 def test_k4_matches_plain(card):
+    """idx equal on every query and dist equal in bits: the main path's
+    shapes (model strided from (B, C, 3)), the planes form with class -1
+    pads, ties, special robots (a class nearly empty, empty, no model),
+    unconstrained classes, model tiles."""
+    from slam_tpu_torch.ops import nn
     r = card.check_k4()
-    assert r["dist_rel_err"] <= card.DIST_RTOL and r["idx_mismatch"] == 0
+    assert r["idx_mismatch"] == 0 and r["max_abs_err"] == 0.0
+    assert set(r["cases"]) == {"main", "planes", "ties", "special",
+                               "unconstrained", "tiles of 100"}
+    assert nn.launches >= len(r["cases"])
 
 
 def test_k1_matches_icp_fit_on_k4(card):
@@ -43,12 +51,33 @@ def test_k1_matches_icp_fit_on_k4(card):
 def test_k5_matches_plain(card, table):
     from slam_tpu_torch.config import PfConfig
     from slam_tpu_torch.ops import particle
-    shared, own, scan, valid, parts = card.pf_problem(B=256)
-    grid = shared if table == "shared" else own
-    got = particle.score_particles(grid, scan, valid, parts, 0.5, PfConfig())
-    want = particle.score_particles_reference(grid, scan, valid, parts, 0.5)
-    assert torch.equal(got, want)
-    assert particle.launches > 0
+    pf = card.pf_problem(B=256)
+    grid = pf["shared"] if table == "shared" else pf["own"]
+    for P in (128, 1):
+        parts = pf["parts"][:, :P]
+        got = particle.score_particles(grid, pf["scan"], pf["valid"], parts,
+                                       0.5, PfConfig())
+        want = particle.score_particles_reference(grid, pf["scan"],
+                                                  pf["valid"], parts, 0.5)
+        assert card.same_bits(got, want)
+    assert particle.launches > 0 and particle.pack_launches > 0
+
+
+def test_k5_cases_match_plain(card):
+    """Strides 4 and 1 from a (B, 384, 3) scan, NaN counts, resolution 0.3,
+    a 100 x 100 grid; the bit tables equal their plain version."""
+    r = card.check_k5(card.pf_problem(B=256))
+    assert r["mismatches"] == 0 and r["cases"] == 12
+
+
+def test_call_device_ops(card):
+    """One nearest_neighbor call is one launch, one score_particles call
+    two (table and scores), and pf_match launches K5 three times."""
+    from slam_tpu_torch.config import PfConfig
+    ops = card.call_ops(card.pf_problem(B=256), PfConfig(score_stride=4))
+    assert ops["nearest_neighbor"]["n"] == 1
+    assert ops["score_particles"]["n"] == 2
+    assert ops["pf_match"]["K5"] == 3
 
 
 def test_k2_matches_plain(card):

@@ -14,6 +14,7 @@ at 40 m."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from slam_tpu.config import IcpConfig
@@ -131,3 +132,135 @@ def test_icp_fit_matches_jax():
     assert_equal(got.num_corr, want.num_corr)
     assert_close(got.mean_residual, want.mean_residual, atol=1e-4)
     assert got.ok[:2].all() and not got.ok[2]
+
+
+# ---- K4's algorithm, emulated: the class-grouped walk ----------------------
+
+F32 = np.float32
+
+
+def _sqdist(qx, qy, mx, my):
+    dx = F32(qx) - mx
+    dy = F32(qy) - my
+    return dx * dx + dy * dy          # f32, each step rounded on its own
+
+
+def _grouped_nn(qx, qy, qc, mx, my, mv, mc, tile):
+    """K4's algorithm in numpy, robot by robot: queries grouped by class
+    walk their class's valid model points tile by tile with a strict `<`;
+    a query whose every pair is cross-class or invalid answers (0, BIG) when
+    model point 0 gives BIG; other such queries, and queries of other
+    classes where the model holds other classes, walk every point with
+    `BIG + d2` on bad pairs."""
+    B, S = qx.shape
+    C = mx.shape[1]
+    big = F32(tnn.BIG)
+    idx = np.zeros((B, S), np.int32)
+    dist = np.zeros((B, S), F32)
+    for b in range(B):
+        m = np.where(mv[b], mc[b], F32(2)).astype(F32)
+        m = np.where(m >= 2, F32(2), m)
+        counts = {1.0: (m == 1).sum(), 0.0: (m == 0).sum()}
+        other = ((m < 2) & (m != 1) & (m != 0)).sum()
+        for i in range(S):
+            c = qc[b, i]
+            grouped = c in counts and counts[c] > 0
+            if not grouped and not (c not in counts and other) and \
+                    big + _sqdist(qx[b, i], qy[b, i], mx[b, 0],
+                                  my[b, 0]) == big:
+                idx[b, i], dist[b, i] = 0, big
+                continue
+            best, bi = F32(np.inf), 0
+            for t0 in range(0, C, tile):
+                ks = np.arange(t0, min(C, t0 + tile))
+                if grouped:
+                    ks = ks[m[ks] == c]
+                if not len(ks):
+                    continue
+                d = _sqdist(qx[b, i], qy[b, i], mx[b, ks], my[b, ks])
+                if not grouped:
+                    bad = (m[ks] >= 2) | (m[ks] != c)
+                    d = np.where(bad, big + d, d)
+                j = int(np.argmin(d))
+                if d[j] < best:
+                    best, bi = d[j], int(ks[j])
+            idx[b, i], dist[b, i] = bi, best
+    return idx, dist
+
+
+def _k4_problem(seed, B=3, S=40, C=60):
+    """Duplicated model points (exact ties), robot 1 without GA model
+    points, robot 2 without any valid model point, query pads (class -1)."""
+    rng = np.random.default_rng(seed)
+    q, _, q_ga, m, m_valid, m_ga = _problem(B=B, S=S, C=C, seed=seed)
+    m[:, 1::4] = m[:, 0::4][:, :m[:, 1::4].shape[1]]
+    m_ga[:, 1::4] = m_ga[:, 0::4][:, :m_ga[:, 1::4].shape[1]]
+    m_valid[1] &= ~m_ga[1]
+    m_valid[2] = False
+    qc = np.where(rng.random((B, S)) < 0.1, -1.0, q_ga).astype(F32)
+    return q, qc, m, m_valid, m_ga
+
+
+@pytest.mark.parametrize("tile", [60, 7])
+def test_grouped_walk_matches_plain_and_pallas(tile):
+    """The emulated grouped walk (one tile, and tiles of 7 points) against
+    the plain version (idx equal, dist in bits) and slam_tpu's Pallas
+    kernel in interpret mode (idx equal, dist to 1 ulp: XLA's FMA)."""
+    q, qc, m, m_valid, m_ga = _k4_problem(seed=5)
+    mc = m_ga.astype(F32)
+    got = _grouped_nn(q[..., 0], q[..., 1], qc, m[..., 0], m[..., 1],
+                      m_valid, mc, tile)
+    planes = (q[..., 0], q[..., 1], qc, m[..., 0], m[..., 1],
+              np.where(m_valid, mc, F32(2)).astype(F32))
+    widx, wd = tnn.nearest_neighbor_reference(*map(to_torch, planes))
+    np.testing.assert_array_equal(got[0], widx.numpy())
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  wd.numpy().view(np.int32))
+    with pallas_interpret():
+        pidx, pd = jnnp._nn_batched(*map(jnp.asarray, planes))
+    np.testing.assert_array_equal(got[0], np.asarray(pidx))
+    assert_close(torch.from_numpy(got[1]), pd, atol=0, rtol=1.2e-7)
+    # the cases the test is for are there: ties, the (0, BIG) answers
+    assert (got[1] == F32(tnn.BIG)).sum() > 40
+    assert (np.abs(m[:, 1::4] - m[:, 0::4][:, :15]).sum(-1) == 0).all()
+
+
+def test_grouped_walk_other_classes():
+    """Model points of a class other than 0 and 1 (class -1 in the model):
+    the queries of that class take the full walk and find them."""
+    q, qc, m, m_valid, m_ga = _k4_problem(seed=6)
+    mc = m_ga.astype(F32)
+    mc[:, 3::5] = -1.0
+    got = _grouped_nn(q[..., 0], q[..., 1], qc, m[..., 0], m[..., 1],
+                      m_valid, mc, 13)
+    planes = (q[..., 0], q[..., 1], qc, m[..., 0], m[..., 1],
+              np.where(m_valid, mc, F32(2)).astype(F32))
+    widx, wd = tnn.nearest_neighbor_reference(*map(to_torch, planes))
+    np.testing.assert_array_equal(got[0], widx.numpy())
+    np.testing.assert_array_equal(got[1], wd.numpy())
+    pads = qc[0] == -1
+    assert (got[1][0][pads] < F32(tnn.BIG)).all()
+
+
+def test_k4_operand_layout():
+    """nn_layout gives the strides that read nearest_neighbor's views
+    (queries (B, S, 2), the model a view of (B, C, 3), masks) as they lie;
+    nn_tiles fits a tile and the queries in shared memory."""
+    q = torch.randn(3, 40, 2)
+    m3 = torch.randn(3, 60, 3)
+    mv = torch.rand(3, 60) < 0.9
+    planes = (q[..., 0], q[..., 1], None, m3[..., 0], m3[..., 1], mv, None)
+    lay = tnn.nn_layout(*planes)
+    assert lay[4:6] == [0, 0] and lay[12:] == [0, 0]
+    for k, p in enumerate(planes):
+        if p is None:
+            continue
+        back = torch.as_strided(p, p.shape, lay[2 * k:2 * k + 2],
+                                p.storage_offset())
+        assert torch.equal(back, p)
+    assert lay[6:8] == [180, 3]
+    assert tnn.nn_tiles(384, 512) == (512, 384)
+    tile, qchunk = tnn.nn_tiles(384, 50000)
+    assert 24 * (tile + qchunk) <= tnn.cuda_build.MAX_SMEM < 24 * (
+        tile + 1 + qchunk)
+    assert tnn.nn_tiles(5000, 10) == (10, tnn.MAX_QCHUNK)

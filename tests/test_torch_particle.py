@@ -281,3 +281,113 @@ def test_rollout_particle_form_tracks():
     assert fin.scan_reg_ok.all() and (fin.map_grid.count > 0).any()
     assert not fin.map_cloud.valid.any()   # the particle form never exports
     assert tpart.launches == 0
+
+
+# ---- K5's pieces: the bit table, the scale, the strided reads --------------
+
+def _unpack(words, G):
+    """(Bg, W) int32 words -> (Bg, G*G) bools, bit k % 32 of word k // 32."""
+    w = words.numpy().view(np.uint32)
+    bits = (w[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(len(w), -1)[:, :G * G].astype(bool)
+
+
+@pytest.mark.parametrize("G", [192, 100])
+def test_occupancy_bits_packing(G):
+    """The bit table holds count > 0 cell by cell (G*G a multiple of 32 and
+    not); a NaN count, the mark of a misaligned merge, is not occupied."""
+    rng = np.random.default_rng(G)
+    count = rng.integers(0, 3, (2, G, G)).astype(np.float32)
+    count[rng.random((2, G, G)) < 0.05] = np.nan
+    count[1, -1, -1] = 1.0                      # the last, partial word
+    words = tpart.occupancy_bits_reference(to_torch(count))
+    assert words.dtype == torch.int32
+    assert words.shape == (2, (G * G + 31) // 32)
+    np.testing.assert_array_equal(_unpack(words, G),
+                                  (count > 0).reshape(2, -1))
+    grid = PointMapGrid(count=to_torch(count), sum_x=None, sum_y=None,
+                        sum_z=None, center=torch.zeros(2, 2))
+    assert_equal(tpart.occupancy_bits(grid), words)
+    assert tpart.pack_launches == 0
+
+
+def test_scale_power_of_two_identity():
+    """For a power-of-two resolution x / r and x * cell_scale(r) are the
+    same f32 bits (random, edge and subnormal values): the card's multiply
+    equals the CPU's division. For 0.3 they differ, and the card's plain
+    version multiplies (PyTorch's rule for a tensor over a Python float)."""
+    rng = np.random.default_rng(0)
+    info = np.finfo(np.float32)
+    x = np.concatenate([
+        rng.uniform(-100, 100, 200_000).astype(np.float32),
+        (rng.standard_normal(20_000) * 1e-38).astype(np.float32),
+        rng.integers(1, 2 ** 23, 20_000).astype(np.float32) * info.smallest_subnormal,
+        np.array([0.0, -0.0, info.max, -info.max, info.tiny, -info.tiny,
+                  info.smallest_subnormal, np.inf, -np.inf], np.float32)])
+    with np.errstate(over="ignore", under="ignore"):
+        for r in (0.5, 0.25, 1.0, 2.0, 0.125, 2.0 ** -20):
+            s = np.float32(tpart.cell_scale(r))
+            np.testing.assert_array_equal((x / np.float32(r)).view(np.int32),
+                                          (x * s).view(np.int32))
+        s = np.float32(tpart.cell_scale(0.3))
+        assert s == np.float32(1) / np.float32(0.3)
+        assert ((x / np.float32(0.3)) != (x * s)).any()
+
+
+def _k5_emulated(words, grid, scan_xy, valid, parts, resolution):
+    """K5's scoring in numpy from what the wrapper hands the kernel: the
+    bit table, the operands read back through score_layout's strides, the
+    reciprocal scale; fractions of hits over the valid count."""
+    G = grid.count.shape[-1]
+    lay = tpart.score_layout(scan_xy, valid, parts, grid.center)
+
+    def back(t, k0, k1):
+        return torch.as_strided(t, t.shape, lay[k0:k1],
+                                t.storage_offset()).numpy()
+    sxy, v, p, ctr = (back(scan_xy, 0, 3), back(valid, 3, 5),
+                      back(parts, 5, 8), back(grid.center, 8, 10))
+    occ = _unpack(words, G)
+    s = np.float32(tpart.cell_scale(resolution))
+    B, P, _ = p.shape
+    out = np.zeros((B, P), np.float32)
+    for b in range(B):
+        tb = 0 if len(occ) == 1 else b
+        c = to_np(torch.cos(torch.from_numpy(p[b, :, 2:3])))
+        sn = to_np(torch.sin(torch.from_numpy(p[b, :, 2:3])))
+        x, y = sxy[b, :, 0][None], sxy[b, :, 1][None]
+        wx = (c * x - sn * y) + p[b, :, 0:1]
+        wy = (sn * x + c * y) + p[b, :, 1:2]
+        fx = np.floor((wx - ctr[tb, 0]) * s)
+        fy = np.floor((wy - ctr[tb, 1]) * s)
+        inb = (fx >= -(G // 2)) & (fx < G - G // 2) & \
+            (fy >= -(G // 2)) & (fy < G - G // 2)
+        k = np.where(inb, (fx + G // 2) * G + (fy + G // 2), 0).astype(int)
+        hits = (occ[tb][k] & inb & v[b][None]).sum(-1)
+        out[b] = np.float32(hits) / np.float32(max(int(v[b].sum()), 1))
+    return out
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_robot"])
+def test_k5_emulation_matches_plain_and_jax(shared):
+    """The scan read at stride 4 from a (B, 4N, 3) cloud and the particles
+    and pose views read through score_layout's strides, scored from the bit
+    table: equal to the plain version and to JAX's gather engine."""
+    jgrids, scans, valid, parts = _problem(shared=shared, seed=7, N=48)
+    B, N = valid.shape
+    rng = np.random.default_rng(7)
+    xyz = rng.uniform(-5, 5, (B, 4 * N, 3)).astype(np.float32)
+    xyz[:, ::4, :2] = scans
+    mask = rng.random((B, 4 * N)) < 0.5
+    mask[:, ::4] = valid
+    grid = _port_grid(jgrids)
+    scan_v, valid_v = to_torch(xyz)[:, ::4, :2], to_torch(mask)[:, ::4]
+    words = tpart.occupancy_bits_reference(grid.count)
+    want = _jax_scores(jgrids, scans, valid, parts, "gather")
+    for p in (to_torch(parts), to_torch(parts)[:, :1]):
+        got = _k5_emulated(words, grid, scan_v, valid_v, p, RES)
+        assert_equal(torch.from_numpy(got), tpart.score_particles_reference(
+            grid, scan_v, valid_v, p, RES))
+        assert_equal(torch.from_numpy(got), np.asarray(want)[:, :p.shape[1]])
+    pose = to_torch(parts[:, 0])[:, None, :]
+    assert tpart.score_layout(scan_v, valid_v, pose, grid.center)[:8] == [
+        12 * N, 12, 1, 4 * N, 4, 3, 3, 1]

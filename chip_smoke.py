@@ -60,7 +60,26 @@ non-zero:
              map 40,960: the "fused" matcher takes K3), B=16, 16 ticks after
              a warm-up macro; ms/tick, robot-steps/s, K3 launches, ATE, z
              error and the share of ticks whose registration succeeded
-13. time   — K1, K2, K3, K4 and K5 timed alone against their plain
+13. graph  — config 4: slam2d.rollout_with_graph at sim2d_graph_config
+             (bench.py's config 4 shapes: 32 keyframes of 384 points, 128
+             edges, "grid" regeneration on 256 x 256 cells), B=256, a
+             warm-up macro on another fleet, then 12 macros of 8 ticks and
+             a graph tick: ms/tick, robot-steps/s, the graph tick's ms, K1 /
+             K2 / K4 launches, median per-robot ATE (gate), every robot >= 2
+             keyframes and >= 1 edge, finite poses; K2 against its plain
+             version on one recorded graph tick's (B*4, 384, 384) edge
+             problems at 50 iterations, timed with its bound; an eviction
+             run (0.5 m keyframe gate, 40 macros: every graph fills and
+             evicts; finite, full; edges_dropped printed); host syncs one
+             graph_update makes under torch.cuda.set_sync_debug_mode
+14. div    — cell indices of t / python_float against a true division by
+             a 0-dim tensor on the card at each site that divides by a
+             configured width (ground sector and range bin at sim3d and the
+             reference scale, occupancy at 0.2 m), counted on random values
+             and on values at cell edges; the port's binning
+             (ops/ground.polar_bins, mapping/occupancy.cells_of and a whole
+             add_to_occupancy_xy at 0.2 m) must equal the CPU's
+15. time   — K1, K2, K3, K4 and K5 timed alone against their plain
              versions at their main path's shapes (K3 on the full and on
              the sparse problem), beside the least time the card could take
              for the same work; K4 and K5 (P=128 and P=1) both as the
@@ -70,7 +89,7 @@ non-zero:
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
 
-Every kernel launch count is set to 0 just before a main path (8-12) runs
+Every kernel launch count is set to 0 just before a main path (8-13) runs
 and read just after it. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
 package.
@@ -109,6 +128,16 @@ TICKS_REF = 16
 REF_S, REF_C = 4096, 40960   # ref_scale_config's scene and map capacities
 REF_SCENE, REF_TARGET = 70, 140   # valid points a robot holds on [ref]'s path
 CROSSOVER_C = (256, 512, 2048)    # K1 vs K3 at B=16, S=4096: S*C = 1M, 2M, 8M
+GRAPH_FLEET = 256     # config 4: robots
+GRAPH_EVERY = 8       # config 4: scan ticks per graph tick
+GRAPH_MACROS = 12     # config 4: timed macros, after a warm-up macro
+GRAPH_ATE_LIMIT = 0.5   # m, config 4: median per-robot ATE over ticks >= 8
+EVICT_MACROS = 40     # config 4 with a 0.5 m keyframe gate: graphs fill, evict
+DIV_SAMPLES = 1 << 22   # [div]: random values a site divides
+TIE_GAP = 1e-5        # m^2: a correspondence this close to a tie (or to the
+                      # inlier gate) can flip between two roundings
+TIE_POSE_TOL = 0.05   # m: bound on problems with such a near-tie
+BIG_D2 = 1e30         # other-class pairs in tie_margin
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -885,6 +914,286 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     return counts[kernel]
 
 
+def division_phase(card) -> dict:
+    """[div]: how many cell indices differ between `t / python_float`
+    (which the card computes as t times the f32 reciprocal) and a true
+    division by a 0-dim tensor on the card, at each site that divides by a
+    configured width: ground sectors and range bins at sim3d and at the
+    reference scale, occupancy cells at MLS's 0.2 m. Counted on
+    DIV_SAMPLES random values and on every cell edge k * width (an f32
+    product) with its two f32 neighbours. Then the port's own binning
+    (ops/ground.polar_bins, mapping/occupancy.cells_of, a whole
+    add_to_occupancy_xy of 64 robots at 0.2 m) must give the CPU's cells
+    on the same values. Returns {site: (random, edges) disagreements}."""
+    from slam_tpu_torch import true_div
+    from slam_tpu_torch.config import MlsConfig, ref_scale_config, sim3d_config
+    from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy,
+                                                  cells_of, init_occupancy)
+    from slam_tpu_torch.ops.ground import polar_bins
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def values(width, lo, hi):
+        k = torch.arange(int(lo / width) - 1, int(hi / width) + 2, device=dev,
+                         dtype=torch.float32)
+        edge = k * width
+        edges = torch.cat([edge, torch.nextafter(edge, edge + 1.0),
+                           torch.nextafter(edge, edge - 1.0)])
+        rand = lo + (hi - lo) * torch.rand(DIV_SAMPLES, device=dev,
+                                           generator=gen)
+        return rand, edges.clamp(lo, hi)
+
+    mls = MlsConfig()
+    sites = {}
+    for name, g in (("sim3d", sim3d_config().ground),
+                    ("ref", ref_scale_config().ground)):
+        sites[f"ground sector {name} ({360.0 / g.num_sectors:g} deg)"] = (
+            values(360.0 / g.num_sectors, 0.0, 360.0), 360.0 / g.num_sectors,
+            lambda t, g=g: polar_bins(t, torch.zeros_like(t), g)[0],
+            lambda t: t.to(torch.int32))
+        sites[f"ground range bin {name} ({g.r_max / g.num_range_bins:g} "
+              f"m)"] = (
+            values(g.r_max / g.num_range_bins, 0.0, g.r_max),
+            g.r_max / g.num_range_bins,
+            lambda t, g=g: polar_bins(torch.zeros_like(t), t, g)[1],
+            lambda t: t.to(torch.int32))
+    sites[f"occupancy ({mls.resolution:g} m)"] = (
+        values(mls.resolution, -mls.max_range, mls.max_range),
+        mls.resolution, lambda t: cells_of(t, t, mls)[0],
+        lambda t: torch.floor(t).to(torch.int32))
+    out = {}
+    for site, ((rand, edges), width, port_bins, to_cell) in sites.items():
+        counts = []
+        for t in (rand, edges):
+            naive = to_cell(t / width)
+            true = to_cell(true_div(t, width))
+            counts.append(int((naive != true).sum()))
+            got, cpu = port_bins(t), port_bins(t.cpu())
+            if not torch.equal(got.cpu(), cpu):
+                raise RuntimeError(f"[div] {site}: the port's cells differ "
+                                   f"from the CPU's on "
+                                   f"{int((got.cpu() != cpu).sum())} values")
+        out[site] = tuple(counts)
+    # a whole occupancy update at 0.2 m: 64 robots, points on cell edges
+    # and at random, counts equal to the CPU's
+    _, edges = sites[f"occupancy ({mls.resolution:g} m)"][0]
+    pick = torch.randint(0, edges.numel(), (2, 64, 4096), device=dev,
+                         generator=gen)
+    lx, ly = edges[pick[0]], edges[pick[1]]
+    valid = torch.rand(64, 4096, device=dev, generator=gen) < 0.9
+    card_grid = add_to_occupancy_xy(init_occupancy(mls, 64, dev), lx, ly,
+                                    valid, mls)
+    cpu_grid = add_to_occupancy_xy(init_occupancy(mls, 64, "cpu"), lx.cpu(),
+                                   ly.cpu(), valid.cpu(), mls)
+    if not (torch.equal(card_grid.counts.cpu(), cpu_grid.counts) and
+            torch.equal(card_grid.drivable.cpu(), cpu_grid.drivable)):
+        raise RuntimeError("[div] add_to_occupancy_xy at 0.2 m: the card's "
+                           "grid differs from the CPU's")
+    print("[div] cells where t / float (the card's reciprocal) and a true "
+          f"division differ, of {DIV_SAMPLES} random values / of the cell "
+          "edges and their f32 neighbours: " + "; ".join(
+              f"{k} {r} / {e} of {sites[k][0][1].numel()}"
+              for k, (r, e) in out.items()) +
+          "; the port's binning equals the CPU's at every site and in a "
+          "64-robot occupancy update at 0.2 m", flush=True)
+    return out
+
+
+def tie_margin(planes, init, pose, inlier_dist) -> torch.Tensor:
+    """(n,) least margin of a near-tie in each fused-ICP problem at `pose`
+    (n, 3): over its valid scene points whose class the model holds, the
+    gap between the nearest and the second-nearest same-class model point
+    (squared metres), or the nearest one's distance from the inlier gate.
+    Below TIE_GAP, which correspondence (or the average of tied ones) a
+    point takes is decided by rounding: the fit can settle a few mm apart
+    on two roundings of the same arithmetic."""
+    sx, sy, sc, mx, my, mc = planes
+    c, s = torch.cos(pose[:, 2:3]), torch.sin(pose[:, 2:3])
+    qx = c * sx - s * sy + pose[:, 0:1]
+    qy = s * sx + c * sy + pose[:, 1:2]
+    d2 = (qx[:, :, None] - mx[:, None, :]) ** 2 + \
+        (qy[:, :, None] - my[:, None, :]) ** 2
+    d2 = torch.where(sc[:, :, None] == mc[:, None, :], d2, BIG_D2)
+    two = torch.topk(d2, 2, dim=-1, largest=False).values
+    margin = torch.minimum(two[..., 1] - two[..., 0],
+                           (two[..., 0] - inlier_dist).abs())
+    counts = (sc >= 0) & (two[..., 0] < BIG_D2)
+    return torch.where(counts, margin, float("inf")).amin(-1)
+
+
+def graph_phase(world, gen, card) -> dict:
+    """[graph]: config 4, rollout_with_graph at sim2d_graph_config for
+    GRAPH_FLEET robots, GRAPH_MACROS macros after a warm-up macro on
+    another fleet; K2 against its plain version on the edge problems of the
+    graph tick that measured the most; an eviction run; host syncs of one
+    graph_update. Returns the launches, K2's agreement and times."""
+    import warnings
+
+    from slam_tpu_torch.config import sim2d_graph_config
+    from slam_tpu_torch.graph import pose_graph as pg
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d
+    cfg = sim2d_graph_config()
+    dev = world.centers.device
+    B = GRAPH_FLEET
+    warm = slam2d.init_state(cfg, B, device=dev, generator=gen.manual_seed(5),
+                             with_graph=True)
+    slam2d.rollout_with_graph(warm, world, cfg, 1, gen, GRAPH_EVERY)
+    del warm
+    state = slam2d.init_state(cfg, B, device=dev,
+                              generator=gen.manual_seed(6), with_graph=True)
+
+    # record each graph tick's K2 operands and time the graph ticks with
+    # events (neither waits for the card nor launches anything)
+    k2_calls, tick_events = [], []
+    k2, update = pg.icp_fused, slam2d.graph_update
+
+    def k2_kept(*a):
+        k2_calls.append(a)
+        return k2(*a)
+
+    def timed_update(s, c):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = update(s, c)
+        ev[1].record()
+        tick_events.append(ev)
+        return out
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    est, true = [], []
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    pg.icp_fused, slam2d.graph_update = k2_kept, timed_update
+    try:
+        e0.record()
+        for _ in range(GRAPH_MACROS):
+            state, (e, t) = slam2d.rollout_with_graph(state, world, cfg, 1,
+                                                      gen, GRAPH_EVERY)
+            est.append(e)
+            true.append(t)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        pg.icp_fused, slam2d.graph_update = k2, update
+    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
+                "K4": nn.launches}
+    ticks = GRAPH_MACROS * GRAPH_EVERY
+    ms = e0.elapsed_time(e1) / ticks
+    graph_ms = [a.elapsed_time(b) for a, b in tick_events]
+    est, true = torch.cat(est, 1), torch.cat(true, 1)
+    g = state.graph
+    if est.shape != (B, ticks, 3):
+        raise RuntimeError(f"config 4 trajectory shape {tuple(est.shape)}")
+    if not bool(torch.isfinite(est).all() & torch.isfinite(g.node_pose).all()
+                & torch.isfinite(state.map_cloud.xyz).all()):
+        raise RuntimeError("config 4: non-finite poses, nodes or target")
+    ate = slam2d.ate(est[:, 8:], true[:, 8:])
+    med = float(ate.median())
+    aligned = float(slam2d.ate_aligned(est[:, 8:], true[:, 8:]).median())
+    nodes, edges = int(g.num_nodes.min()), int(g.num_edges.min())
+    if launches["K1"] < ticks or launches["K2"] < GRAPH_MACROS or \
+            launches["K4"] < GRAPH_MACROS:
+        raise RuntimeError(f"config 4 launches {launches} in {ticks} ticks "
+                           f"and {GRAPH_MACROS} graph ticks")
+    if not med < GRAPH_ATE_LIMIT:
+        raise RuntimeError(f"config 4 median ATE {med} m not below "
+                           f"{GRAPH_ATE_LIMIT} m")
+    if nodes < 2 or edges < 1:
+        raise RuntimeError(f"config 4 graphs did not grow: min {nodes} "
+                           f"keyframes, {edges} edges")
+
+    # K2 against its plain version on the graph tick with the most valid
+    # points in its edge problems (a tick that inserted keyframes)
+    args = max(k2_calls, key=lambda a: int(a[1].sum() + a[4].sum()))
+    del k2_calls
+    got = icp_fused.icp_fused(*args)
+    ref = icp_fused.icp_fused_reference(*args)
+    planes = icp_fused.packed_planes(*args[:6])
+    tied = torch.minimum(
+        tie_margin(planes, args[6], got.pose, args[7].inlier_dist),
+        tie_margin(planes, args[6], ref.pose, args[7].inlier_dist)) < TIE_GAP
+    torch.cuda.synchronize()
+    errs = (got.pose - ref.pose).abs().amax(-1)
+    err = float(errs.max())
+    err_untied = float(torch.where(tied, 0.0, errs).max())
+    n_tied = int(tied.sum())
+    ok_mism = int((got.ok != ref.ok).sum())
+    dcorr = int((got.num_corr - ref.num_corr).abs().max())
+    n_ok = int(ref.ok.sum())
+    if err_untied > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
+        raise RuntimeError(f"K2 on config 4's edges disagrees with its plain "
+                           f"version: pose err {err_untied} (problems "
+                           f"without a near-tie), ok mismatches {ok_mism}, "
+                           f"|d num_corr| {dcorr}")
+    if err > TIE_POSE_TOL or n_tied > args[0].shape[0] // 100:
+        raise RuntimeError(f"K2 on config 4's edges: {n_tied} problems with "
+                           f"a near-tie, pose err {err} (bound "
+                           f"{TIE_POSE_TOL})")
+    if n_ok < B // 2:
+        raise RuntimeError(f"K2's recorded graph tick accepted {n_ok} of "
+                           f"{args[0].shape[0]} edge problems")
+    k2_ms = cuda_ms(lambda: icp_fused.icp_fused(*args))
+    k2_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*args),
+                          reps=1)
+    n = args[0].shape[0]
+    k2_bound = bound(nbytes(*args[:7]) + n * (3 * 4 + 1 + 3 * 4),
+                     icp_ops(planes, args[6], args[7]))
+    iters = float(icp_fused.fit_iterations(*planes, args[6], args[7]).mean())
+
+    # host syncs of one graph tick
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            slam2d.graph_update(state, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    torch.cuda.synchronize()
+
+    # eviction: a keyframe every graph tick fills every graph and evicts
+    ecfg = cfg.replace(graph=dataclasses.replace(cfg.graph,
+                                                 knn_dist_thresh=0.5))
+    ev = slam2d.init_state(ecfg, B, device=dev, generator=gen.manual_seed(7),
+                           with_graph=True)
+    ev, (ee, _) = slam2d.rollout_with_graph(ev, world, ecfg, EVICT_MACROS,
+                                            gen, GRAPH_EVERY)
+    eg = ev.graph
+    inserted = int(eg.node_stamp.amax(-1).min()) + 1
+    if not bool(torch.isfinite(ee).all() & torch.isfinite(eg.node_pose).all()):
+        raise RuntimeError("config 4 eviction run: non-finite poses")
+    if not bool((eg.num_nodes == ecfg.graph.max_nodes).all() &
+                ev.graph_full.all()) or inserted <= ecfg.graph.max_nodes:
+        raise RuntimeError(f"config 4 eviction run: graphs not full or no "
+                           f"eviction (min {int(eg.num_nodes.min())} nodes, "
+                           f"{inserted} keyframes inserted)")
+    print(f"[graph] config 4 B={B} {GRAPH_MACROS} macros x {GRAPH_EVERY} "
+          f"ticks + a graph tick: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
+          f"robot-steps/s (graph ticks included), graph tick mean "
+          f"{sum(graph_ms) / len(graph_ms):.3f} ms (max {max(graph_ms):.3f}),"
+          f" median ATE {med:.4f} m (ticks>=8, {float(ate.max()):.4f} max; "
+          f"aligned {aligned:.4f}), keyframes >= {nodes}, edges >= {edges}, "
+          f"launches {launches}; K2 on {n} edge problems S=C=384 at "
+          f"{args[7].max_iterations} iterations ({iters:.2f} run on "
+          f"average, {n_ok} accepted) vs plain: max pose err {err_untied:.3g} "
+          f"(bound {POSE_TOL}) on the problems without a near-tie, "
+          f"{n_tied} with one (a correspondence within {TIE_GAP} m^2 of a "
+          f"tie or of the inlier gate) {err:.3g} (bound {TIE_POSE_TOL}), "
+          f"ok mismatches {ok_mism}, max |d num_corr| {dcorr}; K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); host syncs in one "
+          f"graph_update: {len(syncs)}{': ' + ' | '.join(syncs) if syncs else ''}"
+          f"; eviction run ({EVICT_MACROS} macros, 0.5 m gate): all "
+          f"{ecfg.graph.max_nodes} slots full, >= {inserted} keyframes "
+          f"inserted, edges_dropped total {int(eg.edges_dropped.sum())} "
+          f"(max {int(eg.edges_dropped.max())}) | {card}", flush=True)
+    return dict(launches=launches, k2_err=err, k2_ms=k2_ms,
+                k2_plain_ms=k2_plain_ms, k2_bound=k2_bound, syncs=syncs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
@@ -1044,6 +1353,11 @@ def main() -> int:
     launches["K3"] = rollout_3d_phase(
         ref_cfg, FLEET_REF, TICKS_REF, gen, card, "ref", "K3", 4,
         ATE_REF_LIMIT, 4, Z_REF_LIMIT, OK_REF_SHARE)
+    graph = graph_phase(world, gen, card)
+    launches["K2"] += graph["launches"]["K2"]
+    launches["K4"] += graph["launches"]["K4"]
+    launches["K1 (config 4)"] = graph["launches"]["K1"]
+    division_phase(card)
 
     # kernels alone, at their main path's shapes
     ops = fused_operands(registration_problem(FLEET, seed=3))
@@ -1157,8 +1471,8 @@ def main() -> int:
                k1_plain_ms, k1_bound),
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",
-               "slam_tpu/ops/icp_pallas.py:39", "K2", k2_err, k2_ms,
-               k2_plain_ms, k2_bound),
+               "slam_tpu/ops/icp_pallas.py:39", "K2", graph["k2_err"],
+               graph["k2_ms"], graph["k2_plain_ms"], graph["k2_bound"]),
         record("icp_fused_planes_tiled (K3)",
                "slam_tpu_torch/csrc/icp_tiled.cu",
                "slam_tpu/ops/icp_pallas.py:271", "K3",

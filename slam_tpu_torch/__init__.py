@@ -15,6 +15,8 @@ an obvious counterpart. Idiom differs where PyTorch wants it to:
 The package imports torch and never jax.
 """
 
+import functools as _functools
+
 import torch as _torch
 
 # Geometry needs exact f32 products: TF32 keeps ~3 decimal digits, which is
@@ -24,6 +26,25 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+
+@_functools.lru_cache(maxsize=None)
+def _divisor(d: float, dtype: _torch.dtype, device: _torch.device):
+    return _torch.full((), d, dtype=dtype, device=device)
+
+
+def true_div(x: _torch.Tensor, d: float) -> _torch.Tensor:
+    """x / d rounded as one true division on every device.
+
+    On a CUDA tensor PyTorch computes `x / python_float` as x times the f32
+    reciprocal of d, whose rounding differs from a division: floor() of the
+    quotient can then land in the neighbouring cell on the card but not on
+    the CPU (or in JAX). Dividing by a 0-dim tensor on x's own device
+    reaches the true-division kernel on both. Use it wherever a quotient
+    feeds floor, round or an integer cast and d need not be a power of
+    two. The divisor tensor is made once per (d, dtype, device): a fill,
+    no copy from the host."""
+    return x / _divisor(float(d), x.dtype, x.device)
 
 
 def default_device(device=None) -> _torch.device:

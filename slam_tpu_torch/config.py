@@ -210,6 +210,10 @@ class CloudConfig:
     map_capacity: int = 4096
     min_scan_points: int = 0
     scene_builder: str = "auto"          # "incidence" | "grid" | "auto"
+    # slam_tpu's map export takes approx_max_k below 1.0, a TPU partial
+    # reduction that drops some cells; off the TPU it equals the exact
+    # top-k. The port's export is always the exact top-k (a stable sort),
+    # so this knob is accepted and has no effect.
     export_recall: float = 0.8
 
 
@@ -274,6 +278,18 @@ def sim2d_config() -> SlamConfig:
         mls=dataclasses.replace(c.mls, size_x=192, size_y=192, resolution=0.5,
                                 max_range=50.0, update_dist=96),
     )
+
+
+def sim2d_graph_config() -> SlamConfig:
+    """BASELINE config 4, 2D graph SLAM, at the shapes slam_tpu's benchmark
+    runs it (bench.py's bench_graph): sim2d_config with a graph of 32
+    keyframes of 384 points and 128 edges, the target regenerated by the
+    "grid" engine on 256 x 256 cells; engine "se2z", edge_registration
+    "2d"."""
+    c = sim2d_config()
+    return dataclasses.replace(c, graph=dataclasses.replace(
+        c.graph, max_nodes=32, max_edges=128, keyframe_points=384,
+        map_regen="grid", regen_grid_bins=256))
 
 
 def ref_scale_config() -> SlamConfig:

@@ -42,6 +42,26 @@ def se2_apply_xy(pose: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
     return c * px - s * py + x, s * px + c * py + y
 
 
+def se2_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a o b for poses (..., 3) [x, y, yaw]: first apply b, then a."""
+    ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    x = a[..., 0] + ca * b[..., 0] - sa * b[..., 1]
+    y = a[..., 1] + sa * b[..., 0] + ca * b[..., 1]
+    return torch.stack([x, y, angle_wrap(a[..., 2] + b[..., 2])], -1)
+
+
+def se2_inverse(p: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(p[..., 2]), torch.sin(p[..., 2])
+    x = -(c * p[..., 0] + s * p[..., 1])
+    y = -(-s * p[..., 0] + c * p[..., 1])
+    return torch.stack([x, y, -p[..., 2]], -1)
+
+
+def se2_relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pose b in a's frame, a^-1 o b: a keyframe edge's initial guess."""
+    return se2_compose(se2_inverse(a), b)
+
+
 def rot3_from_rpy(roll, pitch, yaw) -> torch.Tensor:
     """(..., 3, 3) rotations R = Rz(yaw) @ Ry(pitch) @ Rx(roll)."""
     cr, sr = torch.cos(roll), torch.sin(roll)

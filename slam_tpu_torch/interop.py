@@ -8,9 +8,9 @@ such objects by attribute (no jax import), so both packages can start from
 the identical state; `point_map_from_numpy` reads one unbatched grid
 (config 5's shared map) as a batch-1 PointMapGrid; `state_to_numpy` turns
 a port state or ground map back into a nested dict of numpy arrays with
-the same field names. The JAX state's random key is dropped: the port
-draws from an explicit torch.Generator. Tensors land on the card unless
-`device` says otherwise.
+the same field names (a metrics ring stays a (buf, count) pair). The JAX
+state's random key is dropped: the port draws from an explicit
+torch.Generator. Tensors land on the card unless `device` says otherwise.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
 from slam_tpu_torch.sim.world3d import World3D
 from slam_tpu_torch.types import (EkfState, GroundMap, OccupancyGrid,
-                                  PointCloud, SlamState)
+                                  PointCloud, PoseGraph, SlamState)
 
 
 def _t(a, device, dtype=None):
@@ -46,17 +46,34 @@ def _grid(mg, device) -> PointMapGrid:
         resolution=float(mg.resolution))
 
 
+def graph_from_numpy(g, device=None) -> PoseGraph:
+    """Port PoseGraph from a slam_tpu planar PoseGraph with numpy leaves
+    stacked over robots; a 6-DoF graph (node_rp set) is refused."""
+    if getattr(g, "node_rp", None) is not None:
+        raise ValueError("the port's PoseGraph is planar: the 6-DoF graph "
+                         "(edge_registration '3d') is not ported yet")
+    device = default_device(device)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    return PoseGraph(**{k: _t(getattr(g, k), device, dt) for k, dt in (
+        ("node_pose", f32), ("node_valid", b8), ("node_stamp", i32),
+        ("kf_xyz", f32), ("kf_valid", b8), ("kf_flags", i32),
+        ("edge_ij", i32), ("edge_rel", f32), ("edge_info", f32),
+        ("edge_valid", b8), ("num_nodes", i32), ("num_edges", i32),
+        ("edges_dropped", i32))})
+
+
 def state_from_numpy(st, device=None) -> SlamState:
     """Port state from a slam_tpu SlamState with numpy leaves stacked over
-    robots. Only the scan-to-map fields and the 3D path's IMU attitude
-    exist in the port so far: a state that carries a pose graph, a metrics
-    ring or a 6-DoF keyframe ground cloud is refused. A state without a map
-    grid (config 5's fleet) keeps map_grid None."""
-    if st.graph is not None or st.metrics_ring is not None or \
-            getattr(st, "prev_ground", None) is not None:
-        raise ValueError("the port's SlamState has no pose graph, metrics "
-                         "ring or keyframe ground cloud yet")
+    robots, its planar pose graph and metrics ring included. A state that
+    carries a 6-DoF keyframe ground cloud (prev_ground) is refused: the
+    port has no 3D graph yet. A state without a map grid (config 5's fleet,
+    graph mode) keeps map_grid None."""
+    if getattr(st, "prev_ground", None) is not None:
+        raise ValueError("the port's SlamState has no 6-DoF keyframe ground "
+                         "cloud yet (the 3D graph is not ported)")
     attitude = getattr(st, "attitude", None)
+    graph_full = getattr(st, "graph_full", None)
+    ring = getattr(st, "metrics_ring", None)
     device = default_device(device)
     occ = st.local_map
     return SlamState(
@@ -78,6 +95,13 @@ def state_from_numpy(st, device=None) -> SlamState:
         true_pose=_t(st.true_pose, device, torch.float32),
         attitude=(None if attitude is None
                   else _t(attitude, device, torch.float32)),
+        graph=None if st.graph is None else graph_from_numpy(st.graph,
+                                                             device),
+        graph_full=(None if graph_full is None
+                    else _t(graph_full, device, torch.bool)),
+        metrics_ring=(None if ring is None else
+                      (_t(ring[0], device, torch.float32),
+                       _t(ring[1], device, torch.int32))),
     )
 
 
@@ -122,10 +146,12 @@ def _np(x):
         return x.detach().cpu().numpy()
     if hasattr(x, "__dataclass_fields__"):
         return {k: _np(getattr(x, k)) for k in x.__dataclass_fields__}
+    if isinstance(x, tuple):
+        return tuple(_np(v) for v in x)
     return x
 
 
 def state_to_numpy(state) -> dict:
-    """A port SlamState (or GroundMap) as a nested dict of numpy arrays,
-    keyed by slam_tpu's field names."""
+    """A port SlamState (or GroundMap, or PoseGraph) as a nested dict of
+    numpy arrays, keyed by slam_tpu's field names."""
     return _np(state)

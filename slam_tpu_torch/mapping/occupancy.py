@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from slam_tpu_torch import default_device
+from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
 from slam_tpu_torch.ops.scatter2d import scatter_add_2d_multi
 from slam_tpu_torch.types import OccupancyGrid
@@ -38,6 +38,16 @@ def shift_origin(grid: OccupancyGrid, new_center_xy: torch.Tensor,
     return grid.replace(counts=counts, drivable=drivable, center=center)
 
 
+def cells_of(lx: torch.Tensor, ly: torch.Tensor, cfg):
+    """Grid cell (x, y) int32 of robot-centred planes: floor of the true
+    quotient by cfg.resolution (true_div: MLS's default 0.2 m is no power
+    of two), offset to the grid's centre cell."""
+    return (torch.floor(true_div(lx, cfg.resolution)).to(torch.int32)
+            + cfg.size_x // 2,
+            torch.floor(true_div(ly, cfg.resolution)).to(torch.int32)
+            + cfg.size_y // 2)
+
+
 def _apply_counts_drivability(grid: OccupancyGrid, delta, touch,
                               cfg) -> OccupancyGrid:
     """Add the count delta; only cells touched this scan change their
@@ -57,8 +67,7 @@ def add_to_occupancy_xy(grid: OccupancyGrid, lx: torch.Tensor,
     """Obstacle-only occupancy update from robot-centred, world-oriented
     planes (B, N)."""
     H, W = grid.counts.shape[1:]
-    x = torch.floor(lx / cfg.resolution).to(torch.int32) + cfg.size_x // 2
-    y = torch.floor(ly / cfg.resolution).to(torch.int32) + cfg.size_y // 2
+    x, y = cells_of(lx, ly, cfg)
     keep = valid & (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
     (touch,) = scatter_add_2d_multi(x, y, (None,), keep, (H, W))
     return _apply_counts_drivability(grid, touch * cfg.occupancy_increment,
@@ -78,8 +87,7 @@ def add_to_occupancy_xy2(grid: OccupancyGrid, ox, oy, ovalid, gx, gy, gvalid,
                    device=ox.device),
         torch.full(gx.shape, -cfg.occupancy_decrement,
                    dtype=grid.counts.dtype, device=gx.device)], -1)
-    x = torch.floor(lx / cfg.resolution).to(torch.int32) + cfg.size_x // 2
-    y = torch.floor(ly / cfg.resolution).to(torch.int32) + cfg.size_y // 2
+    x, y = cells_of(lx, ly, cfg)
     keep = torch.cat([ovalid, gvalid], -1) & \
         (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
     delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep, (H, W))

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from slam_tpu_torch import default_device
+from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
@@ -73,8 +73,8 @@ def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
     res = resolution or grid.resolution
     rx = qx - grid.center[:, 0:1]
     ry = qy - grid.center[:, 1:2]
-    cx = torch.floor(rx / res).to(torch.int32) + G // 2
-    cy = torch.floor(ry / res).to(torch.int32) + G // 2
+    cx = torch.floor(true_div(rx, res)).to(torch.int32) + G // 2
+    cy = torch.floor(true_div(ry, res)).to(torch.int32) + G // 2
     ox = rx - (cx.to(rx.dtype) - G // 2 + 0.5) * res
     oy = ry - (cy.to(ry.dtype) - G // 2 + 0.5) * res
     chans = (None, ox, oy) + (() if qz is None else (qz,))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.types import PointCloud
@@ -23,9 +24,9 @@ def classify_ga_planes(px, py, valid, center_xy, num_bins: int,
     """GA plane (B, N) bool of x / y planes; with_extent also returns the
     mask of points inside the grid."""
     n = num_bins
-    bx = torch.floor((px - center_xy[:, 0:1]) / resolution).to(torch.int32) \
+    bx = torch.floor(true_div(px - center_xy[:, 0:1], resolution)).to(torch.int32) \
         + n // 2
-    by = torch.floor((py - center_xy[:, 1:2]) / resolution).to(torch.int32) \
+    by = torch.floor(true_div(py - center_xy[:, 1:2], resolution)).to(torch.int32) \
         + n // 2
     inb = (bx >= 0) & (by >= 0) & (bx < n) & (by < n) & valid
     (counts,) = scatter_add_2d_multi(bx, by, (None,), inb, (n, n))

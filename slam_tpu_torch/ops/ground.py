@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.linalg import cholesky, forward_substitute
 from slam_tpu_torch.types import PointCloud
 
@@ -71,6 +72,18 @@ def _bin_prototypes(flat, zq, r2, z, K):
     return out
 
 
+def polar_bins(phi: torch.Tensor, r2: torch.Tensor, cfg):
+    """(sector, range bin) int32 of each point: phi its bearing in degrees
+    [0, 360), r2 its planar range. The sector is clamped to [0, S); the
+    range bin is not. Sector widths (22.5 deg at sim3d, 5 at the reference
+    scale) and range bins (1.875 m at sim3d) are no powers of two, so both
+    quotients are true divisions (true_div) and the card bins as the CPU
+    does."""
+    S, L = cfg.num_sectors, cfg.num_range_bins
+    sector = torch.clamp(true_div(phi, 360.0 / S).to(torch.int32), 0, S - 1)
+    return sector, true_div(r2, cfg.r_max / L).to(torch.int32)
+
+
 def segment_ground(cloud: PointCloud, cfg) -> GroundSegResult:
     """Classify sensor-frame clouds (B, N, 3), roll / pitch compensated, z
     up, into ground / obstacle / drivable-over obstacle."""
@@ -84,8 +97,7 @@ def segment_ground(cloud: PointCloud, cfg) -> GroundSegResult:
     r2 = torch.sqrt(x * x + y * y)
     phi = torch.atan2(y, x) * (180.0 / math.pi)
     phi = torch.where(phi < 0, phi + 360.0, phi)
-    sector = torch.clamp((phi / (360.0 / S)).to(torch.int32), 0, S - 1)
-    lbin = (r2 / (cfg.r_max / L)).to(torch.int32)
+    sector, lbin = polar_bins(phi, r2, cfg)
     ok = cloud.valid & (r3 < cfg.r_max) & (lbin >= 0) & (lbin < L)
     flat = torch.where(ok, sector * L + lbin, K)
     # ok points have |z| < r_max << 524 m: mm quantization fits 20 bits

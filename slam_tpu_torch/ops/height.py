@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d
 
 
@@ -98,8 +99,8 @@ def height_interpolate_grid(grid, pose_xyyawz: torch.Tensor,
     half = int(math.ceil((math.sqrt(cfg.max_nn_dist_sq) + reach) / res)) + 1
     W = min(2 * half + 1, G)
     rel = pose_xyyawz[:, :2] - grid.center
-    ci = torch.floor(rel[:, 0] / res).to(torch.int32) + G // 2
-    cj = torch.floor(rel[:, 1] / res).to(torch.int32) + G // 2
+    ci = torch.floor(true_div(rel[:, 0], res)).to(torch.int32) + G // 2
+    cj = torch.floor(true_div(rel[:, 1], res)).to(torch.int32) + G // 2
     i0 = torch.clamp(ci - (W - 1) // 2, 0, G - W)
     j0 = torch.clamp(cj - (W - 1) // 2, 0, G - W)
     ar = torch.arange(W, device=ci.device)

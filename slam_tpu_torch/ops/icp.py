@@ -1,5 +1,6 @@
 """Class-constrained 2D ICP, the "points" matcher — counterpart of
-slam_tpu/ops/icp.py (`IcpResult`, `procrustes_2d`, `fit_step`, `icp_fit`).
+slam_tpu/ops/icp.py (`IcpResult`, `procrustes_2d`, `fit_step`, `icp_fit`,
+`edge_information_2d`).
 
 Batched over robots: scene arrays are (B, S, ...), model arrays (B, C, ...),
 poses (B, 3). Correspondences come from nearest_neighbor (kernel K4 on the
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from slam_tpu_torch.geometry import angle_wrap, rot2
+from slam_tpu_torch.ops.linalg import inv3
 from slam_tpu_torch.ops.nn import nearest_neighbor
 
 
@@ -109,3 +111,33 @@ def icp_fit(scene_xyz, scene_valid, scene_ga, model_xyz, model_valid,
     pose = torch.where(ok[..., None], pose, init_pose)
     return IcpResult(pose=pose, ok=ok & (num_corr > 0), num_corr=num_corr,
                      delta=delta, mean_residual=mean_res)
+
+
+def edge_information_2d(t_pts, m_pts, w):
+    """Censi / LUM 3x3 information matrix over 2D correspondences: scene
+    points t_pts and their model points m_pts (B, N, 2), weights w (B, N).
+    Returns (B, 3, 3) information for (x, y, yaw); identity where the
+    residual variance is degenerate or not finite."""
+    n = torch.clamp(w.sum(-1), min=1.0)
+    mid = 0.5 * (m_pts + t_pts)
+    diff = m_pts - t_pts
+    x, y = mid[..., 0], mid[..., 1]
+    dx, dy = diff[..., 0], diff[..., 1]
+    sx = (w * x).sum(-1)
+    sy = (w * y).sum(-1)
+    xpy = (w * (x * x + y * y)).sum(-1)
+    zero = torch.zeros_like(n)
+    MM = torch.stack([torch.stack([n, zero, -sy], -1),
+                      torch.stack([zero, n, sx], -1),
+                      torch.stack([-sy, sx, xpy], -1)], -2)
+    MZ = torch.stack([(w * dx).sum(-1), (w * dy).sum(-1),
+                      (w * (-y * dx + x * dy)).sum(-1)], -1)
+    eye = torch.eye(3, dtype=MM.dtype, device=MM.device)
+    D = (inv3(MM + 1e-9 * eye) @ MZ[..., None])[..., 0]
+    tx = dx - D[..., 0:1] + y * D[..., 2:3]
+    ty = dy - D[..., 1:2] - x * D[..., 2:3]
+    ss = (w * (tx * tx + ty * ty)).sum(-1) / torch.clamp(2.0 * n - 3.0,
+                                                         min=1.0)
+    info = MM / torch.clamp(ss, min=1e-12)[..., None, None]
+    bad = (ss < 1e-13) | ~torch.isfinite(ss)
+    return torch.where(bad[..., None, None], eye, info)

@@ -1,11 +1,15 @@
 """Small-matrix linear algebra — counterpart of slam_tpu/ops/linalg.py:
-`inv3` for the EKF's 3x3 innovation covariance, and the batched SPD solve
-of the ground segmentation's GP (`cholesky`, `forward_substitute`).
+`inv3` for the EKF's 3x3 innovation covariance and the edge information,
+and the batched SPD solves of the ground segmentation's GP and the pose
+graph's Gauss-Newton step (`cholesky`, `forward_substitute`,
+`back_substitute`, `cho_solve`).
 
 The JAX package unrolls Cholesky and substitution column by column because
 XLA's TPU lowering of small batched factorizations is slow; here each is one
 batched library call over every robot and sector (a column loop would issue
-hundreds of tiny launches a tick). The factors agree to rounding.
+hundreds of tiny launches a tick). The factors agree to rounding. None of
+them checks for errors, so none waits for the card: torch.linalg.cholesky
+and torch.linalg.solve report a failed factorization to the host.
 """
 
 from __future__ import annotations
@@ -43,3 +47,16 @@ def forward_substitute(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """Solve L Y = R for batched lower-triangular L (..., C, C) and
     right-hand sides R (..., C, Q)."""
     return torch.linalg.solve_triangular(L, R, upper=False)
+
+
+def back_substitute(L: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Solve L^T X = Y for batched lower-triangular L (..., C, C) and
+    right-hand sides Y (..., C, Q)."""
+    return torch.linalg.solve_triangular(L.mT, Y, upper=True)
+
+
+def cho_solve(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with M x = b for batched SPD M (..., C, C) and b (..., C): one
+    Cholesky factorization and two triangular solves."""
+    L = cholesky(M)
+    return back_substitute(L, forward_substitute(L, b[..., None]))[..., 0]

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import true_div
+
 
 def roll_2d(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """Per-robot `roll(a[b], shift=(-d[b, 0], -d[b, 1]), dims=(0, 1))`:
@@ -28,7 +30,7 @@ def shift_step(center: torch.Tensor, new_center_xy: torch.Tensor,
                resolution: float):
     """Whole-cell rolling step: d = round((new - center) / res) (half to
     even, as jnp.round), returned as (d (B, 2) int32, new_center)."""
-    d = torch.round((new_center_xy - center) / resolution).to(torch.int32)
+    d = torch.round(true_div(new_center_xy - center, resolution)).to(torch.int32)
     return d, center + d.to(center.dtype) * resolution
 
 

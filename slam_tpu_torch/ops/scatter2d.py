@@ -20,18 +20,21 @@ def scatter_add_2d_multi(cx: torch.Tensor, cy: torch.Tensor, values: tuple,
     Points that are invalid or outside the grid are dropped (a masked point
     may carry NaN coordinates: it never reaches a sum)."""
     H, W = shape
-    B = cx.shape[0]
+    B, N = cx.shape
     inb = valid & (cx >= 0) & (cy >= 0) & (cx < H) & (cy < W)
     base = torch.arange(B, device=cx.device)[:, None] * (H * W)
-    flat = torch.where(inb, base + cx * W + cy, B * H * W).reshape(-1)
+    # a dropped point adds 0 to a cell of its own robot's grid, cell n for
+    # point n: sending them all to one spare slot made every dropped point
+    # an atomic add on the same address, which the card serializes
+    spread = torch.arange(N, device=cx.device) % (H * W)
+    flat = (base + torch.where(inb, cx * W + cy, spread)).reshape(-1)
     outs = []
     for v in values:
         vv = inb.to(torch.float32) if v is None else \
             torch.where(inb, v, 0.0).to(torch.float32)
-        acc = torch.zeros(B * H * W + 1, dtype=torch.float32,
-                          device=cx.device)
+        acc = torch.zeros(B * H * W, dtype=torch.float32, device=cx.device)
         acc.index_add_(0, flat, vv.reshape(-1))
-        outs.append(acc[:B * H * W].view(B, H, W))
+        outs.append(acc.view(B, H, W))
     return tuple(outs)
 
 

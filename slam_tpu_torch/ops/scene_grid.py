@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 
@@ -27,8 +28,8 @@ def build_scene_grid_planes(px, py, pz, valid, drv, capacity: int,
     Returns (sx, sy, sz, ga, drv_out, keep); sz / drv_out are None when
     their input is. Points beyond the grid's half-extent are dropped."""
     G = grid_bins
-    ci = torch.floor(px / resolution).to(torch.int32) + G // 2
-    cj = torch.floor(py / resolution).to(torch.int32) + G // 2
+    ci = torch.floor(true_div(px, resolution)).to(torch.int32) + G // 2
+    cj = torch.floor(true_div(py, resolution)).to(torch.int32) + G // 2
     inb = valid & (ci >= 0) & (cj >= 0) & (ci < G) & (cj < G)
     cci = ci.clamp(0, G - 1)
     ccj = cj.clamp(0, G - 1)

@@ -1,11 +1,12 @@
 """Point-cloud masking, packing and voxel downsampling — counterpart of
-slam_tpu/ops/voxel.py (`crop_box`, `compact_planes`,
+slam_tpu/ops/voxel.py (`crop_box`, `compact`, `compact_planes`,
 `voxel_downsample_pairwise_planes`), batched over robots."""
 
 from __future__ import annotations
 
 import torch
 
+from slam_tpu_torch import true_div
 from slam_tpu_torch.types import PointCloud
 
 
@@ -34,6 +35,24 @@ def compact_planes(planes: tuple, valid: torch.Tensor, out_capacity: int):
     return tuple(pack(p) for p in planes), pack(valid) > 0.5
 
 
+def compact(cloud: PointCloud, out_capacity: int) -> PointCloud:
+    """Pack each robot's valid points to the front of a cloud of
+    out_capacity slots, in order; overflow drops the tail. The rest of the
+    slots are zero, invalid and unflagged."""
+    B, N = cloud.valid.shape
+    idx = torch.cumsum(cloud.valid.to(torch.int64), -1) - 1
+    slot = torch.where(cloud.valid & (idx < out_capacity), idx, out_capacity)
+    rows = torch.arange(B, device=slot.device)[:, None]
+
+    def pack(a):
+        out = a.new_zeros((B, out_capacity + 1) + a.shape[2:])
+        out[rows, slot] = a
+        return out[:, :out_capacity]
+
+    return PointCloud(xyz=pack(cloud.xyz), valid=pack(cloud.valid),
+                      flags=pack(cloud.flags))
+
+
 def voxel_downsample_pairwise_planes(px, py, pz, valid, bit_planes: tuple,
                                      leaf):
     """Voxel centroids of (B, N) planes through the same-cell incidence:
@@ -42,9 +61,9 @@ def voxel_downsample_pairwise_planes(px, py, pz, valid, bit_planes: tuple,
     over its voxel. Returns ((cx, cy, cz), keep, bits as bool)."""
     B, N = px.shape
     lx, ly, lz = (float(v) for v in leaf)
-    qx = torch.floor(px / lx).to(torch.int32)
-    qy = torch.floor(py / ly).to(torch.int32)
-    qz = torch.floor(pz / lz).to(torch.int32)
+    qx = torch.floor(true_div(px, lx)).to(torch.int32)
+    qy = torch.floor(true_div(py, ly)).to(torch.int32)
+    qz = torch.floor(true_div(pz, lz)).to(torch.int32)
 
     def eq(q):
         return q[:, :, None] == q[:, None, :]

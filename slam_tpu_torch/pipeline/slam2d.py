@@ -1,24 +1,32 @@
-"""2D fleet SLAM, BASELINE configs 1 and 5 — counterpart of
-slam_tpu/pipeline/slam2d.py for the scan-to-map path.
+"""2D fleet SLAM, BASELINE configs 1, 4 and 5 — counterpart of
+slam_tpu/pipeline/slam2d.py.
 
 One tick (slam_step) runs: raycast -> EKF predict + gyro update -> scene
 build -> registration (kernel K1 for matcher "fused", icp_fit on kernel K4
 for "points", the particle filter on kernel K5 for "particle") -> EKF SLAM
-update -> point-map update -> occupancy update. Every function takes and
-returns the whole robot batch. `register_scan_to_scan` registers against
-the previous scene (kernel K2 for "fused").
+update -> point-map update -> occupancy update, and writes the metrics
+ring when the state carries one. Every function takes and returns the whole
+robot batch. `register_scan_to_scan` registers against the previous scene
+(kernel K2 for "fused").
+
+Graph mode (config 4, `rollout_with_graph`): the ticks register against a
+target regenerated from the pose graph's keyframes, and every graph tick
+(`graph_update`) adds keyframes with edges measured by K2, optimises the
+graph and regenerates the target (graph/pose_graph.py). Only the planar
+engine with the "grid" regeneration is ported.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". The grid matcher, the pose graph and the metrics ring
-belong to later slices and raise or are absent here.
+swapped for "points". The grid matcher belongs to a later slice and
+raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from slam_tpu_torch import default_device
+from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.geometry import se2_apply_xy
+from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy,
                                               init_occupancy, shift_origin)
 from slam_tpu_torch.mapping.point_map import (export_point_planes,
@@ -36,16 +44,22 @@ from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.ops.voxel import crop_box
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import PointCloud, SlamState, make_cloud
+from slam_tpu_torch.utils import metrics
 
 MATCHERS = ("fused", "points", "particle")
 
 
 def init_state(cfg, batch: int, device=None,
-               generator: torch.Generator | None = None) -> SlamState:
+               generator: torch.Generator | None = None,
+               with_graph: bool = False, with_metrics_ring: bool = False,
+               metrics_ring_capacity: int = 256) -> SlamState:
     """Fresh fleet state. Each robot's gyro bias is estimated from
     cfg.ekf.num_init_imu_samples stationary samples, drawn from `generator`
-    (the robot must not move while they are taken). On the card unless
-    `device` says otherwise."""
+    (the robot must not move while they are taken). with_graph: graph mode,
+    an empty pose graph and no point-map grid (the target is regenerated
+    from keyframes). with_metrics_ring: a device metrics ring of
+    metrics_ring_capacity rows per robot. On the card unless `device` says
+    otherwise."""
     device = default_device(device)
     noise = torch.randn(batch, cfg.ekf.num_init_imu_samples,
                         generator=generator, device=device)
@@ -60,10 +74,14 @@ def init_state(cfg, batch: int, device=None,
         local_map=init_occupancy(cfg.mls, batch, device=device),
         prev_scene=make_cloud(batch, cfg.cloud.scene_capacity, device=device),
         map_cloud=make_cloud(batch, cfg.cloud.map_capacity, device=device),
-        map_grid=init_point_map(batch, cfg.mls.size_x,
-                                cfg.icp.voxel_leaf_obs[0], device=device),
+        map_grid=None if with_graph else init_point_map(
+            batch, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0], device=device),
         step=torch.zeros(batch, dtype=torch.int32, device=device),
         true_pose=zeros4.clone(),
+        graph=pg.init_graph(cfg.graph, batch, device) if with_graph else None,
+        graph_full=torch.zeros(batch, dtype=torch.bool, device=device),
+        metrics_ring=(metrics.init_ring(batch, metrics_ring_capacity, device)
+                      if with_metrics_ring else None),
     )
 
 
@@ -91,8 +109,8 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
             "(slam_tpu/ops/voxel.py:compact_planes) is not ported yet")
     res = cfg.icp.ga_resolution
     G = cfg.icp.ga_num_bins
-    ci = torch.floor(px / res).to(torch.int32) + G // 2
-    cj = torch.floor(py / res).to(torch.int32) + G // 2
+    ci = torch.floor(true_div(px, res)).to(torch.int32) + G // 2
+    cj = torch.floor(true_div(py, res)).to(torch.int32) + G // 2
     inb = hit & (ci >= 0) & (cj >= 0) & (ci < G) & (cj < G)
     ccx = (ci.to(px.dtype) - G // 2 + 0.5) * res
     ccy = (cj.to(py.dtype) - G // 2 + 0.5) * res
@@ -139,11 +157,11 @@ def planes_to_cloud(sx, sy, ga, keep, sz=None) -> PointCloud:
 
 
 def register_scan(scene: PointCloud, map_cloud: PointCloud,
-                  init_pose_xyyaw: torch.Tensor, cfg, reclassify: bool = False):
+                  init_pose_xyyaw: torch.Tensor, cfg, reclassify: bool = True):
     """Scan-to-map registration with the "points" matcher: crop the map
-    around the prediction and run class-constrained icp_fit. The target
-    carries the GA flags computed at map export; reclassify recomputes them
-    around the prediction (a target the point map did not export)."""
+    around the prediction, re-classify the target's GA flags around it and
+    run class-constrained icp_fit. reclassify=False keeps the target's own
+    flags (the point map computes them with the same stencil on export)."""
     target = crop_box(map_cloud, init_pose_xyyaw[:, :2], cfg.icp.crop_dist)
     if reclassify:
         target = classify_ground_adjacent(
@@ -245,6 +263,13 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
         icp = register_scan(scene, state.map_cloud, pred, cfg,
                             reclassify=not incremental_map)
 
+    metrics.emit("slam_step", icp_ok=icp.ok, num_corr=icp.num_corr,
+                 mean_residual=icp.mean_residual)
+    ring = metrics.ring_write(state.metrics_ring, site="slam_step",
+                              step=state.step, icp_ok=icp.ok,
+                              num_corr=icp.num_corr,
+                              mean_residual=icp.mean_residual,
+                              scene_points=skeep.sum(-1))
     ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
     fused = ekf.mu[:, [0, 1, 6]]
 
@@ -278,6 +303,7 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
         map_cloud=map_cloud,
         map_grid=mg,
         step=state.step + 1,
+        metrics_ring=ring,
     )
 
 
@@ -354,8 +380,110 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
                torch.stack(true, 1)[:, :num_steps])
 
 
+def _check_graph_cfg(cfg) -> None:
+    g = cfg.graph
+    if g.edge_registration != "2d" or g.engine != "se2z":
+        raise NotImplementedError(pg.LATER)
+    if g.map_regen != "grid":
+        raise NotImplementedError(
+            f"graph.map_regen {g.map_regen!r} is not ported yet (have "
+            "'grid'): 'voxel' is ROADMAP queue 1's next step for config 4, "
+            "'mls' waits for config 3's MLS map")
+
+
+def graph_update(state: SlamState, cfg) -> SlamState:
+    """A graph tick, the pose offset discarded: 2D maps carry no z for it
+    to shift."""
+    return graph_update_delta(state, cfg)[0]
+
+
+def graph_update_delta(state: SlamState, cfg):
+    """A graph tick for every robot: gate and insert a keyframe (the last
+    scene at the fused pose) with its edges, optimise the graphs that
+    gained a keyframe and hold an edge, and regenerate the scan-to-map
+    target of the robots that gained one. Returns (state, delta): delta
+    (B, 4) is the newest node's pose change across the optimisation, zero
+    where none ran. The EKF is not shifted by it.
+
+    Every robot runs every stage and torch.where keeps what its own gates
+    select, so the tick never waits for the card. Engine "se2z" with
+    map_regen "grid" only; the others raise."""
+    _check_graph_cfg(cfg)
+    gcfg = cfg.graph
+    graph, added = pg.add_keyframe(state.graph, state.pose, state.prev_scene,
+                                   cfg.icp, gcfg,
+                                   min_points=gcfg.min_keyframe_points)
+    opt = added & (graph.num_edges > 0)
+    optimized, delta = pg.optimize(graph, gcfg)
+    graph = graph.replace(node_pose=torch.where(
+        opt[:, None, None], optimized.node_pose, graph.node_pose))
+    delta = torch.where(opt[:, None], delta, 0.0)
+    # cfg.cloud.export_recall is passed as slam_tpu passes it; the port's
+    # export is always the exact top-k, which is what slam_tpu's
+    # approx_max_k gives off the TPU, so the knob has no effect here
+    regen = pg.regenerate_map_grid(
+        graph, state.map_cloud.capacity, resolution=cfg.icp.voxel_leaf_obs[0],
+        grid_bins=gcfg.regen_grid_bins, ga_threshold=cfg.icp.ga_threshold,
+        recall=cfg.cloud.export_recall)
+    a = added[:, None]
+    map_cloud = PointCloud(
+        xyz=torch.where(a[..., None], regen.xyz, state.map_cloud.xyz),
+        valid=torch.where(a, regen.valid, state.map_cloud.valid),
+        flags=torch.where(a, regen.flags, state.map_cloud.flags))
+    full = graph.num_nodes >= gcfg.max_nodes
+    metrics.emit("graph_update", added=added, num_nodes=graph.num_nodes,
+                 num_edges=graph.num_edges, graph_full=full)
+    ring = metrics.ring_write(state.metrics_ring, site="graph_update",
+                              step=state.step, graph_nodes=graph.num_nodes,
+                              graph_edges=graph.num_edges)
+    return state.replace(graph=graph, map_cloud=map_cloud, graph_full=full,
+                         metrics_ring=ring), delta
+
+
+def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
+                       num_macro: int, generator: torch.Generator,
+                       graph_every: int = 8):
+    """BASELINE config 4: num_macro macros, each one re-centring of the
+    occupancy grid, graph_every ticks registering against the graph's
+    regenerated target (incremental_map=False: the robots keep no map
+    grid), then a graph tick. Returns (final_state, (est, true)),
+    trajectories (B, num_macro * graph_every, 3)."""
+    _check_graph_cfg(cfg)
+    est, true = [], []
+    s = state
+    for _ in range(num_macro):
+        s = s.replace(local_map=shift_origin(s.local_map, s.pose[:, :2],
+                                             cfg.mls))
+        for _ in range(graph_every):
+            s = slam_step(s, world, cfg, generator, incremental_map=False,
+                          shift_maps=False)
+            est.append(s.pose[:, :3])
+            true.append(s.true_pose[:, :3])
+        s = graph_update(s, cfg)
+    return s, (torch.stack(est, 1), torch.stack(true, 1))
+
+
 def ate(est: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
     """Absolute trajectory error (RMSE of xy) over the time axis:
     (..., T, >=2) -> (...)."""
     d = est[..., :2] - true[..., :2]
     return torch.sqrt((d * d).sum(-1).mean(-1))
+
+
+def ate_aligned(est: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+    """ATE after aligning each trajectory to the truth by the SE(2)
+    Horn / Umeyama closed form (no scale): (..., T, >=2) -> (...). It
+    removes the static rigid offset that an error frozen into the early
+    map gives the whole trajectory, which raw ATE charges at every step."""
+    a = est[..., :2]
+    b = true[..., :2]
+    ma = a.mean(-2, keepdim=True)
+    mb = b.mean(-2, keepdim=True)
+    H = (a - ma).mT @ (b - mb)                              # (..., 2, 2)
+    U, _, Vt = torch.linalg.svd(H)
+    V = Vt.mT
+    d = torch.sign(torch.linalg.det(V @ U.mT))
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), d], -1))
+    R = V @ D @ U.mT
+    e = (a - ma) @ R.mT + mb - b
+    return torch.sqrt((e * e).sum(-1).mean(-1))

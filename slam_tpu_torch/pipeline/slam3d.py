@@ -8,13 +8,14 @@ adjacency and pairwise voxels for small scans, the scatter-to-grid builder
 for reference-scale scans) -> registration (kernel K1, or K3 above
 RESIDENT_TILE_LIMIT, for matcher "fused"; icp_fit on kernel K4 for
 "points") -> EKF SLAM update -> wheel-contact height interpolation ->
-obstacle and ground point maps -> occupancy. Every function takes and
-returns the whole robot batch; the scan-completeness gate is a tensor op,
-so a tick never waits for the card.
+obstacle and ground point maps -> occupancy, and the metrics ring when
+the state carries one. Every function takes and returns the whole robot
+batch; the scan-completeness gate is a tensor op, so a tick never waits
+for the card.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". The grid matcher, graph mode (config 4) and the
-metrics ring belong to later slices and raise or are absent here.
+swapped for "points". The grid matcher and the 3D graph mode belong to
+later slices and raise or are absent here.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from slam_tpu_torch.pipeline.slam2d import init_state, planes_to_cloud
 from slam_tpu_torch.sim import world2d, world3d
 from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
     make_cloud
+from slam_tpu_torch.utils import metrics
 
 MATCHERS = ("fused", "points")
 
@@ -158,6 +160,14 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                       target.xyz[..., :2], target.valid, target.is_ga(),
                       pred, cfg.icp)
 
+    scene_points = ovalid.sum(-1)
+    metrics.emit("slam_step_3d", icp_ok=icp.ok, num_corr=icp.num_corr,
+                 mean_residual=icp.mean_residual, scene_points=scene_points)
+    ring = metrics.ring_write(state.metrics_ring, site="slam_step_3d",
+                              step=state.step, icp_ok=icp.ok,
+                              num_corr=icp.num_corr,
+                              mean_residual=icp.mean_residual,
+                              scene_points=scene_points)
     ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
     fused = ekf.mu[:, [0, 1, 6]]
     z_prev = state.pose[:, 3:4]
@@ -212,7 +222,7 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     new_state = state.replace(
         ekf=ekf, pose=pose4, scan_reg_pose=map_pose, scan_reg_ok=icp.ok,
         local_map=grid, prev_scene=prev_scene, map_cloud=map_cloud,
-        map_grid=mg, step=state.step + 1,
+        map_grid=mg, step=state.step + 1, metrics_ring=ring,
         attitude=(None if state.attitude is None
                   else torch.stack([roll, pitch], -1)))
     return new_state, GroundMap(grid=gg, cloud=gnd_cloud)

@@ -1,11 +1,13 @@
 """Where a tick's device time goes, on the card: torch.profiler over a few
 macros of config 1 (slam2d.rollout, "fused", B = 1024, or with
 `--config 1points` the "points" matcher: icp_fit on K4), config 5
-(shared_map.fleet_rollout_shared, "particle", stride 4, B = 1024) or config
+(shared_map.fleet_rollout_shared, "particle", stride 4, B = 1024), config
 2 (slam3d.rollout_3d, "fused": at sim3d_config with K1, B = 128, or at
-ref_scale_config with K3, B = 16).
+ref_scale_config with K3, B = 16) or config 4 (slam2d.rollout_with_graph
+at sim2d_graph_config, B = 256, macros of 8 ticks and a graph tick: K1 on
+the ticks, K2 and K4 on the graph tick's edges).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref
+    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4
 
 The package carries no spans; this script wraps the pipeline's stage
 functions in torch.profiler.record_function ranges for the run (a kernel
@@ -34,13 +36,15 @@ import tempfile
 import torch
 
 from slam_tpu_torch import config as cfg_mod
+from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.mapping.point_map import init_point_map
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.parallel import shared_map
 from slam_tpu_torch.pipeline import slam2d, slam3d
 from slam_tpu_torch.sim import world2d, world3d
 
-MACROS = 2          # profiled macros of 4 ticks, and each timed window's
+MACROS = 2          # profiled macros, and each timed window's (a macro is
+                    # 4 ticks; 8 and a graph tick for config 4)
 
 _EKF = ((ekf_mod, "motion_update", "EKF predict"),
         (ekf_mod, "yaw_rate_update", "EKF gyro"),
@@ -58,6 +62,14 @@ STAGES_2D = ((world2d, "raycast", "raycast"),) + _EKF + (
     (slam2d, "shift_origin", "occupancy shift"),
     (slam2d, "add_to_occupancy_xy", "occupancy update"),
     (shared_map, "fold_scans", "shared-map fold (once per macro)"),
+)
+STAGES_4 = STAGES_2D + (
+    (slam2d, "classify_ga_planes", "target GA reclassification"),
+    (slam2d, "graph_update", "graph tick: gate, insert, select"),
+    (pg, "icp_fused", "graph tick: edge ICP, K2"),
+    (pg, "_edge_information", "graph tick: edge information (K4 NN, LUM)"),
+    (pg, "optimize", "graph tick: optimise"),
+    (pg, "regenerate_map_grid", "graph tick: regenerate target"),
 )
 STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
     (slam3d, "segment_ground", "ground segmentation"),
@@ -129,8 +141,8 @@ def _attribute(trace: dict, labels) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref"),
-                    default="5")
+    ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref",
+                                         "4"), default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -142,7 +154,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     three_d = args.config in ("2", "ref")
-    if three_d:
+    per_macro = 8 if args.config == "4" else 4
+    if args.config == "4":
+        cfg = cfg_mod.sim2d_graph_config()
+        batch = 256
+        stages = STAGES_4
+        world = world2d.make_world(gen, cfg.sim, device=dev)
+        state = slam2d.init_state(cfg, batch, device=dev, generator=gen,
+                                  with_graph=True)
+        aux = None
+    elif three_d:
         cfg = (cfg_mod.sim3d_config() if args.config == "2"
                else cfg_mod.ref_scale_config())
         batch = 128 if args.config == "2" else 16
@@ -168,7 +189,10 @@ def main(argv=None) -> int:
                              device=dev)
 
     def run(s, a, macros):
-        if three_d:
+        if args.config == "4":
+            s, _ = slam2d.rollout_with_graph(s, world, cfg, macros, gen,
+                                             per_macro)
+        elif three_d:
             s, a, _ = slam3d.rollout_3d(s, world, a, cfg, 4 * macros, gen)
         elif args.config == "5":
             s, a, _ = shared_map.fleet_rollout_shared(s, a, world, cfg,
@@ -187,7 +211,7 @@ def main(argv=None) -> int:
         state, aux = run(state, aux, MACROS)
         e1.record()
         torch.cuda.synchronize()
-        windows.append(e0.elapsed_time(e1) / (4 * MACROS))
+        windows.append(e0.elapsed_time(e1) / (per_macro * MACROS))
 
     _wrap_stages(stages)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -205,7 +229,7 @@ def main(argv=None) -> int:
             trace = json.load(f)
     with open(path, "w") as f:
         json.dump(trace, f)
-    ticks = 4 * MACROS
+    ticks = per_macro * MACROS
     r = _attribute(trace, {label for _, _, label in stages})
     kern_ms = r["busy_us"] / 1e3 / ticks
     line_ms = r["timeline_us"] / 1e3 / ticks

@@ -98,13 +98,52 @@ class OccupancyGrid(Replaceable):
 
 
 @dataclasses.dataclass
-class SlamState(Replaceable):
-    """Per-robot SLAM state of the 2D scan-to-map pipeline, batched.
+class PoseGraph(Replaceable):
+    """Fixed-capacity keyframe pose graph per robot (planar mode).
 
-    The scan-to-map fields, and the IMU attitude of the 3D path. The pose
-    graph, the 6-DoF keyframe ground cloud and the device metrics ring of
-    slam_tpu's SlamState belong to later slices; the random stream is not
-    state here but an explicit torch.Generator argument."""
+    node_pose:  (B, N, 4) f32 x, y, yaw, z
+    node_valid: (B, N) bool
+    node_stamp: (B, N) int32 insertion order, -1 never used (eviction
+                reuses slots, so "newest" is a stamp lookup)
+    kf_xyz:     (B, N, P, 3) keyframe clouds in their node's frame
+    kf_valid:   (B, N, P) bool
+    kf_flags:   (B, N, P) int32
+    edge_ij:    (B, E, 2) int32 from, to node
+    edge_rel:   (B, E, 4) measured relative pose in the from-frame
+    edge_info:  (B, E, 4, 4) information (x, y, yaw, z)
+    edge_valid: (B, E) bool
+    num_nodes, num_edges: (B,) int32
+    edges_dropped: (B,) int32 accepted measurements lost to a full table
+
+    node_rp, edge_rel6 and edge_info6 are slam_tpu's 6-DoF extension
+    (edge_registration "3d"); the port has only the planar graph, so they
+    stay None."""
+
+    node_pose: torch.Tensor
+    node_valid: torch.Tensor
+    node_stamp: torch.Tensor
+    kf_xyz: torch.Tensor
+    kf_valid: torch.Tensor
+    kf_flags: torch.Tensor
+    edge_ij: torch.Tensor
+    edge_rel: torch.Tensor
+    edge_info: torch.Tensor
+    edge_valid: torch.Tensor
+    num_nodes: torch.Tensor
+    num_edges: torch.Tensor
+    edges_dropped: torch.Tensor
+    node_rp: object = None
+    edge_rel6: object = None
+    edge_info6: object = None
+
+
+@dataclasses.dataclass
+class SlamState(Replaceable):
+    """Per-robot SLAM state, batched: the scan-to-map fields, the pose
+    graph of graph mode, the IMU attitude of the 3D path and the device
+    metrics ring. slam_tpu's 6-DoF keyframe ground cloud belongs to a
+    later slice; the random stream is not state here but an explicit
+    torch.Generator argument."""
 
     ekf: EkfState
     pose: torch.Tensor           # (B, 4) fused pose x, y, yaw, z
@@ -120,6 +159,11 @@ class SlamState(Replaceable):
     true_pose: torch.Tensor      # (B, 4) simulation ground truth
     attitude: object = None      # (B, 2) last measured IMU roll / pitch
                                  # (3D path), or None
+    graph: object = None         # PoseGraph (graph mode), or None
+    graph_full: object = None    # (B,) bool keyframe capacity reached (new
+                                 # keyframes evict), or None without graph
+    metrics_ring: object = None  # (buf (B, cap, 9), count (B,)) device
+                                 # metrics ring (utils/metrics.py), or None
 
 
 @dataclasses.dataclass

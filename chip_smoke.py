@@ -72,14 +72,37 @@ non-zero:
              run (0.5 m keyframe gate, 40 macros: every graph fills and
              evicts; finite, full; edges_dropped printed); host syncs one
              graph_update makes under torch.cuda.set_sync_debug_mode
-14. div    — cell indices of t / python_float against a true division by
+14. mls    — config 3: MLS mapping with FFT relocalization at
+             sim2d_reloc_config (bench.py's bench_mls_reloc shapes: a 192 x
+             192 search raster, 32 rotations), B=128, a warm-up macro on
+             another fleet, then 8 macros of 4 fused ticks (K1), each
+             folding the last scene into the robots' MLS grids and
+             relocalizing the lost robots; robot 0's belief is kidnapped
+             by (8 m, -5 m, 1.2 rad) and flagged lost at macro 4, and one
+             more macro runs with every robot healthy: ms/tick, the ms of a
+             macro that relocalizes and of one that does not, host syncs a
+             macro, robot 0's distance to its true pose before and after
+             (gate), the robots not lost untouched bit for bit (gate), the
+             healthy robots' median ATE (gate), drivable cells on every
+             robot and a finite grid (gate); K4 held to its plain version
+             on the polish's calls, the FFT search on the card against its
+             plain CPU path on robot 0's problem
+15. regen  — config 4 at sim2d_graph_config with the "voxel" and then the
+             "mls" regeneration, B=256, 8 macros each after a warm-up
+             macro (robots drive ~0.1 m a tick, and a second keyframe
+             needs 5 m): ms/tick, graph tick ms, device ops and host syncs
+             of a graph tick (gate 0), median ATE, finite target, >= 2
+             keyframes (gates); after the voxel run one
+             apply_relocalization_graph on robot 0 kidnapped as in [mls]
+             (its edge injected, poses finite)
+16. div    — cell indices of t / python_float against a true division by
              a 0-dim tensor on the card at each site that divides by a
              configured width (ground sector and range bin at sim3d and the
              reference scale, occupancy at 0.2 m), counted on random values
              and on values at cell edges; the port's binning
              (ops/ground.polar_bins, mapping/occupancy.cells_of and a whole
              add_to_occupancy_xy at 0.2 m) must equal the CPU's
-15. time   — K1, K2, K3, K4 and K5 timed alone against their plain
+17. time   — K1, K2, K3, K4 and K5 timed alone against their plain
              versions at their main path's shapes (K3 on the full and on
              the sparse problem), beside the least time the card could take
              for the same work; K4 and K5 (P=128 and P=1) both as the
@@ -89,8 +112,8 @@ non-zero:
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
 
-Every kernel launch count is set to 0 just before a main path (8-13) runs
-and read just after it. The last two lines are the kernels' JSON record
+Every kernel launch count is set to 0 just before a main path (8-15) runs
+and read just after it; the JSON record's launches add up every path's. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
 package.
 """
@@ -133,6 +156,17 @@ GRAPH_EVERY = 8       # config 4: scan ticks per graph tick
 GRAPH_MACROS = 12     # config 4: timed macros, after a warm-up macro
 GRAPH_ATE_LIMIT = 0.5   # m, config 4: median per-robot ATE over ticks >= 8
 EVICT_MACROS = 40     # config 4 with a 0.5 m keyframe gate: graphs fill, evict
+MLS_FLEET = 128       # config 3: robots (bench.py's bench_mls_reloc)
+MLS_MACROS = 8        # config 3: timed macros of 4 ticks, after a warm-up macro
+MLS_KIDNAP_AT = 4     # config 3: the timed macro that kidnaps robot 0
+KIDNAP = (8.0, -5.0, 1.2)   # robot 0's belief jump: m, m, rad
+RELOC_LIMIT = 0.8     # m, robot 0's distance to its true pose after relocalizing
+MLS_ATE_LIMIT = 0.1   # m, config 3: median ATE of the healthy robots, ticks >= 10
+SEARCH_SCORE_TOL = 1e-4   # FFT search on the card vs the plain CPU path: score
+TIE_LEAD = 0.5        # counts: a best (rotation, lag) this far ahead is unique
+TIE_TOL = 1e-3        # counts: a lag this close to the best is a tie
+REGEN_MACROS = 8      # config 4, "voxel" and "mls": timed macros after a warm-up
+                      # (~6.4 m of driving: a second keyframe at the 5 m gate)
 DIV_SAMPLES = 1 << 22   # [div]: random values a site divides
 TIE_GAP = 1e-5        # m^2: a correspondence this close to a tie (or to the
                       # inlier gate) can flip between two roundings
@@ -914,6 +948,370 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     return counts[kernel]
 
 
+def mls_macro(state, grid, world, cfg, gen, kidnap=False):
+    """One macro of config 3, as bench.py's bench_mls_reloc builds it: with
+    `kidnap`, robot 0's belief jumps by KIDNAP and robot 0 is flagged lost;
+    four ticks of the fused path (K1); the last scene, moved to the world
+    by the fused pose, folded into every robot's MLS grid; then the fleet's
+    lost robots relocalized (FFT search, K4 polish, EKF shift). Returns
+    (state, grid, (est, true), the state the gate was given, lost)."""
+    from slam_tpu_torch.geometry import se2_apply
+    from slam_tpu_torch.mapping.mls import add_to_mls
+    from slam_tpu_torch.pipeline import slam2d
+    from slam_tpu_torch.pipeline.relocalize import fleet_relocalize_if_lost
+    from slam_tpu_torch.types import PointCloud
+    if kidnap:
+        mu, pose = state.ekf.mu.clone(), state.pose.clone()
+        for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
+                        (6, 2, KIDNAP[2])):
+            mu[0, i] += v
+            pose[0, j] += v
+        state = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
+    state, traj = slam2d.rollout(state, world, cfg, 4, gen)
+    scene = state.prev_scene
+    xy = se2_apply(state.pose[:, :3], scene.xyz[..., :2])
+    grid = add_to_mls(grid, PointCloud(
+        xyz=torch.cat([xy, scene.xyz[..., 2:]], -1), valid=scene.valid,
+        flags=scene.flags), cfg.mls)
+    lost = ~state.scan_reg_ok
+    if kidnap:
+        lost = lost.clone()
+        lost[0] = True
+    return (fleet_relocalize_if_lost(state, cfg, lost=lost), grid, traj,
+            state, lost)
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs it made) under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def search_fracs(scene, map_cloud, prior, gcfg):
+    """global_match's coarse search planes for one robot, on the operands'
+    device: the (K, (2G)^2) correlation over each rotation's occupied scene
+    cells."""
+    from slam_tpu_torch.geometry import rot2
+    from slam_tpu_torch.ops import fft_match as fm
+    K, G = gcfg.num_rotations, gcfg.grid_size
+    dev = prior.device
+    angles = torch.arange(K, device=dev).to(torch.float32) * (2 * np.pi / K)
+    map_img = fm.dilate(fm.rasterize(map_cloud.xyz[..., :2], map_cloud.valid,
+                                     prior, gcfg), gcfg.smooth_radius)
+    xy = scene.xyz[:, None, :, :2] @ rot2(angles).mT
+    imgs = fm.rasterize(xy, scene.valid[:, None], torch.zeros_like(prior)[
+        :, None], gcfg)[0]
+    corr = fm.fft_correlate(map_img[0], imgs).flatten(-2)
+    return corr / torch.clamp(imgs.sum((-2, -1)), min=1.0)[:, None], \
+        torch.clamp(imgs.sum((-2, -1)), min=1.0)
+
+
+def search_agreement(state, gcfg) -> dict:
+    """global_match's coarse search for robot 0 on the card against the same
+    search through the plain CPU path: scores within SEARCH_SCORE_TOL; the
+    poses equal where the CPU's best (rotation, lag) leads every other by
+    TIE_LEAD counts, else the card's lag within TIE_TOL counts of that
+    best (the FFTs round differently, and lags tie on whole counts)."""
+    from slam_tpu_torch.ops.fft_match import global_match
+
+    def robot0(c, dev):
+        return c.replace(xyz=c.xyz[:1].to(dev), valid=c.valid[:1].to(dev),
+                         flags=c.flags[:1].to(dev))
+    args = {dev: (robot0(state.prev_scene, dev), robot0(state.map_cloud, dev),
+                  state.pose[:1, :2].to(dev)) for dev in ("cuda", "cpu")}
+    card = global_match(*args["cuda"], gcfg)
+    plain = global_match(*args["cpu"], gcfg)
+    frac, cells = search_fracs(*args["cpu"], gcfg)
+    err = abs(float(card.score[0]) - float(plain.score[0]))
+    flat = frac.flatten()
+    top2 = torch.topk(flat, 2).values
+    kb = int(flat.argmax()) // frac.shape[1]
+    lead = float((top2[0] - top2[1]) * cells[kb])
+    P = 2 * gcfg.grid_size
+    pose, prior = card.pose[0].cpu(), args["cpu"][2][0]
+    k = int(round(float(pose[2]) / (2 * np.pi / gcfg.num_rotations))
+            ) % gcfg.num_rotations
+    dx, dy = (int(round(float(v))) for v in
+              (pose[:2] - prior) / gcfg.grid_resolution)
+    behind = float((top2[0] - frac[k, (dx % P) * P + (dy % P)]) * cells[k])
+    same = bool(torch.equal(pose, plain.pose[0]))
+    if err > SEARCH_SCORE_TOL or (lead >= TIE_LEAD and not same) or \
+            (lead < TIE_LEAD and behind > TIE_TOL):
+        raise RuntimeError(f"the FFT search on the card disagrees with its "
+                           f"plain CPU path on robot 0: score err {err}, "
+                           f"best leads by {lead} counts, the card's lag is "
+                           f"{behind} counts behind, poses equal {same}")
+    return dict(score_err=err, lead=lead, behind=behind, same=same,
+                score=float(card.score[0]))
+
+
+def mls_phase(world, gen, card) -> dict:
+    """[mls]: config 3 at sim2d_reloc_config (bench.py's shapes) for
+    MLS_FLEET robots: a warm-up macro on another fleet, MLS_MACROS timed
+    macros with robot 0 kidnapped at MLS_KIDNAP_AT, then one macro with
+    every robot healthy. Gates: robot 0 back within RELOC_LIMIT of its true
+    pose, the robots that were not lost bit for bit as the gate was given
+    them, the healthy robots' median ATE, drivable cells on every robot,
+    a finite grid, K4 equal to its plain version on the polish's calls, the
+    FFT search on the card against its plain CPU path. Returns the
+    launches, the times and the syncs."""
+    from slam_tpu_torch.config import sim2d_reloc_config
+    from slam_tpu_torch.mapping.mls import init_mls
+    from slam_tpu_torch.ops import icp as icp_mod
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d
+    from slam_tpu_torch.pipeline.relocalize import fleet_relocalize_if_lost
+    cfg = sim2d_reloc_config()
+    dev = world.centers.device
+    B = MLS_FLEET
+    warm = slam2d.init_state(cfg, B, device=dev, generator=gen.manual_seed(11))
+    mls_macro(warm, init_mls(cfg.mls, B, device=dev), world, cfg, gen,
+              kidnap=True)
+    del warm
+    state = slam2d.init_state(cfg, B, device=dev,
+                              generator=gen.manual_seed(12))
+    grid = init_mls(cfg.mls, B, device=dev)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(MLS_MACROS)]
+    est, true, losts = [], [], []
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    for m in range(MLS_MACROS):
+        events[m][0].record()
+        state, grid, (e, t), pre, lost = mls_macro(
+            state, grid, world, cfg, gen, kidnap=m == MLS_KIDNAP_AT)
+        events[m][1].record()
+        est.append(e)
+        true.append(t)
+        losts.append(lost)
+        if m == MLS_KIDNAP_AT:
+            kid_pre, kid_post, kid_lost = pre, state, lost
+    torch.cuda.synchronize()
+    launches = {"K1": icp_fused.launches, "K4": nn.launches}
+    macro_ms = [a.elapsed_time(b) for a, b in events]
+    fired = [bool(x.any()) for x in losts]
+    ms = sum(macro_ms) / (4 * MLS_MACROS)
+    quiet = [t for t, f in zip(macro_ms, fired) if not f]
+    est, true = torch.cat(est, 1), torch.cat(true, 1)
+    if est.shape != (B, 4 * MLS_MACROS, 3):
+        raise RuntimeError(f"config 3 trajectory shape {tuple(est.shape)}")
+
+    def dist0(s):
+        return float(torch.linalg.vector_norm(s.ekf.mu[0, :2] -
+                                              s.true_pose[0, :2]))
+    before, after, end = dist0(kid_pre), dist0(kid_post), dist0(state)
+    keep = ~kid_lost
+    nolost = fleet_relocalize_if_lost(kid_pre, cfg,
+                                      lost=torch.zeros_like(kid_lost))
+    untouched = all(torch.equal(getattr(a, f)[keep], getattr(b, f)[keep])
+                    for a, b in ((kid_post.ekf, nolost.ekf),
+                                 (kid_post.ekf, kid_pre.ekf))
+                    for f in ("mu", "sigma")) and \
+        torch.equal(kid_post.pose[keep], nolost.pose[keep])
+    ate = slam2d.ate(est[1:, 10:], true[1:, 10:])
+    med = float(ate.median())
+    drivable = (grid.drivable == 1).sum((1, 2))
+    finite = bool(torch.isfinite(grid.mean).all() &
+                  torch.isfinite(grid.var_z).all() &
+                  torch.isfinite(est).all())
+    if launches["K1"] < 4 * MLS_MACROS or launches["K4"] < 1:
+        raise RuntimeError(f"config 3 launches {launches} in "
+                           f"{4 * MLS_MACROS} ticks")
+    if not after < RELOC_LIMIT:
+        raise RuntimeError(f"config 3: robot 0 {after} m from its true pose "
+                           f"after relocalizing (kidnapped {before} m)")
+    if not untouched:
+        raise RuntimeError("config 3: the gate changed robots that were not "
+                           "lost")
+    if not med < MLS_ATE_LIMIT:
+        raise RuntimeError(f"config 3 median ATE of the healthy robots {med} "
+                           f"m not below {MLS_ATE_LIMIT} m")
+    if not finite or int(drivable.min()) < 1:
+        raise RuntimeError(f"config 3 MLS grids: finite {finite}, drivable "
+                           f"cells >= {int(drivable.min())}")
+
+    # one macro with every robot healthy, its host syncs counted
+    (state, grid, _, pre, lost), healthy_syncs = count_syncs(
+        lambda: mls_macro(state, grid, world, cfg, gen))
+    if bool(lost.any()) or state is not pre:
+        raise RuntimeError(f"config 3's healthy macro: {int(lost.sum())} "
+                           f"robots lost")
+    # the kidnap macro's gate again: its syncs, and K4 on the polish's calls
+    seen, nn_call = [], icp_mod.nearest_neighbor
+
+    def keep_call(*a, **k):
+        seen.append((a, k))
+        return nn_call(*a, **k)
+    icp_mod.nearest_neighbor = keep_call
+    try:
+        _, gate_syncs = count_syncs(lambda: fleet_relocalize_if_lost(
+            kid_pre, cfg, lost=kid_lost))
+    finally:
+        icp_mod.nearest_neighbor = nn_call
+    k4_err = 0.0
+    for a, k in seen:
+        args = (*a, k["q_class"], k["m_class"])
+        (idx, d), (ridx, rd) = nn.nearest_neighbor(*args), nn_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ridx) and same_bits(d, rd)):
+            raise RuntimeError(f"K4 disagrees with its plain version on the "
+                               f"relocalization polish: "
+                               f"{int((idx != ridx).sum())} idx mismatches")
+        k4_err = max(k4_err, float((d - rd).abs().max()))
+    search = search_agreement(kid_pre, cfg.global_match)
+    print(f"[mls] config 3 B={B} {MLS_MACROS} macros x 4 ticks, robot 0 "
+          f"kidnapped by {KIDNAP} at macro {MLS_KIDNAP_AT}: {ms:.3f} ms/tick, "
+          f"{B * 1000.0 / ms:.1f} robot-steps/s; a macro that relocalizes "
+          f"{macro_ms[MLS_KIDNAP_AT]:.3f} ms, one that does not "
+          f"{sum(quiet) / max(len(quiet), 1):.3f} ms (mean of {len(quiet)}; "
+          f"{sum(fired)} macros relocalized); host syncs: a healthy macro "
+          f"{len(healthy_syncs)}, the relocalizing gate {len(gate_syncs)}; "
+          f"robot 0 {before:.3f} m from its true pose before, {after:.4f} m "
+          f"after (bound {RELOC_LIMIT}), {end:.4f} m at the block's end; "
+          f"robots not lost unchanged bit for bit; median ATE of the healthy "
+          f"robots {med:.4f} m (ticks>=10, {float(ate.max()):.4f} max); "
+          f"drivable cells >= {int(drivable.min())} a robot; launches "
+          f"{launches}; K4 equal to its plain version on the polish's "
+          f"{len(seen)} calls; robot 0's FFT search on the card vs the CPU: "
+          f"score {search['score']:.6f}, err {search['score_err']:.3g} (bound "
+          f"{SEARCH_SCORE_TOL}), best lead {search['lead']:.4f} counts, "
+          f"card's lag {search['behind']:.3g} counts behind, poses equal "
+          f"{search['same']} | {card}", flush=True)
+    return dict(launches=launches, k4_err=k4_err, ms=ms, macro_ms=macro_ms,
+                syncs=(healthy_syncs, gate_syncs), polish_calls=seen)
+
+
+def regen_phase(world, gen, card) -> dict:
+    """[regen]: config 4 at sim2d_graph_config with map_regen "voxel" and
+    then "mls": REGEN_MACROS macros each after a warm-up macro on another
+    fleet; ms/tick, graph tick ms, device ops and host syncs of one graph
+    tick; gates: median ATE, a finite target, >= 2 keyframes a robot, no
+    host sync. After the voxel run, apply_relocalization_graph on robot 0
+    kidnapped by KIDNAP: its edge must be injected, every pose finite."""
+    from slam_tpu_torch.config import sim2d_graph_config
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import relocalize, slam2d
+    base = sim2d_graph_config()
+    dev = world.centers.device
+    B = GRAPH_FLEET
+    out = {"launches": {"K1": 0, "K2": 0, "K4": 0}}
+    lines = []
+    for regen in ("voxel", "mls"):
+        cfg = base.replace(graph=dataclasses.replace(base.graph,
+                                                     map_regen=regen))
+        warm = slam2d.init_state(cfg, B, device=dev,
+                                 generator=gen.manual_seed(13),
+                                 with_graph=True)
+        slam2d.rollout_with_graph(warm, world, cfg, 1, gen, GRAPH_EVERY)
+        del warm
+        state = slam2d.init_state(cfg, B, device=dev,
+                                  generator=gen.manual_seed(14),
+                                  with_graph=True)
+        tick_events, update = [], slam2d.graph_update
+
+        def timed_update(s, c):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            r = update(s, c)
+            ev[1].record()
+            tick_events.append(ev)
+            return r
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts(icp_fused, nn, particle)
+        slam2d.graph_update = timed_update
+        try:
+            e0.record()
+            state, (est, true) = slam2d.rollout_with_graph(
+                state, world, cfg, REGEN_MACROS, gen, GRAPH_EVERY)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            slam2d.graph_update = update
+        launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
+                    "K4": nn.launches}
+        for k, v in launches.items():
+            out["launches"][k] += v
+        ticks = REGEN_MACROS * GRAPH_EVERY
+        ms = e0.elapsed_time(e1) / ticks
+        graph_ms = [a.elapsed_time(b) for a, b in tick_events]
+        ops = device_ops(lambda: slam2d.graph_update(state, cfg))["n"]
+        _, syncs = count_syncs(lambda: slam2d.graph_update(state, cfg))
+        g = state.graph
+        ate = slam2d.ate(est[:, 8:], true[:, 8:])
+        med = float(ate.median())
+        target = state.map_cloud.valid.sum(-1)
+        nodes = int(g.num_nodes.min())
+        if not bool(torch.isfinite(state.map_cloud.xyz).all() &
+                    torch.isfinite(g.node_pose).all() &
+                    torch.isfinite(est).all()):
+            raise RuntimeError(f"config 4 ({regen}): non-finite poses or "
+                               f"target")
+        if not med < GRAPH_ATE_LIMIT or nodes < 2 or syncs or \
+                launches["K1"] < ticks or launches["K2"] < REGEN_MACROS:
+            raise RuntimeError(f"config 4 ({regen}): median ATE {med} m, >= "
+                               f"{nodes} keyframes, host syncs {syncs}, "
+                               f"launches {launches}")
+        line = (f"{regen}: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
+                f"robot-steps/s, graph tick mean "
+                f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
+                f"{max(graph_ms):.3f}), {ops} device ops a graph tick, "
+                f"host syncs 0, median ATE {med:.4f} m (ticks>=8, "
+                f"{float(ate.max()):.4f} max), keyframes >= {nodes}, target "
+                f"points {int(target.min())}-{int(target.max())} a robot, "
+                f"launches {launches}")
+        if regen == "voxel":
+            mu, pose = state.ekf.mu.clone(), state.pose.clone()
+            for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
+                            (6, 2, KIDNAP[2])):
+                mu[0, i] += v
+                pose[0, j] += v
+            kid = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
+            match = relocalize.relocalize(kid, kid.prev_scene, cfg)
+            only0 = torch.zeros_like(match.ok)
+            only0[0] = True
+            fixed = relocalize.apply_relocalization_graph(
+                kid, match._replace(ok=match.ok & only0), cfg)
+            added = fixed.graph.num_edges - kid.graph.num_edges
+            d0 = float(torch.linalg.vector_norm(fixed.ekf.mu[0, :2] -
+                                                fixed.true_pose[0, :2]))
+            if not bool(match.ok[0]) or int(added[0]) != 1 or \
+                    int(added[1:].abs().sum()) or not bool(
+                        torch.isfinite(fixed.graph.node_pose).all() &
+                        torch.isfinite(fixed.pose).all() &
+                        torch.isfinite(fixed.map_cloud.xyz).all()):
+                raise RuntimeError(f"config 4 relocalization: match ok "
+                                   f"{bool(match.ok[0])} (score "
+                                   f"{float(match.score[0])}), edges added "
+                                   f"{int(added[0])} on robot 0, "
+                                   f"{int(added[1:].abs().sum())} elsewhere")
+            line += (f"; apply_relocalization_graph on robot 0 kidnapped by "
+                     f"{KIDNAP}: match score {float(match.score[0]):.4f}, "
+                     f"edge injected, poses finite, {d0:.4f} m from its "
+                     f"true pose")
+        lines.append(line)
+        out[regen] = dict(ms=ms, graph_ms=graph_ms, ops=ops, ate=med)
+        del state
+    print(f"[regen] config 4 B={B} {REGEN_MACROS} macros x {GRAPH_EVERY} "
+          f"ticks + a graph tick, each regeneration after a warm-up macro: "
+          + "; ".join(lines) + f" | {card}", flush=True)
+    return out
+
+
 def division_phase(card) -> dict:
     """[div]: how many cell indices differ between `t / python_float`
     (which the card computes as t times the f32 reciprocal) and a true
@@ -1357,6 +1755,12 @@ def main() -> int:
     launches["K2"] += graph["launches"]["K2"]
     launches["K4"] += graph["launches"]["K4"]
     launches["K1 (config 4)"] = graph["launches"]["K1"]
+    mls = mls_phase(world, gen, card)
+    regen = regen_phase(world, gen, card)
+    launches["K1 (config 3)"] = mls["launches"]["K1"]
+    launches["K1 (config 4, voxel and mls)"] = regen["launches"]["K1"]
+    launches["K2"] += regen["launches"]["K2"]
+    launches["K4"] += mls["launches"]["K4"] + regen["launches"]["K4"]
     division_phase(card)
 
     # kernels alone, at their main path's shapes
@@ -1459,6 +1863,9 @@ def main() -> int:
     if leaked:
         raise RuntimeError(f"imported modules of jax / slam_tpu: {leaked}")
 
+    launches["K1, every path"] = sum(v for k, v in launches.items()
+                                     if k.startswith("K1"))
+
     def record(label, source, replaces, key, err, ms, plain_ms, bnd):
         return {"name": label, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[key],
@@ -1467,7 +1874,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         record("icp_fused_planes (K1)", "slam_tpu_torch/csrc/icp_fused.cu",
-               "slam_tpu/ops/icp_pallas.py:59", "K1", k1["pose_err"], k1_ms,
+               "slam_tpu/ops/icp_pallas.py:59", "K1, every path",
+               k1["pose_err"], k1_ms,
                k1_plain_ms, k1_bound),
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",

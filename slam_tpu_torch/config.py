@@ -292,6 +292,15 @@ def sim2d_graph_config() -> SlamConfig:
         map_regen="grid", regen_grid_bins=256))
 
 
+def sim2d_reloc_config() -> SlamConfig:
+    """BASELINE config 3, MLS mapping with FFT relocalization, at the shapes
+    slam_tpu's benchmark runs it (bench.py's bench_mls_reloc): sim2d_config
+    with a 192 x 192 search raster and 32 rotations (chunks of 8)."""
+    c = sim2d_config()
+    return dataclasses.replace(c, global_match=dataclasses.replace(
+        c.global_match, grid_size=192, num_rotations=32))
+
+
 def ref_scale_config() -> SlamConfig:
     """3D Velodyne at the reference's own working point: 32 x 640 rays,
     the full 72 x 200 ground grid to 100 m, up to 20k model points per

@@ -1,8 +1,10 @@
 """Keyframe pose-graph SLAM, planar engine — counterpart of
 slam_tpu/graph/pose_graph.py (`init_graph`, `nearest_kf_dist`,
 `knn_keyframes`, `newest_node`, `_eviction_slot`, `add_keyframe`,
-`_edge_measurement`, `_se2_edge_residuals`, `optimize`, `_kf_world_xyz`,
-`regenerate_map_grid`), batched over robots.
+`_edge_measurement`, `_se2_edge_residuals`, `optimize`,
+`relocalization_edge`, `_kf_world_xyz`, `regenerate_map`,
+`regenerate_map_mls`, `regenerate_map_grid`, `home_command`,
+`mission_command`), batched over robots.
 
 A robot's graph has fixed capacity: N keyframe slots, E edge slots. A
 keyframe is gated by distance to the nearest one (5 m), evicts the most
@@ -19,25 +21,33 @@ with `torch.where`; nothing reads a device value from Python, so a graph
 tick never waits for the card. On the card every candidate edge of every
 robot goes through kernel K2 (`ops/icp_fused.icp_fused`) in one call, and
 the information's nearest neighbours through K4; CPU tensors take their
-plain versions. Only the planar graph (engine "se2z", edge_registration
-"2d") is ported; the 6-DoF graph and its fields belong to a later slice.
+plain versions. The target is regenerated by one of three engines: a
+voxel merge of every keyframe ("voxel"), a global MLS rebuild exported as
+cluster means ("mls", a Python loop of one batched `add_to_mls` per
+keyframe slot) or a centroid grid around the newest node ("grid"). Only
+the planar graph (engine "se2z", edge_registration "2d") is ported; the
+6-DoF graph and its fields belong to a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.geometry import angle_wrap, se2_apply_xy, se2_relative
+from slam_tpu_torch.geometry import (angle_wrap, se2_apply_xy, se2_compose,
+                                     se2_relative)
+from slam_tpu_torch.mapping.mls import (add_to_mls, get_segmented_clouds,
+                                        init_mls)
 from slam_tpu_torch.mapping.point_map import (export_points, init_point_map,
                                               update_point_map_xy)
 from slam_tpu_torch.ops.icp import edge_information_2d
 from slam_tpu_torch.ops.icp_fused import icp_fused
 from slam_tpu_torch.ops.linalg import cho_solve
 from slam_tpu_torch.ops.nn import nearest_neighbor
-from slam_tpu_torch.ops.voxel import compact
+from slam_tpu_torch.ops.voxel import compact, voxel_downsample
 from slam_tpu_torch.types import PointCloud, PoseGraph
 
 LATER = ("the 6-DoF graph (edge_registration '3d', engine 'se3') is not "
@@ -412,6 +422,35 @@ def optimize(graph: PoseGraph, cfg):
     return graph.replace(node_pose=new_pose), delta
 
 
+def relocalization_edge(graph: PoseGraph, belief_pose4: torch.Tensor,
+                        match_pose3: torch.Tensor, match_ok: torch.Tensor,
+                        cfg):
+    """Add an accepted global match (B, 3) as an edge from node 0 to each
+    robot's newest keyframe, which it places by composing the match with
+    the keyframe's offset from the belief (B, 4) the graph was built in.
+    Information diag(reloc_info_xy, reloc_info_xy, reloc_info_yaw, 1). A
+    robot with no keyframe but node 0, or no free edge slot, takes no edge
+    (the latter counts in edges_dropped). Returns (graph, injected (B,));
+    optimise afterwards."""
+    last, has_last = newest_node(graph)
+    rows = _rows(last)
+    kf = graph.node_pose[rows, last]
+    rel_bk = se2_relative(belief_pose4[:, :3], kf[:, :3])
+    kf_map3 = se2_compose(match_pose3, rel_bk)
+    node0 = graph.node_pose[:, 0]
+    rel = torch.cat([se2_relative(node0[:, :3], kf_map3),
+                     (kf[:, 3] - node0[:, 3])[:, None]], -1)
+    info = torch.zeros_like(graph.edge_info[:, 0])
+    for i, v in enumerate((cfg.reloc_info_xy, cfg.reloc_info_xy,
+                           cfg.reloc_info_yaw, 1.0)):
+        info[:, i, i] = v
+    want = match_ok & has_last & (last != 0)
+    e = graph.edge_valid.to(torch.int32).argmin(-1)
+    injected = want & ~graph.edge_valid[rows, e]
+    g = _add_edge(graph, torch.zeros_like(last), last, want, rel, info)
+    return g, injected
+
+
 def _kf_world_xyz(graph: PoseGraph) -> torch.Tensor:
     """(B, N, P, 3) keyframe clouds in the world under the node poses
     (SE(2) x z: clouds are stored upright)."""
@@ -447,3 +486,71 @@ def regenerate_map_grid(graph: PoseGraph, capacity: int,
     grid = update_point_map_xy(grid, xyz[..., 0], xyz[..., 1], xyz[..., 2],
                                valid, resolution)
     return export_points(grid, capacity, ga_threshold=ga_threshold)
+
+
+def _kf_world_cloud(graph: PoseGraph, world: torch.Tensor,
+                    i: int) -> PointCloud:
+    """Keyframe slot i of every robot, in the world, as a (B, P) cloud
+    (an invalid node's points masked)."""
+    return PointCloud(xyz=world[:, i],
+                      valid=graph.kf_valid[:, i] & graph.node_valid[:, i, None],
+                      flags=graph.kf_flags[:, i])
+
+
+def regenerate_map(graph: PoseGraph, capacity: int,
+                   voxel_leaf=(0.5, 0.5, 2.0)) -> PointCloud:
+    """The scan-to-map target regenerated from every robot's keyframes:
+    all keyframe points under the optimised poses, voxel-merged
+    (voxel_downsample) into `capacity` points."""
+    B, N, P, _ = graph.kf_xyz.shape
+    merged = PointCloud(
+        xyz=_kf_world_xyz(graph).reshape(B, N * P, 3),
+        valid=(graph.kf_valid & graph.node_valid[..., None]).reshape(B, N * P),
+        flags=graph.kf_flags.reshape(B, N * P))
+    return voxel_downsample(merged, voxel_leaf, capacity)
+
+
+def regenerate_map_mls(graph: PoseGraph, mls_cfg, capacity: int):
+    """The global map rebuilt as an MLS grid centred on the world origin:
+    every keyframe slot's cloud under its optimised pose folded in, slot
+    after slot (one batched add_to_mls each), then the cluster means
+    exported. Returns (obstacle cloud, ground cloud, grid)."""
+    world = _kf_world_xyz(graph)
+    grid = init_mls(mls_cfg, graph.kf_xyz.shape[0], device=world.device)
+    for i in range(graph.kf_xyz.shape[1]):
+        grid = add_to_mls(grid, _kf_world_cloud(graph, world, i), mls_cfg)
+    obs, gnd = get_segmented_clouds(grid, mls_cfg, capacity)
+    return obs, gnd, grid
+
+
+# Mission commands: INIT acknowledges (nothing to do), HOME rebuilds the
+# global map from keyframe 0 alone with clusters initialized at 3 points,
+# so that a robot returning home has a dense target around it; any other
+# command is ignored with a warning.
+FSM_INIT = 1
+FSM_HOME = 2
+FSM_FIX = 3
+
+
+def home_command(graph: PoseGraph, mls_cfg, capacity: int):
+    """HOME: the global map from keyframe 0 only. Returns (obstacle cloud,
+    ground cloud, node 0's pose (B, 4))."""
+    cfg3 = dataclasses.replace(mls_cfg, min_cluster_points=3.0)
+    world = _kf_world_xyz(graph)
+    grid = add_to_mls(init_mls(cfg3, graph.kf_xyz.shape[0],
+                               device=world.device),
+                      _kf_world_cloud(graph, world, 0), cfg3)
+    obs, gnd = get_segmented_clouds(grid, cfg3, capacity)
+    return obs, gnd, graph.node_pose[:, 0]
+
+
+def mission_command(command: int, graph: PoseGraph, mls_cfg, capacity: int):
+    """Dispatch a mission command: FSM_HOME returns home_command's result,
+    FSM_INIT None; any other command warns and returns None."""
+    if command == FSM_HOME:
+        return home_command(graph, mls_cfg, capacity)
+    if command == FSM_INIT:
+        return None
+    warnings.warn(f"Unknown FSM command {command}; ignored", RuntimeWarning,
+                  stacklevel=2)
+    return None

@@ -5,9 +5,10 @@ slam_tpu's SlamState, GroundMap, World2D and World3D are pytrees; after
 robots (leading dim B) for a fleet. `state_from_numpy`,
 `ground_map_from_numpy`, `world_from_numpy` and `world3d_from_numpy` read
 such objects by attribute (no jax import), so both packages can start from
-the identical state; `point_map_from_numpy` reads one unbatched grid
-(config 5's shared map) as a batch-1 PointMapGrid; `state_to_numpy` turns
-a port state or ground map back into a nested dict of numpy arrays with
+the identical state; `mls_grid_from_numpy` reads an MlsGrid stacked over
+robots; `point_map_from_numpy` reads one unbatched grid (config 5's shared
+map) as a batch-1 PointMapGrid; `state_to_numpy` turns a port state, ground
+map, pose graph or MLS grid back into a nested dict of numpy arrays with
 the same field names (a metrics ring stays a (buf, count) pair). The JAX
 state's random key is dropped: the port draws from an explicit
 torch.Generator. Tensors land on the card unless `device` says otherwise.
@@ -22,8 +23,9 @@ from slam_tpu_torch import default_device
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
 from slam_tpu_torch.sim.world3d import World3D
-from slam_tpu_torch.types import (EkfState, GroundMap, OccupancyGrid,
-                                  PointCloud, PoseGraph, SlamState)
+from slam_tpu_torch.types import (EkfState, GroundMap, MlsGrid,
+                                  OccupancyGrid, PointCloud, PoseGraph,
+                                  SlamState)
 
 
 def _t(a, device, dtype=None):
@@ -60,6 +62,18 @@ def graph_from_numpy(g, device=None) -> PoseGraph:
         ("edge_ij", i32), ("edge_rel", f32), ("edge_info", f32),
         ("edge_valid", b8), ("num_nodes", i32), ("num_edges", i32),
         ("edges_dropped", i32))})
+
+
+def mls_grid_from_numpy(g, device=None) -> MlsGrid:
+    """Port MlsGrid from a slam_tpu MlsGrid with numpy leaves stacked over
+    robots."""
+    device = default_device(device)
+    f32 = torch.float32
+    return MlsGrid(mean=_t(g.mean, device, f32), var_z=_t(g.var_z, device, f32),
+                   num_pts=_t(g.num_pts, device, f32),
+                   drivable=_t(g.drivable, device, torch.int8),
+                   origin=_t(g.origin, device, torch.int32),
+                   center=_t(g.center, device, f32))
 
 
 def state_from_numpy(st, device=None) -> SlamState:
@@ -152,6 +166,6 @@ def _np(x):
 
 
 def state_to_numpy(state) -> dict:
-    """A port SlamState (or GroundMap, or PoseGraph) as a nested dict of
-    numpy arrays, keyed by slam_tpu's field names."""
+    """A port SlamState (or GroundMap, PoseGraph or MlsGrid) as a nested
+    dict of numpy arrays, keyed by slam_tpu's field names."""
     return _np(state)

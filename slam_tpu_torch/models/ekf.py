@@ -117,3 +117,13 @@ def slam_update(state: EkfState, meas: torch.Tensor, cfg,
     return state.replace(mu=torch.where(has[:, None], mu, mubar),
                          sigma=torch.where(has[:, None, None], sigma,
                                            sigmabar))
+
+
+def global_offset(state: EkfState, delta: torch.Tensor) -> EkfState:
+    """Shift each robot's pose by a graph-SLAM / relocalization delta
+    (B, 3) [dx, dy, dyaw]: x += dx, y += dy, yaw = wrap(yaw + dyaw)."""
+    mu = state.mu
+    mu = torch.cat([mu[:, :1] + delta[:, :1], mu[:, 1:2] + delta[:, 1:2],
+                    mu[:, 2:6], angle_wrap(mu[:, 6:7] + delta[:, 2:3]),
+                    mu[:, 7:]], -1)
+    return state.replace(mu=mu)

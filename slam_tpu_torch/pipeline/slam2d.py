@@ -12,8 +12,8 @@ robot batch. `register_scan_to_scan` registers against the previous scene
 Graph mode (config 4, `rollout_with_graph`): the ticks register against a
 target regenerated from the pose graph's keyframes, and every graph tick
 (`graph_update`) adds keyframes with edges measured by K2, optimises the
-graph and regenerates the target (graph/pose_graph.py). Only the planar
-engine with the "grid" regeneration is ported.
+graph and regenerates the target by graph.map_regen's engine, "voxel",
+"mls" or "grid" (graph/pose_graph.py). Only the planar engine is ported.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points". The grid matcher belongs to a later slice and
@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.geometry import se2_apply_xy
+from slam_tpu_torch.geometry import se2_apply, se2_apply_xy
 from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy,
                                               init_occupancy, shift_origin)
@@ -41,9 +41,10 @@ from slam_tpu_torch.ops.icp_fused import fused_register, icp_fused
 from slam_tpu_torch.ops.particle import pf_match
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
-from slam_tpu_torch.ops.voxel import crop_box
+from slam_tpu_torch.ops.voxel import crop_box, voxel_downsample
 from slam_tpu_torch.sim import world2d
-from slam_tpu_torch.types import PointCloud, SlamState, make_cloud
+from slam_tpu_torch.types import (PointCloud, SlamState, make_cloud,
+                                  select_cloud)
 from slam_tpu_torch.utils import metrics
 
 MATCHERS = ("fused", "points", "particle")
@@ -154,6 +155,21 @@ def planes_to_cloud(sx, sy, ga, keep, sz=None) -> PointCloud:
     flags = torch.where(ga, PointCloud.FLAG_GA, 0).to(torch.int32)
     return PointCloud(xyz=torch.stack([sx, sy, z], -1), valid=keep,
                       flags=flags)
+
+
+def update_map_cloud(map_cloud: PointCloud, scene: PointCloud,
+                     pose_xyyaw: torch.Tensor, cfg) -> PointCloud:
+    """The map cloud with the scene (B, N) added at pose_xyyaw (B, 3),
+    voxel-merged (voxel_downsample at voxel_leaf_obs) into map_capacity
+    points: the cloud-level map upkeep (the ticks keep a point-map grid
+    instead)."""
+    world_xy = se2_apply(pose_xyyaw, scene.xyz[..., :2])
+    return voxel_downsample(PointCloud(
+        xyz=torch.cat([map_cloud.xyz, torch.cat(
+            [world_xy, scene.xyz[..., 2:]], -1)], 1),
+        valid=torch.cat([map_cloud.valid, scene.valid], 1),
+        flags=torch.cat([map_cloud.flags, scene.flags], 1)),
+        cfg.icp.voxel_leaf_obs, cfg.cloud.map_capacity)
 
 
 def register_scan(scene: PointCloud, map_cloud: PointCloud,
@@ -384,11 +400,6 @@ def _check_graph_cfg(cfg) -> None:
     g = cfg.graph
     if g.edge_registration != "2d" or g.engine != "se2z":
         raise NotImplementedError(pg.LATER)
-    if g.map_regen != "grid":
-        raise NotImplementedError(
-            f"graph.map_regen {g.map_regen!r} is not ported yet (have "
-            "'grid'): 'voxel' is ROADMAP queue 1's next step for config 4, "
-            "'mls' waits for config 3's MLS map")
 
 
 def graph_update(state: SlamState, cfg) -> SlamState:
@@ -406,8 +417,10 @@ def graph_update_delta(state: SlamState, cfg):
     where none ran. The EKF is not shifted by it.
 
     Every robot runs every stage and torch.where keeps what its own gates
-    select, so the tick never waits for the card. Engine "se2z" with
-    map_regen "grid" only; the others raise."""
+    select, so the tick never waits for the card. The target is
+    regenerated by graph.map_regen's engine: "voxel" (a voxel merge of
+    every keyframe), "mls" (a global MLS rebuild's obstacle export) or
+    "grid". Engine "se2z" only; the 6-DoF graph raises."""
     _check_graph_cfg(cfg)
     gcfg = cfg.graph
     graph, added = pg.add_keyframe(state.graph, state.pose, state.prev_scene,
@@ -418,18 +431,23 @@ def graph_update_delta(state: SlamState, cfg):
     graph = graph.replace(node_pose=torch.where(
         opt[:, None, None], optimized.node_pose, graph.node_pose))
     delta = torch.where(opt[:, None], delta, 0.0)
-    # cfg.cloud.export_recall is passed as slam_tpu passes it; the port's
-    # export is always the exact top-k, which is what slam_tpu's
-    # approx_max_k gives off the TPU, so the knob has no effect here
-    regen = pg.regenerate_map_grid(
-        graph, state.map_cloud.capacity, resolution=cfg.icp.voxel_leaf_obs[0],
-        grid_bins=gcfg.regen_grid_bins, ga_threshold=cfg.icp.ga_threshold,
-        recall=cfg.cloud.export_recall)
-    a = added[:, None]
-    map_cloud = PointCloud(
-        xyz=torch.where(a[..., None], regen.xyz, state.map_cloud.xyz),
-        valid=torch.where(a, regen.valid, state.map_cloud.valid),
-        flags=torch.where(a, regen.flags, state.map_cloud.flags))
+    capacity = state.map_cloud.capacity
+    if gcfg.map_regen == "grid":
+        # cfg.cloud.export_recall is passed as slam_tpu passes it; the
+        # port's export is always the exact top-k, which is what slam_tpu's
+        # approx_max_k gives off the TPU, so the knob has no effect here
+        regen = pg.regenerate_map_grid(
+            graph, capacity, resolution=cfg.icp.voxel_leaf_obs[0],
+            grid_bins=gcfg.regen_grid_bins,
+            ga_threshold=cfg.icp.ga_threshold,
+            recall=cfg.cloud.export_recall)
+    elif gcfg.map_regen == "mls":
+        # the 2D path has no ground class: the obstacle export is the
+        # whole target
+        regen = pg.regenerate_map_mls(graph, cfg.mls, capacity)[0]
+    else:
+        regen = pg.regenerate_map(graph, capacity, cfg.icp.voxel_leaf_obs)
+    map_cloud = select_cloud(added, regen, state.map_cloud)
     full = graph.num_nodes >= gcfg.max_nodes
     metrics.emit("graph_update", added=added, num_nodes=graph.num_nodes,
                  num_edges=graph.num_edges, graph_full=full)

@@ -5,9 +5,13 @@ macros of config 1 (slam2d.rollout, "fused", B = 1024, or with
 2 (slam3d.rollout_3d, "fused": at sim3d_config with K1, B = 128, or at
 ref_scale_config with K3, B = 16) or config 4 (slam2d.rollout_with_graph
 at sim2d_graph_config, B = 256, macros of 8 ticks and a graph tick: K1 on
-the ticks, K2 and K4 on the graph tick's edges).
+the ticks, K2 and K4 on the graph tick's edges) or config 3 (macros of
+4 "fused" ticks at sim2d_reloc_config, B = 128, each folding the last
+scene into the robots' MLS grids and relocalizing the lost robots; robot
+0's belief is kidnapped and flagged lost in the third macro of every
+4-macro window, as bench.py's bench_mls_reloc does once a block).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4
+    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4, 3
 
 The package carries no spans; this script wraps the pipeline's stage
 functions in torch.profiler.record_function ranges for the run (a kernel
@@ -36,15 +40,21 @@ import tempfile
 import torch
 
 from slam_tpu_torch import config as cfg_mod
+from slam_tpu_torch.geometry import se2_apply
 from slam_tpu_torch.graph import pose_graph as pg
+from slam_tpu_torch.mapping import mls as mls_mod
 from slam_tpu_torch.mapping.point_map import init_point_map
 from slam_tpu_torch.models import ekf as ekf_mod
+from slam_tpu_torch.ops import fft_match
 from slam_tpu_torch.parallel import shared_map
-from slam_tpu_torch.pipeline import slam2d, slam3d
+from slam_tpu_torch.pipeline import relocalize, slam2d, slam3d
 from slam_tpu_torch.sim import world2d, world3d
 
 MACROS = 2          # profiled macros, and each timed window's (a macro is
-                    # 4 ticks; 8 and a graph tick for config 4)
+                    # 4 ticks; 8 and a graph tick for config 4); config 3
+                    # takes 4, the third kidnapping robot 0
+KIDNAP_AT = 2       # config 3: the macro of a window that kidnaps robot 0
+KIDNAP = (8.0, -5.0, 1.2)
 
 _EKF = ((ekf_mod, "motion_update", "EKF predict"),
         (ekf_mod, "yaw_rate_update", "EKF gyro"),
@@ -71,6 +81,14 @@ STAGES_4 = STAGES_2D + (
     (pg, "optimize", "graph tick: optimise"),
     (pg, "regenerate_map_grid", "graph tick: regenerate target"),
 )
+STAGES_3 = STAGES_2D + (
+    (mls_mod, "add_to_mls", "MLS fold (once per macro)"),
+    (relocalize, "fleet_relocalize_if_lost",
+     "relocalization gate (one flag read a macro)"),
+    (relocalize, "global_match", "relocalization: FFT search"),
+    (fft_match, "icp_fit", "relocalization: ICP polish (K4)"),
+    (relocalize, "apply_relocalization", "relocalization: EKF shift"),
+)
 STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
     (slam3d, "segment_ground", "ground segmentation"),
     (slam3d, "build_scene_3d_planes", "obstacle scene (besides ground)"),
@@ -84,6 +102,30 @@ STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
     (slam3d, "shift_origin", "occupancy shift (once per macro)"),
     (slam3d, "add_to_occupancy_xy2", "occupancy update"),
 )
+
+
+def _mls_macro(state, grid, world, cfg, gen, kidnap):
+    """Config 3's macro (bench.py's bench_mls_reloc): with `kidnap`, robot
+    0's belief jumps by KIDNAP and robot 0 is flagged lost; 4 fused ticks;
+    the last scene folded into the MLS grids at the fused pose; the lost
+    robots relocalized."""
+    if kidnap:
+        mu, pose = state.ekf.mu.clone(), state.pose.clone()
+        for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
+                        (6, 2, KIDNAP[2])):
+            mu[0, i] += v
+            pose[0, j] += v
+        state = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
+    state, _ = slam2d.rollout(state, world, cfg, 4, gen)
+    scene = state.prev_scene
+    xy = se2_apply(state.pose[:, :3], scene.xyz[..., :2])
+    grid = mls_mod.add_to_mls(grid, scene.replace(
+        xyz=torch.cat([xy, scene.xyz[..., 2:]], -1)), cfg.mls)
+    lost = ~state.scan_reg_ok
+    if kidnap:
+        lost = lost.clone()
+        lost[0] = True
+    return relocalize.fleet_relocalize_if_lost(state, cfg, lost=lost), grid
 
 
 def _wrap_stages(stages):
@@ -142,7 +184,7 @@ def _attribute(trace: dict, labels) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref",
-                                         "4"), default="5")
+                                         "4", "3"), default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -155,7 +197,15 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     three_d = args.config in ("2", "ref")
     per_macro = 8 if args.config == "4" else 4
-    if args.config == "4":
+    macros = 4 if args.config == "3" else MACROS
+    if args.config == "3":
+        cfg = cfg_mod.sim2d_reloc_config()
+        batch = 128
+        stages = STAGES_3
+        world = world2d.make_world(gen, cfg.sim, device=dev)
+        state = slam2d.init_state(cfg, batch, device=dev, generator=gen)
+        aux = mls_mod.init_mls(cfg.mls, batch, device=dev)
+    elif args.config == "4":
         cfg = cfg_mod.sim2d_graph_config()
         batch = 256
         stages = STAGES_4
@@ -189,7 +239,10 @@ def main(argv=None) -> int:
                              device=dev)
 
     def run(s, a, macros):
-        if args.config == "4":
+        if args.config == "3":
+            for m in range(macros):
+                s, a = _mls_macro(s, a, world, cfg, gen, m == KIDNAP_AT)
+        elif args.config == "4":
             s, _ = slam2d.rollout_with_graph(s, world, cfg, macros, gen,
                                              per_macro)
         elif three_d:
@@ -201,24 +254,25 @@ def main(argv=None) -> int:
             s, _ = slam2d.rollout(s, world, cfg, 4 * macros, gen)
         return s, a
 
-    state, aux = run(state, aux, 1)                          # warm-up
+    state, aux = run(state, aux, KIDNAP_AT + 1 if args.config == "3"
+                     else 1)                                 # warm-up
     windows = []
     for _ in range(3):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         e0.record()
-        state, aux = run(state, aux, MACROS)
+        state, aux = run(state, aux, macros)
         e1.record()
         torch.cuda.synchronize()
-        windows.append(e0.elapsed_time(e1) / (per_macro * MACROS))
+        windows.append(e0.elapsed_time(e1) / (per_macro * macros))
 
     _wrap_stages(stages)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        state, aux = run(state, aux, MACROS)
+        state, aux = run(state, aux, macros)
         torch.cuda.synchronize()
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"trace_config{args.config}.json")
@@ -229,7 +283,7 @@ def main(argv=None) -> int:
             trace = json.load(f)
     with open(path, "w") as f:
         json.dump(trace, f)
-    ticks = per_macro * MACROS
+    ticks = per_macro * macros
     r = _attribute(trace, {label for _, _, label in stages})
     kern_ms = r["busy_us"] / 1e3 / ticks
     line_ms = r["timeline_us"] / 1e3 / ticks

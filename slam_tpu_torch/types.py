@@ -61,6 +61,15 @@ def cloud_from_xyz(xyz: torch.Tensor, valid: torch.Tensor | None = None,
     return PointCloud(xyz=xyz, valid=valid, flags=flags)
 
 
+def select_cloud(pick: torch.Tensor, a: PointCloud,
+                 b: PointCloud) -> PointCloud:
+    """Robot by robot, cloud a where pick (B,) is True, else cloud b."""
+    m = pick[:, None]
+    return PointCloud(xyz=torch.where(m[..., None], a.xyz, b.xyz),
+                      valid=torch.where(m, a.valid, b.valid),
+                      flags=torch.where(m, a.flags, b.flags))
+
+
 def make_cloud(batch: int, capacity: int, device=None,
                dtype=torch.float32) -> PointCloud:
     """An empty cloud, on the card unless `device` says otherwise."""
@@ -92,6 +101,28 @@ class OccupancyGrid(Replaceable):
     """
 
     counts: torch.Tensor
+    drivable: torch.Tensor
+    origin: torch.Tensor
+    center: torch.Tensor
+
+
+@dataclasses.dataclass
+class MlsGrid(Replaceable):
+    """Multi-level-surface grid: a fixed bank of K Gaussian z-clusters per
+    cell, kept sorted by mean z with empty slots last.
+
+    mean:     (B, H, W, K, 3) float — cluster means (x, y in the frame the
+                                      clouds were given in)
+    var_z:    (B, H, W, K) float
+    num_pts:  (B, H, W, K) float    — point counts (capped), 0 = empty slot
+    drivable: (B, H, W) int8        — -1 unknown, 0 blocked, 1 drivable
+    origin:   (B, 2) int32          — rolling origin in cells
+    center:   (B, 2) float          — world xy of the grid's centre cell
+    """
+
+    mean: torch.Tensor
+    var_z: torch.Tensor
+    num_pts: torch.Tensor
     drivable: torch.Tensor
     origin: torch.Tensor
     center: torch.Tensor

@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from slam_tpu import config as jcfg
+from slam_tpu.mapping import mls as jmls
 from slam_tpu.mapping import point_map as jpm
 from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu.sim import world2d as jw
 from slam_tpu_torch import config as tcfg
 from slam_tpu_torch import interop
+from slam_tpu_torch.mapping.mls import init_mls
 from slam_tpu_torch.mapping.occupancy import init_occupancy
 from slam_tpu_torch.mapping.point_map import init_point_map
 from slam_tpu_torch.models.ekf import init_ekf
@@ -26,6 +28,15 @@ from tests.torch_parity import numpy_tree
 
 CONSTRUCTORS = ("default_config", "sim2d_config", "sim3d_config",
                 "ref_scale_config")
+
+
+def test_config3_is_the_jax_benchmarks():
+    """sim2d_reloc_config is the config bench.py's bench_mls_reloc builds."""
+    c = jcfg.sim2d_config()
+    want = c.replace(global_match=dataclasses.replace(
+        c.global_match, grid_size=192, num_rotations=32))
+    assert dataclasses.asdict(tcfg.sim2d_reloc_config()) == \
+        dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("name", CONSTRUCTORS)
@@ -66,13 +77,18 @@ def _entry_points():
         "point_map_from_numpy": lambda: interop.point_map_from_numpy(grid),
         "fleet_rollout_shared": lambda: fleet_rollout_shared(
             cpu_states, cpu_shared, cpu_world, cfg, 1),
+        "init_mls": lambda: init_mls(cfg.mls, 2),
+        "mls_grid_from_numpy": lambda: interop.mls_grid_from_numpy(
+            jax.tree.map(lambda x: np.asarray(x)[None],
+                         jmls.init_mls(cfg.mls))),
     }
 
 
 ENTRY_POINTS = ("init_state", "make_world", "init_point_map",
                 "init_occupancy", "init_ekf", "make_cloud",
                 "state_from_numpy", "world_from_numpy",
-                "point_map_from_numpy", "fleet_rollout_shared")
+                "point_map_from_numpy", "fleet_rollout_shared", "init_mls",
+                "mls_grid_from_numpy")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -45,7 +45,12 @@ from slam_tpu_torch import geometry as tgeo, interop
 from slam_tpu_torch.graph import pose_graph as tpg
 from slam_tpu_torch.ops import icp_fused, nn as tnn
 from slam_tpu_torch.ops.icp import edge_information_2d as t_edge_info
-from slam_tpu_torch.ops.voxel import compact
+from slam_tpu.pipeline import relocalize as jrel
+from slam_tpu.ops.fft_match import MatchResult as JMatch
+from slam_tpu_torch.ops.fft_match import MatchResult
+from slam_tpu_torch.ops.voxel import (compact, voxel_downsample,
+                                      voxel_downsample_pairwise)
+from slam_tpu_torch.pipeline import relocalize as trel
 from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import PointCloud
 from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
@@ -445,8 +450,9 @@ def test_graph_rollout_noise_free_matches_jax():
 
 
 def test_graph_modes_not_ported_raise():
-    for g in (dict(map_regen="voxel"), dict(map_regen="mls"),
-              dict(engine="se3")):
+    """Only the 6-DoF graph is still to port ("voxel" and "mls" are
+    test_graph_update_regenerations_match_jax's cases)."""
+    for g in (dict(engine="se3"), dict(edge_registration="3d")):
         cfg = CFG.replace(graph=dataclasses.replace(GCFG, **g))
         with pytest.raises(NotImplementedError):
             tslam.graph_update(None, cfg)
@@ -499,3 +505,236 @@ def test_edge_fit_jumps_at_an_exact_tie():
     assert_close(got.pose[0], np.zeros(3), atol=1e-7)
     jump = 0.5 / len(scene)
     assert_close(got.pose[1:, 1], [jump, -jump], atol=2e-3)
+
+
+def _voxel_cloud(seed, B=2, N=300):
+    """Clouds (B, N) with points sharing voxels at the 0.5 m x 0.5 m x 2 m
+    leaf (clustered centres), masked points, and 0/1 flag bits."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-15, 15, (B, 60, 3)) * [1, 1, 0.2]
+    pick = rng.integers(0, 60, (B, N))
+    xyz = (np.take_along_axis(centres, pick[..., None], 1) +
+           rng.normal(0, 0.2, (B, N, 3))).astype(np.float32)
+    valid = rng.random((B, N)) < 0.9
+    flags = rng.integers(0, 8, (B, N)).astype(np.int32)
+    return xyz, valid, flags
+
+
+@pytest.mark.parametrize("capacity", [64, 512])
+def test_voxel_downsample_matches_jax(capacity):
+    """Counts and flags exact, centroids 1e-5; at 64 slots the voxels
+    overflow the capacity and the tail is dropped."""
+    xyz, valid, flags = _voxel_cloud(5)
+    leaf = (0.5, 0.5, 2.0)
+    want = jax.jit(jax.vmap(lambda x, v, f: jvoxel.voxel_downsample(
+        JCloud(xyz=x, valid=v, flags=f), leaf, capacity)))(xyz, valid, flags)
+    got = voxel_downsample(_cloud(xyz, valid, flags), leaf, capacity)
+    assert_equal(got.valid, want.valid)
+    assert_equal(got.flags, want.flags)
+    assert_close(got.xyz, want.xyz, atol=1e-5)
+    n = np.asarray(want.valid).sum(-1)
+    assert n.min() > 40 and (n.max() == capacity) == (capacity == 64)
+
+
+def test_voxel_downsample_pairwise_and_update_map_cloud_match_jax():
+    xyz, valid, flags = _voxel_cloud(6, N=160)
+    leaf = CFG.icp.voxel_leaf_obs
+    want = jax.vmap(lambda x, v, f: jvoxel.voxel_downsample_pairwise(
+        JCloud(xyz=x, valid=v, flags=f), leaf))(xyz, valid, flags)
+    got = voxel_downsample_pairwise(_cloud(xyz, valid, flags), leaf)
+    assert_equal(got.valid, want.valid)
+    assert_equal(got.flags, want.flags)
+    assert_close(got.xyz, want.xyz, atol=1e-5)
+
+    mxyz, mvalid, mflags = _voxel_cloud(7, N=CFG.cloud.map_capacity)
+    pose = np.array([[1.0, -2.0, 0.4], [-3.0, 0.5, -1.2]], np.float32)
+    want = jax.jit(jax.vmap(lambda m, s, p: jslam.update_map_cloud(
+        m, s, p, CFG)))(JCloud(xyz=mxyz, valid=mvalid, flags=mflags),
+                        JCloud(xyz=xyz, valid=valid, flags=flags), pose)
+    got = tslam.update_map_cloud(_cloud(mxyz, mvalid, mflags),
+                                 _cloud(xyz, valid, flags), to_torch(pose),
+                                 CFG)
+    assert_equal(got.valid, want.valid)
+    assert_equal(got.flags, want.flags)
+    assert_close(got.xyz, want.xyz, atol=1e-5)
+
+
+def _voxel_centroids_f64(graph, leaf, capacity):
+    """(B, capacity, 3) f64 centroids of the voxels of every keyframe point
+    in the world (as the port computes it in f32), in ascending voxel id."""
+    xyz = to_np(tpg._kf_world_xyz(graph)).astype(np.float64)
+    xyz = xyz.reshape(xyz.shape[0], -1, 3)
+    valid = to_np(graph.kf_valid & graph.node_valid[..., None]).reshape(
+        xyz.shape[:2])
+    out = np.zeros((xyz.shape[0], capacity, 3))
+    for b in range(xyz.shape[0]):
+        q = np.floor(xyz[b] / np.asarray(leaf)).astype(np.int64)
+        vid = (q[:, 0] * 4096 + q[:, 1]) * 4096 + q[:, 2]
+        ids = np.unique(vid[valid[b]])[:capacity]
+        out[b, :len(ids)] = [xyz[b][valid[b] & (vid == v)].mean(0)
+                             for v in ids]
+    return out
+
+
+def _lifted(g, copies=1):
+    """Graph g with world point j of every keyframe (slot j // copies:
+    keyframe slots hold the world points in order) at height 0.9 m when
+    j is odd, 0 otherwise, so that neighbouring MLS cells differ by more
+    than height_threshold (obstacles, not only ground); with copies > 1
+    keyframe 0 holds each of its points `copies` times, 1 cm apart (so its
+    cells initialize on their own)."""
+    kf = np.asarray(g.kf_xyz).copy()
+    valid = np.asarray(g.kf_valid).copy()
+    if copies > 1:
+        n = valid[:, 0].sum(-1).min() // copies * copies
+        src = np.arange(n) // copies
+        jit = np.random.default_rng(9).normal(0, 0.01, (n, 2))
+        kf[:, 0, :n, :2] = kf[:, 0, src, :2] + jit
+        valid[:, 0] = np.arange(kf.shape[2]) < n
+    j = np.arange(kf.shape[2]) // copies
+    kf[..., 2] += np.where(j % 2 == 1, 0.9, 0.0).astype(np.float32)
+    return g.replace(kf_xyz=kf.astype(np.float32), kf_valid=valid)
+
+
+def test_regenerate_map_voxel_and_mls_match_jax(sequence):
+    """The voxel merge of every keyframe, and the global MLS rebuild (one
+    add_to_mls per keyframe slot, then the cluster-mean export) with its
+    grid, on the full graph of the path. Voxel centroids: 5e-5 against
+    slam_tpu and 2e-5 against f64 centroids. Both packages sum each voxel
+    as a difference of two prefix sums of the points' offsets from their
+    voxel centres; with the 2 m z leaf those offsets are ~1 m, so the
+    prefixes grow to ~500 over the 512 keyframe points and round at a few
+    1e-5 (slam_tpu itself lies 2.1e-5 from the f64 centroids here)."""
+    _, graphs, _ = sequence
+    g = graphs[11]
+    leaf = CFG.icp.voxel_leaf_obs
+    want = jax.jit(jax.vmap(lambda gg: jpg.regenerate_map(gg, 256, leaf)))(g)
+    tg = _port_graph(g)
+    got = tpg.regenerate_map(tg, 256, leaf)
+    assert_equal(got.valid, want.valid)
+    assert_equal(got.flags, want.flags)
+    assert_close(got.xyz, want.xyz, atol=5e-5)
+    assert_close(got.xyz, _voxel_centroids_f64(tg, leaf, 256), atol=2e-5)
+    assert np.asarray(want.valid).sum(-1).min() > 50
+
+    mcfg = dataclasses.replace(CFG.mls, size_x=96, size_y=96)
+    g = _lifted(g)
+    wo, wg, wgrid = jax.jit(jax.vmap(lambda gg: jpg.regenerate_map_mls(
+        gg, mcfg, 256)))(g)
+    to, tg, tgrid = tpg.regenerate_map_mls(_port_graph(g), mcfg, 256)
+    for a, b in ((to, wo), (tg, wg)):
+        assert_equal(a.valid, b.valid)
+        assert_close(a.xyz, b.xyz, atol=1e-5)
+    assert_equal(tgrid.num_pts, wgrid.num_pts)
+    assert_equal(tgrid.drivable, wgrid.drivable)
+    assert_close(tgrid.mean, wgrid.mean, atol=1e-5)
+    assert np.asarray(wo.valid).sum(-1).min() > 5
+    assert np.asarray(wg.valid).sum(-1).min() > 10
+
+
+def test_relocalization_edge_matches_jax(sequence):
+    """Robot 0 takes the edge; robot 1's match is refused. Then a graph
+    whose edge table is full drops the edge and counts it."""
+    _, graphs, _ = sequence
+    g = graphs[7]
+    rng = np.random.default_rng(8)
+    belief = np.asarray(g.node_pose)[:, 3] + rng.normal(0, 0.3, (B, 4))
+    belief = belief.astype(np.float32)
+    match = (belief[:, :3] + [0.4, -0.2, 0.05]).astype(np.float32)
+    ok = np.array([True, False])
+    run = jax.jit(jax.vmap(lambda gg, b, m, o: jpg.relocalization_edge(
+        gg, b, m, o, GCFG)))
+    want, want_inj = run(g, belief, match, ok)
+    got, got_inj = tpg.relocalization_edge(
+        _port_graph(g), to_torch(belief), to_torch(match), to_torch(ok),
+        GCFG)
+    assert_equal(got_inj, want_inj)
+    assert_equal(got_inj, [True, False])
+    assert_graph_close(got, want, rel_tol=1e-5, info_rtol=0.0)
+    full = g.replace(edge_valid=np.ones_like(g.edge_valid))
+    want, want_inj = run(full, belief, match, np.array([True, True]))
+    got, got_inj = tpg.relocalization_edge(
+        _port_graph(full), to_torch(belief), to_torch(match),
+        torch.ones(B, dtype=torch.bool), GCFG)
+    assert not got_inj.any()
+    assert_equal(got.edges_dropped, want.edges_dropped)
+    assert_equal(got.edges_dropped, np.asarray(full.edges_dropped) + 1)
+
+
+def test_apply_relocalization_graph_matches_jax(sequence):
+    """A kidnapped robot (belief off by 1.5 m and 0.1 rad) with a genuine
+    match, and one whose match is the give-up fallback (score 0): the first
+    shifts its belief, takes the edge, re-optimises and regenerates its
+    target; the second shifts its belief only."""
+    st = _graph_state(sequence)
+    pose = np.asarray(st.pose).copy()
+    match = JMatch(pose=pose[:, :3].copy(),
+                   score=np.array([0.8, 0.0], np.float32),
+                   ok=np.array([True, True]))
+    kid = pose.copy()
+    kid[:, :2] += [1.5, -1.0]
+    kid[:, 2] += 0.1
+    mu = np.asarray(st.ekf.mu).copy()
+    mu[:, [0, 1, 6]] = kid[:, :3]
+    st = st.replace(pose=kid, ekf=st.ekf.replace(mu=mu))
+    with as_on_tpu():
+        want = jax.jit(jax.vmap(lambda s, m: jrel.apply_relocalization_graph(
+            s, m, CFG)))(st, match)
+    got = trel.apply_relocalization_graph(
+        interop.state_from_numpy(st, "cpu"),
+        MatchResult(*(to_torch(x) for x in match)), CFG)
+    # 2e-4: the edge (information 1000 on x, y) pulls the newest node ~1.8 m
+    # through ten GN steps; the solves' rounding leaves 1.1e-4 in one y
+    assert_graph_close(got.graph, want.graph, pose_tol=2e-4)
+    assert_equal(got.graph.num_edges - to_torch(st.graph.num_edges), [1, 0])
+    assert_close(got.ekf.mu, want.ekf.mu, atol=1e-5)
+    assert_close(got.pose, want.pose, atol=1e-5)
+    assert_equal(got.map_cloud.valid, want.map_cloud.valid)
+    # the node poses' 2e-4, and their yaw's 1e-5 at up to 20 m
+    assert_close(got.map_cloud.xyz, want.map_cloud.xyz, atol=5e-4)
+
+
+def test_home_and_mission_commands_match_jax(sequence):
+    """HOME: the global map from keyframe 0 alone (here holding each of its
+    points three times, so that its cells initialize)."""
+    _, graphs, _ = sequence
+    g = _lifted(graphs[11], copies=3)
+    mcfg = dataclasses.replace(CFG.mls, size_x=96, size_y=96)
+    wo, wg, wp = jax.jit(jax.vmap(lambda gg: jpg.home_command(
+        gg, mcfg, 128)))(g)
+    to, tg, tp = tpg.mission_command(tpg.FSM_HOME, _port_graph(g), mcfg, 128)
+    for a, b in ((to, wo), (tg, wg)):
+        assert_equal(a.valid, b.valid)
+        assert_close(a.xyz, b.xyz, atol=1e-5)
+    assert_equal(tp, wp)
+    assert np.asarray(wg.valid).sum(-1).min() > 10
+    assert tpg.mission_command(tpg.FSM_INIT, _port_graph(g), mcfg, 8) is None
+    with pytest.warns(RuntimeWarning):
+        assert tpg.mission_command(tpg.FSM_FIX, _port_graph(g), mcfg,
+                                   8) is None
+
+
+@pytest.mark.parametrize("map_regen", ["voxel", "mls"])
+def test_graph_update_regenerations_match_jax(sequence, map_regen):
+    """One whole graph tick on a carried graph with the target regenerated
+    by a voxel merge (the config's default) or by the global MLS rebuild
+    (its obstacle export). The keyframes' points stand at two heights
+    (_lifted): on a flat 2D world every initialized cluster is drivable
+    ground, and the obstacle export, the "mls" target, is empty in both
+    packages."""
+    gcfg = dataclasses.replace(GCFG, map_regen=map_regen)
+    cfg = CFG.replace(graph=gcfg, mls=dataclasses.replace(
+        CFG.mls, size_x=96, size_y=96))
+    st = _graph_state(sequence)
+    st = st.replace(graph=_lifted(st.graph))
+    with as_on_tpu():
+        want, want_delta = jax.jit(jax.vmap(
+            lambda s: jslam.graph_update_delta(s, cfg)))(st)
+    got, got_delta = tslam.graph_update_delta(
+        interop.state_from_numpy(st, "cpu"), cfg)
+    assert_graph_close(got.graph, want.graph, pose_tol=1e-4)
+    assert_close(got_delta, want_delta, atol=1e-4)
+    assert_equal(got.map_cloud.valid, want.map_cloud.valid)
+    assert_equal(got.map_cloud.flags, want.map_cloud.flags)
+    assert_close(got.map_cloud.xyz, want.map_cloud.xyz, atol=1e-4)
+    assert np.asarray(want.map_cloud.valid).sum(-1).min() > 2

@@ -1,5 +1,6 @@
 """The port stands alone: slam_tpu_torch imports and runs a tick (and
-imports its pose graph and metrics modules) with jax unimportable and no
+imports its pose graph, MLS, FFT-match, relocalization and metrics
+modules) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
 slam_tpu package or builds a path into slam_tpu/, and chip_smoke.py
 refuses to report without a GPU."""
@@ -35,6 +36,9 @@ state = slam2d.init_state(cfg, 2, device="cpu", generator=gen)
 state = slam2d.slam_step(state, world, cfg, gen)
 assert torch.isfinite(state.pose).all() and int(state.step[0]) == 1
 import slam_tpu_torch.graph.pose_graph
+import slam_tpu_torch.mapping.mls
+import slam_tpu_torch.ops.fft_match
+import slam_tpu_torch.pipeline.relocalize
 import slam_tpu_torch.utils.metrics
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "slam_tpu")
        and sys.modules[m] is not None]

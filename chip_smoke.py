@@ -983,7 +983,9 @@ def mls_macro(state, grid, world, cfg, gen, kidnap=False):
 
 def count_syncs(fn):
     """(fn's result, the host syncs it made) under
-    torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.set_sync_debug_mode("warn"), each as the source line that
+    made it."""
+    import os
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -994,8 +996,15 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return out, [str(w.message).splitlines()[0] for w in caught
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
                  if "called a synchronizing" in str(w.message)]
+
+
+def sync_sites(syncs) -> str:
+    """'site xN, ...' of count_syncs' list."""
+    import collections
+    return ", ".join(f"{k} x{v}" for k, v in
+                     collections.Counter(syncs).most_common())
 
 
 def search_fracs(scene, map_cloud, prior, gcfg):
@@ -1177,7 +1186,8 @@ def mls_phase(world, gen, card) -> dict:
           f"{macro_ms[MLS_KIDNAP_AT]:.3f} ms, one that does not "
           f"{sum(quiet) / max(len(quiet), 1):.3f} ms (mean of {len(quiet)}; "
           f"{sum(fired)} macros relocalized); host syncs: a healthy macro "
-          f"{len(healthy_syncs)}, the relocalizing gate {len(gate_syncs)}; "
+          f"{len(healthy_syncs)} ({sync_sites(healthy_syncs)}), the "
+          f"relocalizing gate {len(gate_syncs)} ({sync_sites(gate_syncs)}); "
           f"robot 0 {before:.3f} m from its true pose before, {after:.4f} m "
           f"after (bound {RELOC_LIMIT}), {end:.4f} m at the block's end; "
           f"robots not lost unchanged bit for bit; median ATE of the healthy "
@@ -1249,7 +1259,6 @@ def regen_phase(world, gen, card) -> dict:
         ticks = REGEN_MACROS * GRAPH_EVERY
         ms = e0.elapsed_time(e1) / ticks
         graph_ms = [a.elapsed_time(b) for a, b in tick_events]
-        ops = device_ops(lambda: slam2d.graph_update(state, cfg))["n"]
         _, syncs = count_syncs(lambda: slam2d.graph_update(state, cfg))
         g = state.graph
         ate = slam2d.ate(est[:, 8:], true[:, 8:])
@@ -1269,8 +1278,7 @@ def regen_phase(world, gen, card) -> dict:
         line = (f"{regen}: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
                 f"robot-steps/s, graph tick mean "
                 f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
-                f"{max(graph_ms):.3f}), {ops} device ops a graph tick, "
-                f"host syncs 0, median ATE {med:.4f} m (ticks>=8, "
+                f"{max(graph_ms):.3f}), host syncs 0, median ATE {med:.4f} m (ticks>=8, "
                 f"{float(ate.max()):.4f} max), keyframes >= {nodes}, target "
                 f"points {int(target.min())}-{int(target.max())} a robot, "
                 f"launches {launches}")
@@ -1304,8 +1312,12 @@ def regen_phase(world, gen, card) -> dict:
                      f"edge injected, poses finite, {d0:.4f} m from its "
                      f"true pose")
         lines.append(line)
-        out[regen] = dict(ms=ms, graph_ms=graph_ms, ops=ops, ate=med)
-        del state
+        # its device ops are counted at the end of the run: a profiled
+        # session this long leaves the next few sessions without device
+        # events
+        out[regen] = dict(ms=ms, graph_ms=graph_ms, ate=med,
+                          tick=lambda s=state, c=cfg: slam2d.graph_update(
+                              s, c))
     print(f"[regen] config 4 B={B} {REGEN_MACROS} macros x {GRAPH_EVERY} "
           f"ticks + a graph tick, each regeneration after a warm-up macro: "
           + "; ".join(lines) + f" | {card}", flush=True)
@@ -1799,6 +1811,11 @@ def main() -> int:
         raise RuntimeError(f"device ops a call: nearest_neighbor {nn_ops}, "
                            f"score_particles {k5_ops}, K5 in pf_match "
                            f"{ops_a_call['pf_match']['K5']} (want 1, 2, 3)")
+    regen_ops = {r: device_ops(regen[r].pop("tick"))["n"]
+                 for r in ("voxel", "mls")}
+    print(f"[regen] device ops a graph tick (config 4, B={GRAPH_FLEET}): "
+          f"voxel {regen_ops['voxel']}, mls {regen_ops['mls']} | {card}",
+          flush=True)
     # K3 at the reference scale's shapes, on the [K3] phase's problem
     ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
                                                seed=11, span=100.0,

@@ -32,9 +32,7 @@ def shift_origin(grid: OccupancyGrid, new_center_xy: torch.Tensor,
     d, center = shift_step(grid.center, new_center_xy, cfg.resolution)
     fresh = fresh_mask(d, *grid.counts.shape[1:])
     counts = torch.where(fresh, 0.0, roll_2d(grid.counts, d))
-    drivable = torch.where(fresh, torch.tensor(-1, dtype=torch.int8,
-                                               device=fresh.device),
-                           roll_2d(grid.drivable, d))
+    drivable = torch.where(fresh, -1, roll_2d(grid.drivable, d))
     return grid.replace(counts=counts, drivable=drivable, center=center)
 
 

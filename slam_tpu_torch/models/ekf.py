@@ -3,6 +3,8 @@
 State: [x, y, vX, vY, vx, vy, yaw, omega] (inertial position and velocity,
 body velocity, yaw, body yaw rate). mu is (B, 8), sigma (B, 8, 8); `has_meas`
 is a (B,) mask that lets one call mix robots with and without a measurement.
+Nothing here copies from the host: constants are Python scalars or rows of
+a device-made identity, so a tick's EKF never waits for the card.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ def estimate_gyro_bias(gyro_samples: torch.Tensor) -> torch.Tensor:
 def clamp_cmd(cmd: torch.Tensor, cfg) -> torch.Tensor:
     """Clamp (B, 3) commands; any NaN component zeroes the whole command."""
     cmd = torch.where(torch.isnan(cmd).any(-1, keepdim=True), 0.0, cmd)
-    lim = torch.tensor([cfg.cmd_vel_max, cfg.cmd_vel_max, cfg.cmd_omega_max],
-                       dtype=cmd.dtype, device=cmd.device)
-    return torch.clamp(cmd, -lim, lim)
+    return torch.cat([cmd[:, :2].clamp(-cfg.cmd_vel_max, cfg.cmd_vel_max),
+                      cmd[:, 2:].clamp(-cfg.cmd_omega_max,
+                                       cfg.cmd_omega_max)], -1)
 
 
 def motion_update(state: EkfState, cmd: torch.Tensor, dt: float,
@@ -79,15 +81,14 @@ def yaw_rate_update(state: EkfState, gyro_z: torch.Tensor, cfg,
     """Gyro yaw-rate update; the bias is subtracted here. gyro_z: (B,)."""
     mubar, sigmabar = state.mu, state.sigma
     meas = gyro_z - state.gyro_bias
-    C = torch.zeros(8, dtype=mubar.dtype, device=mubar.device)
-    C[7] = 1.0
+    C = torch.eye(8, dtype=mubar.dtype, device=mubar.device)[7]
     sC = sigmabar @ C                                       # (B, 8)
     K = sC / (sC @ C + cfg.meas_noise_yaw)[:, None]
     mu = mubar + K * (meas - mubar[:, 7])[:, None]
     mu = torch.cat([mu[:, :6], angle_wrap(mu[:, 6:7]), mu[:, 7:]], -1)
     eye = torch.eye(8, dtype=mubar.dtype, device=mubar.device)
     sigma = (eye - K[:, :, None] * C) @ sigmabar
-    has = torch.as_tensor(has_meas, device=mubar.device) & torch.isfinite(meas)
+    has = torch.isfinite(meas) & has_meas
     return state.replace(mu=torch.where(has[:, None], mu, mubar),
                          sigma=torch.where(has[:, None, None], sigma,
                                            sigmabar))
@@ -97,10 +98,8 @@ def slam_update(state: EkfState, meas: torch.Tensor, cfg,
                 has_meas=True) -> EkfState:
     """x / y / yaw update with a wrapped yaw innovation. meas: (B, 3)."""
     mubar, sigmabar = state.mu, state.sigma
-    C = torch.zeros(3, 8, dtype=mubar.dtype, device=mubar.device)
-    C[0, 0] = 1.0
-    C[1, 1] = 1.0
-    C[2, 6] = 1.0
+    eye = torch.eye(8, dtype=mubar.dtype, device=mubar.device)
+    C = torch.stack([eye[0], eye[1], eye[6]])               # x, y, yaw rows
     pred = mubar @ C.T                                      # (B, 3)
     innov = torch.stack([meas[:, 0] - pred[:, 0], meas[:, 1] - pred[:, 1],
                          subtract_yaw(angle_wrap(meas[:, 2]), pred[:, 2])],
@@ -110,13 +109,17 @@ def slam_update(state: EkfState, meas: torch.Tensor, cfg,
     S = C @ sigmabar @ C.T + Q
     K = sigmabar @ C.T @ inv3(S)                            # (B, 8, 3)
     mu = mubar + (K @ innov[:, :, None])[:, :, 0]
-    eye = torch.eye(8, dtype=mubar.dtype, device=mubar.device)
     sigma = (eye - K @ C) @ sigmabar
-    has = torch.as_tensor(has_meas, device=mubar.device) & \
-        torch.isfinite(meas).all(-1)
+    has = torch.isfinite(meas).all(-1) & has_meas
     return state.replace(mu=torch.where(has[:, None], mu, mubar),
                          sigma=torch.where(has[:, None, None], sigma,
                                            sigmabar))
+
+
+def pose_xyyaw(state: EkfState) -> torch.Tensor:
+    """(B, 3) x, y, yaw of the belief."""
+    mu = state.mu
+    return torch.stack([mu[:, 0], mu[:, 1], mu[:, 6]], -1)
 
 
 def global_offset(state: EkfState, delta: torch.Tensor) -> EkfState:

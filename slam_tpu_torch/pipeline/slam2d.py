@@ -256,7 +256,7 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
 
     ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
     ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
-    pred = ekf.mu[:, [0, 1, 6]]
+    pred = ekf_mod.pose_xyyaw(ekf)
 
     sx, sy, sga, skeep = build_scene_planes(scan_x, scan_y, hit, cfg)
     scene = planes_to_cloud(sx, sy, sga, skeep)
@@ -287,7 +287,7 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
                               mean_residual=icp.mean_residual,
                               scene_points=skeep.sum(-1))
     ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
-    fused = ekf.mu[:, [0, 1, 6]]
+    fused = ekf_mod.pose_xyyaw(ekf)
 
     mg, map_cloud = state.map_grid, state.map_cloud
     if incremental_map:

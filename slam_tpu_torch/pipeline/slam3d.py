@@ -147,7 +147,7 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
 
     ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
     ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
-    pred = ekf.mu[:, [0, 1, 6]]
+    pred = ekf_mod.pose_xyyaw(ekf)
 
     (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
         build_scene_3d_planes(scan_xyz, hit, cfg)
@@ -169,7 +169,7 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                               mean_residual=icp.mean_residual,
                               scene_points=scene_points)
     ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
-    fused = ekf.mu[:, [0, 1, 6]]
+    fused = ekf_mod.pose_xyyaw(ekf)
     z_prev = state.pose[:, 3:4]
     pose4_pre = torch.cat([fused, z_prev], -1)
     map_pose = torch.cat([torch.where(icp.ok[:, None], icp.pose, pred),

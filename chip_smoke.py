@@ -159,7 +159,6 @@ EVICT_MACROS = 40     # config 4 with a 0.5 m keyframe gate: graphs fill, evict
 MLS_FLEET = 128       # config 3: robots (bench.py's bench_mls_reloc)
 MLS_MACROS = 8        # config 3: timed macros of 4 ticks, after a warm-up macro
 MLS_KIDNAP_AT = 4     # config 3: the timed macro that kidnaps robot 0
-KIDNAP = (8.0, -5.0, 1.2)   # robot 0's belief jump: m, m, rad
 RELOC_LIMIT = 0.8     # m, robot 0's distance to its true pose after relocalizing
 MLS_ATE_LIMIT = 0.1   # m, config 3: median ATE of the healthy robots, ticks >= 10
 SEARCH_SCORE_TOL = 1e-4   # FFT search on the card vs the plain CPU path: score
@@ -948,39 +947,6 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     return counts[kernel]
 
 
-def mls_macro(state, grid, world, cfg, gen, kidnap=False):
-    """One macro of config 3, as bench.py's bench_mls_reloc builds it: with
-    `kidnap`, robot 0's belief jumps by KIDNAP and robot 0 is flagged lost;
-    four ticks of the fused path (K1); the last scene, moved to the world
-    by the fused pose, folded into every robot's MLS grid; then the fleet's
-    lost robots relocalized (FFT search, K4 polish, EKF shift). Returns
-    (state, grid, (est, true), the state the gate was given, lost)."""
-    from slam_tpu_torch.geometry import se2_apply
-    from slam_tpu_torch.mapping.mls import add_to_mls
-    from slam_tpu_torch.pipeline import slam2d
-    from slam_tpu_torch.pipeline.relocalize import fleet_relocalize_if_lost
-    from slam_tpu_torch.types import PointCloud
-    if kidnap:
-        mu, pose = state.ekf.mu.clone(), state.pose.clone()
-        for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
-                        (6, 2, KIDNAP[2])):
-            mu[0, i] += v
-            pose[0, j] += v
-        state = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
-    state, traj = slam2d.rollout(state, world, cfg, 4, gen)
-    scene = state.prev_scene
-    xy = se2_apply(state.pose[:, :3], scene.xyz[..., :2])
-    grid = add_to_mls(grid, PointCloud(
-        xyz=torch.cat([xy, scene.xyz[..., 2:]], -1), valid=scene.valid,
-        flags=scene.flags), cfg.mls)
-    lost = ~state.scan_reg_ok
-    if kidnap:
-        lost = lost.clone()
-        lost[0] = True
-    return (fleet_relocalize_if_lost(state, cfg, lost=lost), grid, traj,
-            state, lost)
-
-
 def count_syncs(fn):
     """(fn's result, the host syncs it made) under
     torch.cuda.set_sync_debug_mode("warn"), each as the source line that
@@ -1081,12 +1047,13 @@ def mls_phase(world, gen, card) -> dict:
     from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.pipeline.relocalize import fleet_relocalize_if_lost
+    from slam_tpu_torch.profile_tick import KIDNAP, mls_macro
     cfg = sim2d_reloc_config()
     dev = world.centers.device
     B = MLS_FLEET
     warm = slam2d.init_state(cfg, B, device=dev, generator=gen.manual_seed(11))
     mls_macro(warm, init_mls(cfg.mls, B, device=dev), world, cfg, gen,
-              kidnap=True)
+              kidnap_robot0=True)
     del warm
     state = slam2d.init_state(cfg, B, device=dev,
                               generator=gen.manual_seed(12))
@@ -1100,7 +1067,7 @@ def mls_phase(world, gen, card) -> dict:
     for m in range(MLS_MACROS):
         events[m][0].record()
         state, grid, (e, t), pre, lost = mls_macro(
-            state, grid, world, cfg, gen, kidnap=m == MLS_KIDNAP_AT)
+            state, grid, world, cfg, gen, kidnap_robot0=m == MLS_KIDNAP_AT)
         events[m][1].record()
         est.append(e)
         true.append(t)
@@ -1213,6 +1180,7 @@ def regen_phase(world, gen, card) -> dict:
     from slam_tpu_torch.config import sim2d_graph_config
     from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import relocalize, slam2d
+    from slam_tpu_torch.profile_tick import KIDNAP, kidnap
     base = sim2d_graph_config()
     dev = world.centers.device
     B = GRAPH_FLEET
@@ -1283,12 +1251,7 @@ def regen_phase(world, gen, card) -> dict:
                 f"points {int(target.min())}-{int(target.max())} a robot, "
                 f"launches {launches}")
         if regen == "voxel":
-            mu, pose = state.ekf.mu.clone(), state.pose.clone()
-            for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
-                            (6, 2, KIDNAP[2])):
-                mu[0, i] += v
-                pose[0, j] += v
-            kid = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
+            kid = kidnap(state)
             match = relocalize.relocalize(kid, kid.prev_scene, cfg)
             only0 = torch.zeros_like(match.ok)
             only0[0] = True

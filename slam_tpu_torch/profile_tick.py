@@ -104,28 +104,35 @@ STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
 )
 
 
-def _mls_macro(state, grid, world, cfg, gen, kidnap):
-    """Config 3's macro (bench.py's bench_mls_reloc): with `kidnap`, robot
-    0's belief jumps by KIDNAP and robot 0 is flagged lost; 4 fused ticks;
-    the last scene folded into the MLS grids at the fused pose; the lost
-    robots relocalized."""
-    if kidnap:
-        mu, pose = state.ekf.mu.clone(), state.pose.clone()
-        for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]),
-                        (6, 2, KIDNAP[2])):
-            mu[0, i] += v
-            pose[0, j] += v
-        state = state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
-    state, _ = slam2d.rollout(state, world, cfg, 4, gen)
+def kidnap(state, robot: int = 0):
+    """The state with one robot's belief (EKF mean and pose) moved by
+    KIDNAP: x, y and yaw, the yaw not wrapped (bench.py's teleport)."""
+    mu, pose = state.ekf.mu.clone(), state.pose.clone()
+    for i, j, v in ((0, 0, KIDNAP[0]), (1, 1, KIDNAP[1]), (6, 2, KIDNAP[2])):
+        mu[robot, i] += v
+        pose[robot, j] += v
+    return state.replace(ekf=state.ekf.replace(mu=mu), pose=pose)
+
+
+def mls_macro(state, grid, world, cfg, gen, kidnap_robot0=False):
+    """One macro of config 3, as bench.py's bench_mls_reloc builds it: with
+    kidnap_robot0, robot 0's belief jumps by KIDNAP and robot 0 is flagged
+    lost; 4 fused ticks; the last scene folded into the MLS grids at the
+    fused pose; the lost robots relocalized. Returns (state, grid, (est,
+    true), the state the relocalization gate was given, lost)."""
+    if kidnap_robot0:
+        state = kidnap(state)
+    state, traj = slam2d.rollout(state, world, cfg, 4, gen)
     scene = state.prev_scene
     xy = se2_apply(state.pose[:, :3], scene.xyz[..., :2])
     grid = mls_mod.add_to_mls(grid, scene.replace(
         xyz=torch.cat([xy, scene.xyz[..., 2:]], -1)), cfg.mls)
     lost = ~state.scan_reg_ok
-    if kidnap:
+    if kidnap_robot0:
         lost = lost.clone()
         lost[0] = True
-    return relocalize.fleet_relocalize_if_lost(state, cfg, lost=lost), grid
+    return (relocalize.fleet_relocalize_if_lost(state, cfg, lost=lost), grid,
+            traj, state, lost)
 
 
 def _wrap_stages(stages):
@@ -241,7 +248,7 @@ def main(argv=None) -> int:
     def run(s, a, macros):
         if args.config == "3":
             for m in range(macros):
-                s, a = _mls_macro(s, a, world, cfg, gen, m == KIDNAP_AT)
+                s, a = mls_macro(s, a, world, cfg, gen, m == KIDNAP_AT)[:2]
         elif args.config == "4":
             s, _ = slam2d.rollout_with_graph(s, world, cfg, macros, gen,
                                              per_macro)

@@ -1279,9 +1279,9 @@ def regen_phase(world, gen, card) -> dict:
                      f"edge injected, poses finite, {d0:.4f} m from its "
                      f"true pose")
         lines.append(line)
-        # its device ops are counted at the end of the run: a profiled
-        # session this long leaves the next few sessions without device
-        # events
+        # its device ops are counted at the end of the run: profiling a
+        # graph tick this long leaves the next few profiler runs without
+        # device events
         out[regen] = dict(ms=ms, graph_ms=graph_ms, ate=med,
                           tick=lambda s=state, c=cfg: slam2d.graph_update(
                               s, c))

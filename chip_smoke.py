@@ -38,7 +38,9 @@ non-zero:
              without a scene and robots with one class off); on a problem
              whose exact duplicate model points sit in different model
              splits; vs K1's plain version on a problem both take (S=512,
-             C=4096); repeated calls must give the same bits
+             C=4096); repeated calls must give the same bits; and K2 on
+             packed problems above RESIDENT_TILE_LIMIT (B=16, S=C=2048),
+             which it sends to K3, vs its plain version
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
@@ -95,14 +97,38 @@ non-zero:
              keyframes (gates); after the voxel run one
              apply_relocalization_graph on robot 0 kidnapped as in [mls]
              (its edge injected, poses finite)
-16. div    — cell indices of t / python_float against a true division by
+16. graph3d — config 4 in 3D at the reference's working point:
+             slam3d.rollout_3d_with_graph at ref_scale_graph_config (the
+             long mission's budgets: 64 keyframes of 2,048 points, 320
+             edges, edge_min_corr 30; engine "se2z" over planar edges),
+             B=16, a warm-up macro on another fleet, then 12 macros of 8
+             ticks (K3 on every tick: S x C = 4096 x 40960) and a graph
+             tick (K2's 2,048 x 2,048 edge problems go to K3): ms/tick,
+             graph tick ms, host syncs of one graph tick and its
+             ground-map offset (gate 0), median ATE and mean |z error|,
+             >= 2 keyframes and >= 1 edge a robot, finite poses, graph and
+             ground map (gates); K3 on the recorded edge problems against
+             its plain version under [graph]'s near-tie rule, timed with
+             its bound; K4 on that tick's edge information equal to plain
+17. se3    — config 4 in 3D with the 6-DoF chain at sim3d_se3_config
+             (engine "se3", 3D ICP edges in plain PyTorch, 6 x 6 LUM
+             information, optimize_native), B=128, 6 macros of 8 ticks
+             (K1) after a warm-up macro, then 4 macros of engine "se3"
+             over planar edges (K2): ms/tick, graph tick ms, host syncs
+             (gate 0), slam_tpu's own test bounds (median ATE < 0.6 m,
+             the median robot's nodes within 0.8 m of its true path, mean
+             |z error| < 0.15 m), node_rp finite; a 6-DoF relocalization edge injected on
+             a kidnapped robot and optimize_native after it, finite; the
+             Kabsch rotation (Jacobi SVD in tensor ops) on the card
+             against the f64 SVD, with 0 host syncs
+18. div    — cell indices of t / python_float against a true division by
              a 0-dim tensor on the card at each site that divides by a
              configured width (ground sector and range bin at sim3d and the
              reference scale, occupancy at 0.2 m), counted on random values
              and on values at cell edges; the port's binning
              (ops/ground.polar_bins, mapping/occupancy.cells_of and a whole
              add_to_occupancy_xy at 0.2 m) must equal the CPU's
-17. time   — K1, K2, K3, K4 and K5 timed alone against their plain
+19. time   — K1, K2, K3, K4 and K5 timed alone against their plain
              versions at their main path's shapes (K3 on the full and on
              the sparse problem), beside the least time the card could take
              for the same work; K4 and K5 (P=128 and P=1) both as the
@@ -112,7 +138,7 @@ non-zero:
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
 
-Every kernel launch count is set to 0 just before a main path (8-15) runs
+Every kernel launch count is set to 0 just before a main path (8-17) runs
 and read just after it; the JSON record's launches add up every path's. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
 package.
@@ -171,6 +197,15 @@ TIE_GAP = 1e-5        # m^2: a correspondence this close to a tie (or to the
                       # inlier gate) can flip between two roundings
 TIE_POSE_TOL = 0.05   # m: bound on problems with such a near-tie
 BIG_D2 = 1e30         # other-class pairs in tie_margin
+GRAPH3D_FLEET = 16    # config 4 in 3D at the reference's working point
+GRAPH3D_MACROS = 12   # its timed macros of 8 ticks, after a warm-up macro
+SE3_FLEET = 128       # config 4 in 3D, the 6-DoF chain at sim3d
+SE3_MACROS = 6        # its timed macros of 8 ticks, after a warm-up macro
+SE3_2D_MACROS = 4     # then engine "se3" over planar edges (a 2nd keyframe)
+SE3_ATE_LIMIT = 0.6   # m, median ATE over ticks >= 8 (slam_tpu's own tests'
+SE3_NODE_LIMIT = 0.8  # m, the median robot's farthest node from its true
+                      #    path (bounds, tests/test_pipeline3d_graph.py and
+SE3_Z_LIMIT = 0.15    # m, mean |z error|     tests/test_graph_se3_edges.py)
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -764,6 +799,49 @@ def check_k3(cfg) -> dict:
     return out
 
 
+def check_k2_tiled(cfg, B=16, P=2048, seed=12) -> dict:
+    """K2 on packed problems above RESIDENT_TILE_LIMIT (P x P points, the
+    reference scale's keyframe edges), which it sends to K3, against its
+    plain version (K3's plain version behind the adapter): one K3 launch,
+    counted as K2's and K3's."""
+    from slam_tpu_torch.ops import icp_fused
+    p = registration_problem(B, P, P, seed=seed)
+    args = (torch.stack([p["sx"], p["sy"]], -1), p["s_valid"], p["s_ga"],
+            torch.stack([p["mx"], p["my"]], -1), p["m_valid"], p["m_ga"],
+            p["init"], cfg)
+    before = (icp_fused.packed_launches, icp_fused.tiled_launches,
+              icp_fused.launches)
+    got = icp_fused.icp_fused(*args)
+    after = (icp_fused.packed_launches, icp_fused.tiled_launches,
+             icp_fused.launches)
+    if [a - b for a, b in zip(after, before)] != [1, 1, 0]:
+        raise RuntimeError(f"K2 above RESIDENT_TILE_LIMIT: launches (K2, K3,"
+                           f" K1) went {before} -> {after}")
+    return agreement("K2 on K3", got, icp_fused.icp_fused_reference(*args))
+
+
+def event_timed(fn, events):
+    """fn, recording a pair of CUDA events around each call into
+    `events` (neither waits for the card)."""
+    def timed(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a, **k)
+        ev[1].record()
+        events.append(ev)
+        return out
+    return timed
+
+
+def kept(fn, calls):
+    """fn, keeping each call's arguments in `calls`."""
+    def keep(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+    return keep
+
+
 def reset_counts(*modules) -> None:
     for m in modules:
         for attr in ("launches", "packed_launches", "tiled_launches",
@@ -1202,20 +1280,11 @@ def regen_phase(world, gen, card) -> dict:
                                   generator=gen.manual_seed(14),
                                   with_graph=True)
         tick_events, update = [], slam2d.graph_update
-
-        def timed_update(s, c):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-            r = update(s, c)
-            ev[1].record()
-            tick_events.append(ev)
-            return r
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         reset_counts(icp_fused, nn, particle)
-        slam2d.graph_update = timed_update
+        slam2d.graph_update = event_timed(update, tick_events)
         try:
             e0.record()
             state, (est, true) = slam2d.rollout_with_graph(
@@ -1424,25 +1493,13 @@ def graph_phase(world, gen, card) -> dict:
     # events (neither waits for the card nor launches anything)
     k2_calls, tick_events = [], []
     k2, update = pg.icp_fused, slam2d.graph_update
-
-    def k2_kept(*a):
-        k2_calls.append(a)
-        return k2(*a)
-
-    def timed_update(s, c):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        out = update(s, c)
-        ev[1].record()
-        tick_events.append(ev)
-        return out
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     est, true = [], []
     torch.cuda.synchronize()
     reset_counts(icp_fused, nn, particle)
-    pg.icp_fused, slam2d.graph_update = k2_kept, timed_update
+    pg.icp_fused = kept(k2, k2_calls)
+    slam2d.graph_update = event_timed(update, tick_events)
     try:
         e0.record()
         for _ in range(GRAPH_MACROS):
@@ -1483,7 +1540,8 @@ def graph_phase(world, gen, card) -> dict:
 
     # K2 against its plain version on the graph tick with the most valid
     # points in its edge problems (a tick that inserted keyframes)
-    args = max(k2_calls, key=lambda a: int(a[1].sum() + a[4].sum()))
+    args = max((a for a, _ in k2_calls),
+               key=lambda a: int(a[1].sum() + a[4].sum()))
     del k2_calls
     got = icp_fused.icp_fused(*args)
     ref = icp_fused.icp_fused_reference(*args)
@@ -1571,6 +1629,329 @@ def graph_phase(world, gen, card) -> dict:
                 k2_plain_ms=k2_plain_ms, k2_bound=k2_bound, syncs=syncs)
 
 
+def kabsch_on_card(n=4096, seed=31) -> dict:
+    """ops/align.rigid_transform_3d on the card (n problems of 200 points:
+    scatters, walls and flat patches, any rotation) against the f64 SVD
+    Kabsch on the host: the largest rotation error, and the host syncs
+    the card's call makes (the 3x3 SVD is Jacobi sweeps in tensor ops)."""
+    from slam_tpu_torch.ops.align import rigid_transform_3d
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(n, 200, 3, generator=g, dtype=torch.float64) * \
+        torch.tensor([8.0, 8.0, 0.8], dtype=torch.float64)
+    a[0::3, :, 0] = 3.0                      # walls: H of rank 2
+    a[1::3, :, 2] = 0.0                      # flat patches
+    ang = (torch.rand(n, 3, generator=g, dtype=torch.float64) - 0.5) * 6.0
+    from slam_tpu_torch.geometry import rot3_from_rpy
+    R0 = rot3_from_rpy(ang[:, 0], ang[:, 1], ang[:, 2])
+    b = a @ R0.mT + torch.randn(n, 1, 3, generator=g, dtype=torch.float64) \
+        + 0.02 * torch.randn(a.shape, generator=g, dtype=torch.float64)
+    w = (torch.rand(n, 200, generator=g) < 0.8).double()
+    ca = (w[..., None] * a).sum(1) / w.sum(1, keepdim=True)
+    cb = (w[..., None] * b).sum(1) / w.sum(1, keepdim=True)
+    H = ((a - ca[:, None]) * w[..., None]).mT @ (b - cb[:, None])
+    U, _, Vt = torch.linalg.svd(H)
+    d = torch.sign(torch.linalg.det(Vt.mT @ U.mT))
+    D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d),
+                                      d], -1))
+    want = Vt.mT @ D @ U.mT
+    args = [x.float().cuda() for x in (a, b, w)]
+    got, syncs = count_syncs(lambda: rigid_transform_3d(*args))
+    err = float((got.R.double().cpu() - want).abs().max())
+    if err > 1e-4 or syncs:
+        raise RuntimeError(f"rigid_transform_3d on the card: rotation err "
+                           f"{err} against f64 SVD, host syncs {syncs}")
+    return dict(err=err, syncs=len(syncs), n=n)
+
+
+def graph3d_phase(gen, card) -> dict:
+    """[graph3d]: config 4 in 3D at the reference's working point,
+    slam3d.rollout_3d_with_graph at ref_scale_graph_config (engine "se2z",
+    planar edges) for GRAPH3D_FLEET robots, GRAPH3D_MACROS macros of
+    GRAPH_EVERY ticks after a warm-up macro on another fleet. Gates: K3
+    every tick, K2's packed 2048 x 2048 edge problems of the graph tick
+    that measured the most (they run on K3) against the plain version
+    under [graph]'s near-tie rule, K4 on that tick's edge information
+    equal to its plain version, >= 2 keyframes and >= 1 edge a robot,
+    finite poses, graph and ground map, median ATE and mean |z error|, no
+    host sync in one graph tick with its ground-map offset."""
+    from slam_tpu_torch.config import ref_scale_graph_config
+    from slam_tpu_torch.graph import pose_graph as pg
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.sim import world3d
+    cfg = ref_scale_graph_config()
+    dev = torch.device("cuda")
+    B = GRAPH3D_FLEET
+    world = world3d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
+    warm = slam3d.init_state_3d(cfg, B, world, device=dev,
+                                generator=gen.manual_seed(15),
+                                with_graph=True)
+    slam3d.rollout_3d_with_graph(warm, world, slam3d.init_ground_map(
+        cfg, B, dev), cfg, 1, gen, GRAPH_EVERY)
+    del warm
+    state = slam3d.init_state_3d(cfg, B, world, device=dev,
+                                 generator=gen.manual_seed(16),
+                                 with_graph=True)
+    gm = slam3d.init_ground_map(cfg, B, dev)
+
+    k2_calls, nn_calls, tick_events = [], [], []
+    k2, nn_fn, update = pg.icp_fused, pg.nearest_neighbor, \
+        slam3d.graph_update_delta
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    est, true = [], []
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    pg.icp_fused, pg.nearest_neighbor = kept(k2, k2_calls), kept(nn_fn,
+                                                                  nn_calls)
+    slam3d.graph_update_delta = event_timed(update, tick_events)
+    try:
+        e0.record()
+        for _ in range(GRAPH3D_MACROS):
+            state, gm, (e, t) = slam3d.rollout_3d_with_graph(
+                state, world, gm, cfg, 1, gen, GRAPH_EVERY)
+            est.append(e)
+            true.append(t)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        pg.icp_fused, pg.nearest_neighbor = k2, nn_fn
+        slam3d.graph_update_delta = update
+    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
+                "K3": icp_fused.tiled_launches, "K4": nn.launches}
+    ticks = GRAPH3D_MACROS * GRAPH_EVERY
+    ms = e0.elapsed_time(e1) / ticks
+    graph_ms = [a.elapsed_time(b) for a, b in tick_events]
+    est, true = torch.cat(est, 1), torch.cat(true, 1)
+    g = state.graph
+    if est.shape != (B, ticks, 4):
+        raise RuntimeError(f"[graph3d] trajectory shape {tuple(est.shape)}")
+    for what, x in (("est", est), ("nodes", g.node_pose),
+                    ("target", state.map_cloud.xyz),
+                    ("ground map", gm.grid.sum_z), ("edges", g.edge_rel)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"[graph3d]: non-finite values in {what}")
+    ate = slam2d.ate(est[:, 8:], true[:, 8:])
+    med = float(ate.median())
+    z_err = float((est[:, 8:, 3] - true[:, 8:, 3]).abs().mean())
+    nodes, edges = int(g.num_nodes.min()), int(g.num_edges.min())
+    # K3 launches: one a tick (registration, S x C = 4096 x 40960) and one
+    # a graph tick (the edges, 2048 x 2048 > RESIDENT_TILE_LIMIT)
+    if launches["K3"] < ticks + GRAPH3D_MACROS or \
+            launches["K2"] < GRAPH3D_MACROS or \
+            launches["K4"] < GRAPH3D_MACROS:
+        raise RuntimeError(f"[graph3d] launches {launches} in {ticks} ticks "
+                           f"and {GRAPH3D_MACROS} graph ticks")
+    if not med < GRAPH_ATE_LIMIT or not z_err < Z_3D_LIMIT:
+        raise RuntimeError(f"[graph3d] median ATE {med} m (limit "
+                           f"{GRAPH_ATE_LIMIT}), mean |z error| {z_err} m "
+                           f"(limit {Z_3D_LIMIT})")
+    if nodes < 2 or edges < 1:
+        raise RuntimeError(f"[graph3d] graphs did not grow: min {nodes} "
+                           f"keyframes, {edges} edges")
+
+    # K2 (on K3) against its plain version on the edge problems of the
+    # graph tick with the most valid points
+    pick = max(range(len(k2_calls)), key=lambda i: int(
+        k2_calls[i][0][1].sum() + k2_calls[i][0][4].sum()))
+    args = k2_calls[pick][0]
+    del k2_calls
+    n, S = args[0].shape[:2]
+    C = args[3].shape[1]
+    if S * C <= icp_fused.RESIDENT_TILE_LIMIT:
+        raise RuntimeError(f"[graph3d] edge problems {S} x {C} fit K1")
+    got = icp_fused.icp_fused(*args)
+    ref = icp_fused.icp_fused_reference(*args)
+    planes = icp_fused.packed_planes(*args[:6])
+    tied = torch.minimum(
+        tie_margin(planes, args[6], got.pose, args[7].inlier_dist),
+        tie_margin(planes, args[6], ref.pose, args[7].inlier_dist)) < TIE_GAP
+    torch.cuda.synchronize()
+    errs = (got.pose - ref.pose).abs().amax(-1)
+    err = float(errs.max())
+    err_untied = float(torch.where(tied, 0.0, errs).max())
+    n_tied = int(tied.sum())
+    ok_mism = int((got.ok != ref.ok).sum())
+    dcorr = int((got.num_corr - ref.num_corr).abs().max())
+    n_ok = int(ref.ok.sum())
+    if err_untied > POSE_TOL or ok_mism or dcorr > NCORR_TOL or \
+            err > TIE_POSE_TOL or n_tied > max(1, n // 20) or n_ok < 1:
+        raise RuntimeError(f"K3 on [graph3d]'s edges disagrees with its "
+                           f"plain version: pose err {err_untied} (no near-"
+                           f"tie), {err} ({n_tied} with one), ok mismatches "
+                           f"{ok_mism}, |d num_corr| {dcorr}, {n_ok} ok")
+    k3_ms = cuda_ms(lambda: icp_fused.icp_fused(*args))
+    k3_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*args),
+                          reps=1)
+    k3_bound = bound(nbytes(*args[:7]) + n * (3 * 4 + 1 + 3 * 4),
+                     icp_ops(planes, args[6], args[7]))
+    iters = float(icp_fused.fit_iterations(*planes, args[6], args[7]).mean())
+    # K4 on that graph tick's edge information, equal to its plain version
+    a, k = nn_calls[pick]
+    nargs = (*a, k.get("q_class"), k.get("m_class"))
+    del nn_calls
+    (idx, dist), (ridx, rdist) = nn.nearest_neighbor(*nargs), nn_plain(*nargs)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, ridx) and same_bits(dist, rdist)):
+        raise RuntimeError(f"K4 on [graph3d]'s edge information disagrees "
+                           f"with its plain version: "
+                           f"{int((idx != ridx).sum())} idx mismatches")
+
+    def tick(s=state, m=gm):
+        s2, d = slam3d.graph_update_delta(s, cfg)
+        return s2, slam3d.apply_graph_offset(m, d)
+    _, syncs = count_syncs(tick)
+    if syncs:
+        raise RuntimeError(f"[graph3d] graph tick host syncs: "
+                           f"{sync_sites(syncs)}")
+    print(f"[graph3d] config 4 in 3D at ref_scale_graph_config B={B} "
+          f"{GRAPH3D_MACROS} macros x {GRAPH_EVERY} ticks + a graph tick, "
+          f"after a warm-up macro: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
+          f"robot-steps/s (graph ticks included), graph tick mean "
+          f"{sum(graph_ms) / len(graph_ms):.3f} ms (max {max(graph_ms):.3f})"
+          f", host syncs in one graph tick and its ground-map offset 0, "
+          f"median ATE {med:.4f} m (ticks>=8, {float(ate.max()):.4f} max), "
+          f"mean |z error| {z_err:.4f} m, keyframes >= {nodes}, edges >= "
+          f"{edges}, launches {launches}; K2 on {n} edge problems "
+          f"S={S} C={C} at {args[7].max_iterations} iterations ({iters:.2f} "
+          f"run on average, {n_ok} accepted) on K3 vs plain: max pose err "
+          f"{err_untied:.3g} (bound {POSE_TOL}) without a near-tie, {n_tied} "
+          f"with one {err:.3g} (bound {TIE_POSE_TOL}), ok mismatches "
+          f"{ok_mism}, max |d num_corr| {dcorr}; {k3_ms:.4f} ms, plain "
+          f"{k3_plain_ms:.4f} ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]})"
+          f"; K4 on its edge information equal to plain | {card}",
+          flush=True)
+    return dict(launches=launches, ms=ms, graph_ms=graph_ms, k3_err=err,
+                k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_bound=k3_bound,
+                tick=tick)
+
+
+def se3_phase(gen, card) -> dict:
+    """[se3]: config 4 in 3D with the 6-DoF chain at sim3d_se3_config
+    (engine "se3", 3D ICP edges, 6 x 6 LUM information) for SE3_FLEET
+    robots, SE3_MACROS macros of GRAPH_EVERY ticks after a warm-up macro
+    on another fleet; then SE3_2D_MACROS macros of engine "se3" over
+    planar edges. Gates: K1 every tick, node_rp finite, slam_tpu's own
+    test bounds (median ATE, nodes near the true path, mean |z error|),
+    no host sync in one graph tick; one 6-DoF relocalization edge on a
+    kidnapped robot (the match its true pose) and optimize_native after
+    it leave every pose finite."""
+    from slam_tpu_torch.config import sim3d_se3_config
+    from slam_tpu_torch.graph import pose_graph as pg
+    from slam_tpu_torch.graph import pose_graph3d as pg3
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.profile_tick import kidnap
+    from slam_tpu_torch.sim import world3d
+    cfg = sim3d_se3_config()
+    dev = torch.device("cuda")
+    B = SE3_FLEET
+    world = world3d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
+    out = {"launches": {"K1": 0, "K2": 0, "K4": 0}}
+    lines = []
+    for edges, macros in (("3d", SE3_MACROS), ("2d", SE3_2D_MACROS)):
+        c = cfg.replace(graph=dataclasses.replace(cfg.graph,
+                                                  edge_registration=edges))
+        warm = slam3d.init_state_3d(c, B, world, device=dev,
+                                    generator=gen.manual_seed(17),
+                                    with_graph=True)
+        slam3d.rollout_3d_with_graph(warm, world, slam3d.init_ground_map(
+            c, B, dev), c, 1, gen, GRAPH_EVERY)
+        del warm
+        state = slam3d.init_state_3d(c, B, world, device=dev,
+                                     generator=gen.manual_seed(18),
+                                     with_graph=True)
+        gm = slam3d.init_ground_map(c, B, dev)
+        tick_events, update = [], slam3d.graph_update_delta
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        reset_counts(icp_fused, nn, particle)
+        slam3d.graph_update_delta = event_timed(update, tick_events)
+        try:
+            e0.record()
+            state, gm, (est, true) = slam3d.rollout_3d_with_graph(
+                state, world, gm, c, macros, gen, GRAPH_EVERY)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            slam3d.graph_update_delta = update
+        launches = {"K1": icp_fused.launches,
+                    "K2": icp_fused.packed_launches, "K4": nn.launches}
+        for k, v in launches.items():
+            out["launches"][k] += v
+        ticks = macros * GRAPH_EVERY
+        ms = e0.elapsed_time(e1) / ticks
+        graph_ms = [a.elapsed_time(b) for a, b in tick_events]
+        g = state.graph
+        finite = [torch.isfinite(x).all() for x in (
+            est, g.node_pose, state.map_cloud.xyz, gm.grid.sum_z)]
+        if edges == "3d":
+            finite.append(torch.isfinite(g.node_rp).all())
+        if not bool(torch.stack(finite).all()):
+            raise RuntimeError(f"[se3] ({edges} edges): non-finite poses, "
+                               f"attitudes, target or ground map")
+        ate = slam2d.ate(est[:, 8:], true[:, 8:])
+        med = float(ate.median())
+        z_err = float((est[:, 8:, 3] - true[:, 8:, 3]).abs().mean())
+        nodes = int(g.num_nodes.min())
+        # each robot's farthest valid node from its true path; slam_tpu's
+        # test holds one robot's, the fleet is held by its median robot
+        # (as the ATE gate is)
+        d = torch.cdist(g.node_pose[..., :2], true[..., :2]).amin(-1)
+        node_off = torch.where(g.node_valid, d, 0.0).amax(-1)
+        node_med = float(node_off.median())
+        _, syncs = count_syncs(lambda s=state, cc=c: update(s, cc))
+        if launches["K1"] < ticks or nodes < 2 or syncs or \
+                not med < SE3_ATE_LIMIT or not z_err < SE3_Z_LIMIT or \
+                not node_med < SE3_NODE_LIMIT:
+            raise RuntimeError(
+                f"[se3] ({edges} edges): launches {launches} in {ticks} "
+                f"ticks, >= {nodes} keyframes, median ATE {med} m (limit "
+                f"{SE3_ATE_LIMIT}; max {float(ate.max())}), mean |z error| "
+                f"{z_err} m (limit {SE3_Z_LIMIT}), the median robot's nodes "
+                f"{node_med} m off its true path (limit {SE3_NODE_LIMIT}; "
+                f"max {float(node_off.max())}), host syncs "
+                f"{sync_sites(syncs)}")
+        line = (f"{edges} edges, {macros} macros: {ms:.3f} ms/tick, "
+                f"{B * 1000.0 / ms:.1f} robot-steps/s, graph tick mean "
+                f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
+                f"{max(graph_ms):.3f}), host syncs 0, median ATE {med:.4f} m"
+                f" (ticks>=8, {float(ate.max()):.4f} max), mean |z error| "
+                f"{z_err:.4f} m, nodes off the true path: median robot "
+                f"{node_med:.4f} m, worst {float(node_off.max()):.4f} m, "
+                f"keyframes >= {nodes}, edges >= {int(g.num_edges.min())}, "
+                f"launches {launches}")
+        if edges == "3d":
+            kid = kidnap(state)
+            only0 = torch.zeros(B, dtype=torch.bool, device=dev)
+            only0[0] = True
+            g2, injected = pg.relocalization_edge(
+                kid.graph, kid.pose, kid.true_pose[:, :3], only0, c.graph)
+            g2, _ = pg3.optimize_native(g2, c.graph)
+            if not bool(injected[0]) or int(injected.sum()) != 1 or \
+                    not bool(torch.isfinite(g2.node_pose).all() &
+                             torch.isfinite(g2.node_rp).all()):
+                raise RuntimeError(f"[se3] 6-DoF relocalization edge: "
+                                   f"injected {injected.tolist()[:4]}..., "
+                                   f"poses finite "
+                                   f"{bool(torch.isfinite(g2.node_pose).all())}")
+            line += ("; a 6-DoF relocalization edge on robot 0 kidnapped by "
+                     "(8 m, -5 m, 1.2 rad), the match its true pose: "
+                     "injected, poses and attitudes finite after "
+                     "optimize_native")
+            out["tick"] = lambda s=state, cc=c: update(s, cc)
+            out["ms"], out["graph_ms"] = ms, graph_ms
+        lines.append(line)
+    k = kabsch_on_card()
+    print(f"[se3] config 4 in 3D at sim3d_se3_config B={B}, each engine "
+          f"after a warm-up macro: " + "; ".join(lines) + f"; "
+          f"rigid_transform_3d on {k['n']} problems on the card: max "
+          f"rotation err {k['err']:.3g} against the f64 SVD, host syncs "
+          f"{k['syncs']} | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
@@ -1626,6 +2007,12 @@ def main() -> int:
         f"sparse ones with {REF_SCENE} scene and {REF_TARGET} model points, "
         f"ties across model splits S=700 C=24000, vs K1's plain version "
         f"S=512 C=4096; every case twice with equal bits)", flush=True)
+
+    k2t = check_k2_tiled(ref_cfg.icp)
+    print(f"[K2 on K3] packed B=16 S=C=2048 (above RESIDENT_TILE_LIMIT) vs "
+          f"plain: max pose err {k2t['pose_err']:.3g}, ok mismatches "
+          f"{k2t['ok_mismatch']}, max |d num_corr| {k2t['dcorr']}",
+          flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -1740,6 +2127,13 @@ def main() -> int:
     launches["K1 (config 4, voxel and mls)"] = regen["launches"]["K1"]
     launches["K2"] += regen["launches"]["K2"]
     launches["K4"] += mls["launches"]["K4"] + regen["launches"]["K4"]
+    graph3d = graph3d_phase(gen, card)
+    for k in ("K2", "K3", "K4"):
+        launches[k] += graph3d["launches"][k]
+    se3 = se3_phase(gen, card)
+    launches["K1 (config 4 in 3D, se3)"] = se3["launches"]["K1"]
+    launches["K2"] += se3["launches"]["K2"]
+    launches["K4"] += se3["launches"]["K4"]
     division_phase(card)
 
     # kernels alone, at their main path's shapes
@@ -1783,6 +2177,11 @@ def main() -> int:
     print(f"[regen] device ops a graph tick (config 4, B={GRAPH_FLEET}): "
           f"voxel {regen_ops['voxel']}, mls {regen_ops['mls']} | {card}",
           flush=True)
+    g3_ops = device_ops(graph3d.pop("tick"))["n"]
+    se3_ops = device_ops(se3.pop("tick"))["n"]
+    print(f"[graph3d] device ops a graph tick and its ground-map offset "
+          f"(B={GRAPH3D_FLEET}): {g3_ops}; [se3] device ops a 6-DoF graph "
+          f"tick (B={SE3_FLEET}): {se3_ops} | {card}", flush=True)
     # K3 at the reference scale's shapes, on the [K3] phase's problem
     ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
                                                seed=11, span=100.0,

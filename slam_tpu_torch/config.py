@@ -342,3 +342,30 @@ def sim3d_config() -> SlamConfig:
         mls=dataclasses.replace(c.mls, size_x=192, size_y=192, resolution=0.5,
                                 max_range=50.0, update_dist=96),
     )
+
+
+def ref_scale_graph_config() -> SlamConfig:
+    """Config 4 in 3D at the reference's working point, as slam_tpu's long
+    mission builds it (bench.py's bench_ref_scale_longrun):
+    ref_scale_config with 64 keyframes of 2,048 points, 320 edges,
+    edge_min_corr 30 (a mis-posed keyframe's few bogus correspondences
+    cannot pass it) and the 192-cell, 64-rotation relocalization search;
+    engine "se2z" over planar edges."""
+    c = ref_scale_config()
+    return dataclasses.replace(
+        c, graph=dataclasses.replace(c.graph, max_nodes=64, max_edges=320,
+                                     keyframe_points=2048, edge_min_corr=30),
+        global_match=dataclasses.replace(c.global_match, grid_size=192,
+                                         num_rotations=64))
+
+
+def sim3d_se3_config() -> SlamConfig:
+    """Config 4 in 3D with the reference's literal 6-DoF chain at sim3d
+    (the shapes of bench.py's bench_3d): engine "se3" over 3D ICP edges
+    with 6 x 6 LUM information, the GraphConfig capacities (64 keyframes
+    of 1,024 points, 320 edges) and a 2.5 m keyframe gate, the gate
+    tests/test_graph_se3_edges.py and tests/test_pipeline3d_graph.py run
+    it at."""
+    c = sim3d_config()
+    return dataclasses.replace(c, graph=dataclasses.replace(
+        c.graph, engine="se3", edge_registration="3d", knn_dist_thresh=2.5))

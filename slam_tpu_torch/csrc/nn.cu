@@ -367,7 +367,7 @@ extern "C" int slam_nn(const float* qx, const float* qy, const void* qc, const f
   for (int i = 0; i < 14; ++i) a.st.s[i] = strides[i];
   const size_t smem = (size_t)24 * tile + (size_t)24 * qchunk;
   const dim3 grid(B, (S + qchunk - 1) / qchunk);
-  if (smem > 48 * 1024) {
+  if (smem + 1024 > 48 * 1024) {  // with the static part, above the default limit
     const cudaError_t e =
         cudaFuncSetAttribute(nn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

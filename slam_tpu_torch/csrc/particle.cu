@@ -217,7 +217,7 @@ extern "C" int slam_pf_score(const unsigned* bits, int G, int shared_table, cons
         bits, W, G, shared_table, center, scan, valid, parts, out, B, N, P, scale, L);
     return (int)cudaGetLastError();
   }
-  if (smem > 48 * 1024) {
+  if (smem + 1024 > 48 * 1024) {  // with the static part, above the default limit
     const cudaError_t e = cudaFuncSetAttribute(
         pf_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;

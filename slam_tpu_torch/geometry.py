@@ -80,3 +80,31 @@ def rp_compensate(pts: torch.Tensor, roll, pitch) -> torch.Tensor:
     and pitch are (...)."""
     R = rot3_from_rpy(roll, pitch, torch.zeros_like(roll))
     return torch.einsum("...ij,...nj->...ni", R, pts)
+
+
+def quat_from_rpy(roll, pitch, yaw) -> torch.Tensor:
+    """[w, x, y, z] quaternions (..., 4) of roll / pitch / yaw (...), as
+    tf's createQuaternionFromRPY makes them."""
+    cr, sr = torch.cos(roll / 2), torch.sin(roll / 2)
+    cp, sp = torch.cos(pitch / 2), torch.sin(pitch / 2)
+    cy, sy = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    return torch.stack([cr * cp * cy + sr * sp * sy,
+                        sr * cp * cy - cr * sp * sy,
+                        cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy], -1)
+
+
+def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Yaw of [w, x, y, z] quaternions (..., 4)."""
+    w, x, y, z = q.unbind(-1)
+    return torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+
+
+def se3_matrix(xyz: torch.Tensor, rpy: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) homogeneous transforms of translations (..., 3) and
+    roll / pitch / yaw (..., 3)."""
+    R = rot3_from_rpy(rpy[..., 0], rpy[..., 1], rpy[..., 2])
+    top = torch.cat([R, xyz[..., :, None]], -1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], -2)

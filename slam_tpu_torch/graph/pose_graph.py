@@ -1,7 +1,7 @@
-"""Keyframe pose-graph SLAM, planar engine — counterpart of
-slam_tpu/graph/pose_graph.py (`init_graph`, `nearest_kf_dist`,
-`knn_keyframes`, `newest_node`, `_eviction_slot`, `add_keyframe`,
-`_edge_measurement`, `_se2_edge_residuals`, `optimize`,
+"""Keyframe pose-graph SLAM — counterpart of slam_tpu/graph/pose_graph.py
+(`init_graph`, `nearest_kf_dist`, `knn_keyframes`, `newest_node`,
+`_eviction_slot`, `add_keyframe`, `_edge_measurement`,
+`_edge_measurement_3d`, `_se2_edge_residuals`, `optimize`,
 `relocalization_edge`, `_kf_world_xyz`, `regenerate_map`,
 `regenerate_map_mls`, `regenerate_map_grid`, `home_command`,
 `mission_command`), batched over robots.
@@ -9,24 +9,33 @@ slam_tpu/graph/pose_graph.py (`init_graph`, `nearest_kf_dist`,
 A robot's graph has fixed capacity: N keyframe slots, E edge slots. A
 keyframe is gated by distance to the nearest one (5 m), evicts the most
 redundant old keyframe when the graph is full, and gets edges to the
-previous keyframe and to its k nearest. Each edge is measured by fused ICP
-between the two keyframe clouds, with the 2D Censi / LUM information over
-the final correspondences; then a dense Gauss-Newton / LM solve over
-(x, y, yaw) and a linear z solve optimise the graph, and the scan-to-map
-target is regenerated from the keyframes under their optimised poses.
+previous keyframe and to its k nearest. With planar edges
+(edge_registration "2d") each edge is measured by fused ICP between the
+two keyframe clouds, with the 2D Censi / LUM information over the final
+correspondences; then a dense Gauss-Newton / LM solve over (x, y, yaw)
+and a linear z solve optimise the graph (engine "se2z"; engine "se3" is
+graph/pose_graph3d.optimize_planar), and the scan-to-map target is
+regenerated from the keyframes under their optimised poses.
+
+The 6-DoF graph (edge_registration "3d", engine "se3") keeps each
+keyframe in its capture body frame (tilted back by the measured roll and
+pitch, which node_rp holds), measures edges by 3D ICP (ops/icp3d.py) from
+the SE(3) relative odometry with the 6 x 6 LUM information
+(edge_rel6, edge_info6, and their planar projection in edge_rel and
+edge_info), and is optimised by pose_graph3d.optimize_native.
 
 Where slam_tpu branches per robot (`lax.cond` under `vmap`, which runs
 both branches and selects), this module runs the whole batch and selects
 with `torch.where`; nothing reads a device value from Python, so a graph
-tick never waits for the card. On the card every candidate edge of every
-robot goes through kernel K2 (`ops/icp_fused.icp_fused`) in one call, and
-the information's nearest neighbours through K4; CPU tensors take their
-plain versions. The target is regenerated by one of three engines: a
-voxel merge of every keyframe ("voxel"), a global MLS rebuild exported as
-cluster means ("mls", a Python loop of one batched `add_to_mls` per
-keyframe slot) or a centroid grid around the newest node ("grid"). Only
-the planar graph (engine "se2z", edge_registration "2d") is ported; the
-6-DoF graph and its fields belong to a later slice.
+tick never waits for the card. On the card every candidate planar edge
+of every robot goes through kernel K2 (`ops/icp_fused.icp_fused`) in one
+call (K3 above RESIDENT_TILE_LIMIT), and the information's nearest
+neighbours through K4; CPU tensors take their plain versions. The 3D
+edges are plain PyTorch, all B x (1 + knn_edges) problems in one batched
+fit. The target is regenerated by one of three engines: a voxel merge of
+every keyframe ("voxel"), a global MLS rebuild exported as cluster means
+("mls", a Python loop of one batched `add_to_mls` per keyframe slot) or
+a centroid grid around the newest node ("grid").
 """
 
 from __future__ import annotations
@@ -37,29 +46,35 @@ import warnings
 import torch
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.geometry import (angle_wrap, se2_apply_xy, se2_compose,
-                                     se2_relative)
+from slam_tpu_torch.geometry import (angle_wrap, rot3_from_rpy,
+                                     se2_apply_xy, se2_compose, se2_relative)
+from slam_tpu_torch.graph.pose_graph3d import (edge_information_lum6,
+                                               embed_planar_info,
+                                               pin_roll_pitch, planar_info,
+                                               so3_log)
 from slam_tpu_torch.mapping.mls import (add_to_mls, get_segmented_clouds,
                                         init_mls)
 from slam_tpu_torch.mapping.point_map import (export_points, init_point_map,
                                               update_point_map_xy)
 from slam_tpu_torch.ops.icp import edge_information_2d
+from slam_tpu_torch.ops.icp3d import icp3d_fit
 from slam_tpu_torch.ops.icp_fused import icp_fused
 from slam_tpu_torch.ops.linalg import cho_solve
 from slam_tpu_torch.ops.nn import nearest_neighbor
 from slam_tpu_torch.ops.voxel import compact, voxel_downsample
 from slam_tpu_torch.types import PointCloud, PoseGraph
 
-LATER = ("the 6-DoF graph (edge_registration '3d', engine 'se3') is not "
-         "ported yet: ROADMAP queue 1, config 4's remaining step")
-
 
 def init_graph(cfg, batch: int, device=None,
                dtype=torch.float32) -> PoseGraph:
     """Empty graphs for a batch of robots, on the card unless `device`
-    says otherwise."""
-    if cfg.edge_registration == "3d":
-        raise NotImplementedError(LATER)
+    says otherwise; with edge_registration "3d" the 6-DoF fields too,
+    which only engine "se3" consumes."""
+    full3d = cfg.edge_registration == "3d"
+    if full3d and cfg.engine != "se3":
+        raise ValueError(
+            'edge_registration="3d" produces SE(3) measurements only the '
+            '"se3" engine consumes; set GraphConfig.engine="se3"')
     device = default_device(device)
     N, E, P = cfg.max_nodes, cfg.max_edges, cfg.keyframe_points
 
@@ -73,7 +88,10 @@ def init_graph(cfg, batch: int, device=None,
         kf_flags=z(N, P, dt=torch.int32), edge_ij=z(E, 2, dt=torch.int32),
         edge_rel=z(E, 4), edge_info=z(E, 4, 4),
         edge_valid=z(E, dt=torch.bool), num_nodes=z(dt=torch.int32),
-        num_edges=z(dt=torch.int32), edges_dropped=z(dt=torch.int32))
+        num_edges=z(dt=torch.int32), edges_dropped=z(dt=torch.int32),
+        node_rp=z(N, 2) if full3d else None,
+        edge_rel6=z(E, 6) if full3d else None,
+        edge_info6=z(E, 6, 6) if full3d else None)
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -204,22 +222,89 @@ def _edge_measurement(graph: PoseGraph, src: torch.Tensor, dst: torch.Tensor,
     return rel.view(B, K, 4), info4.view(B, K, 4, 4), ok.view(B, K)
 
 
+def _point_class(flags: torch.Tensor) -> torch.Tensor:
+    """3D edge classes: 0 obstacle, 1 ground-adjacent obstacle, 2 ground
+    (the ground points of 6-DoF keyframes are what constrain z)."""
+    ga = (flags & PointCloud.FLAG_GA) != 0
+    gnd = (flags & PointCloud.FLAG_GROUND) != 0
+    return torch.where(gnd, 2, torch.where(ga, 1, 0)).to(torch.int32)
+
+
+def _edge_measurement_3d(graph: PoseGraph, src: torch.Tensor,
+                         dst: torch.Tensor, icp_cfg, gcfg):
+    """6-DoF edges src (B, K) -> dst (B,): register node dst's keyframe
+    cloud (the scene, body frame) against each node src's by 3D ICP from
+    the SE(3) relative odometry (Ri^T Rj, Ri^T (tj - ti)), all B x K
+    problems in one batched fit at edge_icp_max_iter; the 6 x 6 LUM
+    information over the final correspondences within edge_max_corr; the
+    gates: each translation axis's move from the odometry, the rotation
+    angle's move, the overlap. Returns (rel (B, K, 4), info (B, K, 4, 4)
+    the planar projection, rel6 (B, K, 6) [t; rotation vector], info6
+    (B, K, 6, 6), ok (B, K))."""
+    B, K = src.shape
+    P = graph.kf_xyz.shape[2]
+    rows = _rows(src)
+    pi = graph.node_pose[rows[:, None], src]                    # (B, K, 4)
+    pj = graph.node_pose[rows, dst][:, None].expand(B, K, 4)
+    rpi = graph.node_rp[rows[:, None], src]
+    rpj = graph.node_rp[rows, dst][:, None].expand(B, K, 2)
+    Ri = rot3_from_rpy(rpi[..., 0], rpi[..., 1], pi[..., 2])
+    Rj = rot3_from_rpy(rpj[..., 0], rpj[..., 1], pj[..., 2])
+    ti = torch.stack([pi[..., 0], pi[..., 1], pi[..., 3]], -1)
+    tj = torch.stack([pj[..., 0], pj[..., 1], pj[..., 3]], -1)
+    init_R = (Ri.mT @ Rj).reshape(B * K, 3, 3)
+    init_t = (Ri.mT @ (tj - ti)[..., None])[..., 0].reshape(B * K, 3)
+
+    def cloud(at):           # (B * K, P, ...) of the nodes `at` (B, K')
+        xyz = graph.kf_xyz[rows[:, None], at]
+        valid = graph.kf_valid[rows[:, None], at]
+        cls = _point_class(graph.kf_flags[rows[:, None], at])
+        return (xyz.expand(B, K, P, 3).reshape(B * K, P, 3),
+                valid.expand(B, K, P).reshape(B * K, P),
+                cls.expand(B, K, P).reshape(B * K, P))
+    s_xyz, s_valid, s_cls = cloud(dst[:, None])
+    m_xyz, m_valid, m_cls = cloud(src)
+    res = icp3d_fit(s_xyz, s_valid, s_cls, m_xyz, m_valid, m_cls, init_t,
+                    init_R, icp_cfg, max_iterations=gcfg.edge_icp_max_iter)
+
+    q = s_xyz @ res.R.mT + res.t[:, None, :]
+    idx, d2 = nearest_neighbor(q, m_xyz, m_valid)
+    w = (s_valid & (d2 < gcfg.edge_max_corr ** 2)).to(q.dtype)
+    info6 = edge_information_lum6(
+        q, torch.gather(m_xyz, 1, idx.long()[..., None].expand_as(q)), w)
+
+    t_move = (res.t - init_t).abs()
+    w_move = so3_log(init_R.mT @ res.R)
+    ok = res.ok & (t_move <= gcfg.dist_move_thresh).all(-1) & \
+        (torch.linalg.vector_norm(w_move, dim=-1) <= gcfg.rot_move_thresh) & \
+        (w.sum(-1) >= gcfg.edge_min_corr)
+    rel6 = torch.cat([res.t, so3_log(res.R)], -1)
+    yaw = torch.atan2(res.R[:, 1, 0], res.R[:, 0, 0])
+    rel = torch.stack([res.t[:, 0], res.t[:, 1], yaw, res.t[:, 2]], -1)
+    return (rel.view(B, K, 4), planar_info(info6).view(B, K, 4, 4),
+            rel6.view(B, K, 6), info6.view(B, K, 6, 6), ok.view(B, K))
+
+
 def _put(old: torch.Tensor, at: torch.Tensor, new: torch.Tensor):
     """old (B, M, ...) with new (B, ...) written where at (B, M)."""
     m = at.view(at.shape + (1,) * (old.dim() - 2))
     return torch.where(m, new[:, None].to(old.dtype), old)
 
 
-def _add_edge(g: PoseGraph, src, dst, ok, rel, info) -> PoseGraph:
+def _add_edge(g: PoseGraph, src, dst, ok, rel, info, rel6=None,
+              info6=None) -> PoseGraph:
     """Store edge src -> dst (B,) where ok, in each robot's first free edge
-    slot; an accepted edge that finds no slot is counted in
-    edges_dropped."""
+    slot (with its 6-DoF measurement when the graph has those fields); an
+    accepted edge that finds no slot is counted in edges_dropped."""
     e = g.edge_valid.to(torch.int32).argmin(-1)
     room = ~g.edge_valid[_rows(e), e]
     do = ok & room
     at = (torch.arange(g.edge_valid.shape[1], device=e.device) == e[:, None]
           ) & do[:, None]
     valid = g.edge_valid | at
+    if g.edge_rel6 is not None:
+        g = g.replace(edge_rel6=_put(g.edge_rel6, at, rel6),
+                      edge_info6=_put(g.edge_info6, at, info6))
     return g.replace(
         edge_ij=_put(g.edge_ij, at, torch.stack([src, dst], -1)),
         edge_rel=_put(g.edge_rel, at, rel),
@@ -241,22 +326,35 @@ def _make_edges(g: PoseGraph, slot, pose, icp_cfg, cfg) -> PoseGraph:
     cand = torch.cat([prev[:, None], knn_idx], -1)
     cand_ok = torch.cat([prev_ok[:, None], knn_ok & (knn_idx != prev[:, None])],
                         -1)
-    rels, infos, icp_oks = _edge_measurement(g, cand, slot, icp_cfg, cfg)
+    if g.node_rp is not None:
+        rels, infos, rel6s, info6s, icp_oks = _edge_measurement_3d(
+            g, cand, slot, icp_cfg, cfg)
+    else:
+        rels, infos, icp_oks = _edge_measurement(g, cand, slot, icp_cfg, cfg)
+        rel6s = info6s = None
     for c in range(cand.shape[1]):
         g = _add_edge(g, cand[:, c], slot, cand_ok[:, c] & icp_oks[:, c],
-                      rels[:, c], infos[:, c])
+                      rels[:, c], infos[:, c],
+                      None if rel6s is None else rel6s[:, c],
+                      None if info6s is None else info6s[:, c])
     return g
 
 
 _EDGE_FIELDS = ("edge_ij", "edge_rel", "edge_info", "edge_valid",
-                "num_edges", "edges_dropped")
+                "num_edges", "edges_dropped", "edge_rel6", "edge_info6")
 
 
 def add_keyframe(graph: PoseGraph, pose: torch.Tensor, cloud: PointCloud,
-                 icp_cfg, cfg, min_points: int | None = None):
+                 icp_cfg, cfg, min_points: int | None = None,
+                 attitude: torch.Tensor | None = None):
     """Gate and insert a keyframe per robot, with its edges. pose (B, 4)
     x, y, yaw, z; cloud: the segmented scene in the robot frame (B, M).
     Returns (graph, added (B,)).
+
+    attitude (B, 2): the measured IMU roll and pitch at capture (zeros
+    when None), read only by a 6-DoF graph: the keyframe is stored tilted
+    back into the capture body frame, p_body = R_rp^T p_up, so that 3D
+    edge registration observes relative attitude, and node_rp takes it.
 
     A robot adds a keyframe when it is farther than knn_dist_thresh from
     every keyframe (or has none) and the cloud holds >= min_points points.
@@ -283,13 +381,22 @@ def add_keyframe(graph: PoseGraph, pose: torch.Tensor, cloud: PointCloud,
                                 (ij[..., 1] == slot[:, None]))
     edge_valid = graph.edge_valid & ~dead
     packed = compact(cloud, cfg.keyframe_points)
+    kf_xyz = packed.xyz
+    full3d = graph.node_rp is not None
+    if full3d:
+        if attitude is None:
+            attitude = torch.zeros_like(pose[:, :2])
+        kf_xyz = kf_xyz @ rot3_from_rpy(attitude[:, 0], attitude[:, 1],
+                                        torch.zeros_like(attitude[:, 0]))
     stamp = graph.node_stamp.amax(-1) + 1
     at = (torch.arange(N, device=slot.device) == slot[:, None]) & add[:, None]
+    if full3d:
+        graph = graph.replace(node_rp=_put(graph.node_rp, at, attitude))
     new = graph.replace(
         node_pose=_put(graph.node_pose, at, pose),
         node_valid=graph.node_valid | at,
         node_stamp=_put(graph.node_stamp, at, stamp),
-        kf_xyz=_put(graph.kf_xyz, at, packed.xyz),
+        kf_xyz=_put(graph.kf_xyz, at, kf_xyz),
         kf_valid=_put(graph.kf_valid, at, packed.valid),
         kf_flags=_put(graph.kf_flags, at, packed.flags),
         edge_valid=edge_valid,
@@ -300,7 +407,7 @@ def add_keyframe(graph: PoseGraph, pose: torch.Tensor, cloud: PointCloud,
     return new.replace(**{
         f: torch.where(keep.view((-1,) + (1,) * (getattr(new, f).dim() - 1)),
                        getattr(with_edges, f), getattr(new, f))
-        for f in _EDGE_FIELDS}), add
+        for f in _EDGE_FIELDS if getattr(new, f) is not None}), add
 
 
 def _se2_edge_residuals(poses: torch.Tensor, graph: PoseGraph):
@@ -430,8 +537,10 @@ def relocalization_edge(graph: PoseGraph, belief_pose4: torch.Tensor,
     the keyframe's offset from the belief (B, 4) the graph was built in.
     Information diag(reloc_info_xy, reloc_info_xy, reloc_info_yaw, 1). A
     robot with no keyframe but node 0, or no free edge slot, takes no edge
-    (the latter counts in edges_dropped). Returns (graph, injected (B,));
-    optimise afterwards."""
+    (the latter counts in edges_dropped). A 6-DoF graph takes the match
+    lifted as from_planar lifts an edge: yaw a z-axis rotation vector, the
+    information embedded at (0, 1, 5, 2), roll and pitch pinned at 1e4.
+    Returns (graph, injected (B,)); optimise afterwards."""
     last, has_last = newest_node(graph)
     rows = _rows(last)
     kf = graph.node_pose[rows, last]
@@ -447,14 +556,26 @@ def relocalization_edge(graph: PoseGraph, belief_pose4: torch.Tensor,
     want = match_ok & has_last & (last != 0)
     e = graph.edge_valid.to(torch.int32).argmin(-1)
     injected = want & ~graph.edge_valid[rows, e]
-    g = _add_edge(graph, torch.zeros_like(last), last, want, rel, info)
+    rel6 = info6 = None
+    if graph.node_rp is not None:
+        rel6 = torch.cat([rel[:, :2], rel[:, 3:4],
+                          torch.zeros_like(rel[:, :2]), rel[:, 2:3]], -1)
+        info6 = pin_roll_pitch(embed_planar_info(info), 1e4)
+    g = _add_edge(graph, torch.zeros_like(last), last, want, rel, info,
+                  rel6, info6)
     return g, injected
 
 
 def _kf_world_xyz(graph: PoseGraph) -> torch.Tensor:
-    """(B, N, P, 3) keyframe clouds in the world under the node poses
-    (SE(2) x z: clouds are stored upright)."""
+    """(B, N, P, 3) keyframe clouds in the world under the node poses:
+    SE(2) x z for the planar graph (clouds stored upright), the whole
+    SE(3) pose for a 6-DoF graph (clouds in the capture body frame)."""
     pose = graph.node_pose
+    if graph.node_rp is not None:
+        R = rot3_from_rpy(graph.node_rp[..., 0], graph.node_rp[..., 1],
+                          pose[..., 2])
+        t = torch.stack([pose[..., 0], pose[..., 1], pose[..., 3]], -1)
+        return graph.kf_xyz @ R.mT + t[:, :, None, :]
     qx, qy = se2_apply_xy(pose[..., :3], graph.kf_xyz[..., 0],
                           graph.kf_xyz[..., 1])
     return torch.stack([qx, qy, graph.kf_xyz[..., 2] + pose[..., 3:4]], -1)

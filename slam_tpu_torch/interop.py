@@ -2,7 +2,7 @@
 
 slam_tpu's SlamState, GroundMap, World2D and World3D are pytrees; after
 `jax.tree.map(np.asarray, ...)` their leaves are numpy arrays, stacked over
-robots (leading dim B) for a fleet. `state_from_numpy`,
+robots (leading dim B) for a fleet, the 6-DoF graph's fields included. `state_from_numpy`,
 `ground_map_from_numpy`, `world_from_numpy` and `world3d_from_numpy` read
 such objects by attribute (no jax import), so both packages can start from
 the identical state; `mls_grid_from_numpy` reads an MlsGrid stacked over
@@ -49,11 +49,8 @@ def _grid(mg, device) -> PointMapGrid:
 
 
 def graph_from_numpy(g, device=None) -> PoseGraph:
-    """Port PoseGraph from a slam_tpu planar PoseGraph with numpy leaves
-    stacked over robots; a 6-DoF graph (node_rp set) is refused."""
-    if getattr(g, "node_rp", None) is not None:
-        raise ValueError("the port's PoseGraph is planar: the 6-DoF graph "
-                         "(edge_registration '3d') is not ported yet")
+    """Port PoseGraph from a slam_tpu PoseGraph with numpy leaves stacked
+    over robots, planar or 6-DoF (node_rp, edge_rel6, edge_info6)."""
     device = default_device(device)
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     return PoseGraph(**{k: _t(getattr(g, k), device, dt) for k, dt in (
@@ -61,7 +58,8 @@ def graph_from_numpy(g, device=None) -> PoseGraph:
         ("kf_xyz", f32), ("kf_valid", b8), ("kf_flags", i32),
         ("edge_ij", i32), ("edge_rel", f32), ("edge_info", f32),
         ("edge_valid", b8), ("num_nodes", i32), ("num_edges", i32),
-        ("edges_dropped", i32))})
+        ("edges_dropped", i32), ("node_rp", f32), ("edge_rel6", f32),
+        ("edge_info6", f32)) if getattr(g, k, None) is not None})
 
 
 def mls_grid_from_numpy(g, device=None) -> MlsGrid:
@@ -78,13 +76,10 @@ def mls_grid_from_numpy(g, device=None) -> MlsGrid:
 
 def state_from_numpy(st, device=None) -> SlamState:
     """Port state from a slam_tpu SlamState with numpy leaves stacked over
-    robots, its planar pose graph and metrics ring included. A state that
-    carries a 6-DoF keyframe ground cloud (prev_ground) is refused: the
-    port has no 3D graph yet. A state without a map grid (config 5's fleet,
-    graph mode) keeps map_grid None."""
-    if getattr(st, "prev_ground", None) is not None:
-        raise ValueError("the port's SlamState has no 6-DoF keyframe ground "
-                         "cloud yet (the 3D graph is not ported)")
+    robots, its pose graph (planar or 6-DoF), the 6-DoF keyframes' ground
+    sample and the metrics ring included. A state without a map grid
+    (config 5's fleet, 2D graph mode) keeps map_grid None."""
+    prev_ground = getattr(st, "prev_ground", None)
     attitude = getattr(st, "attitude", None)
     graph_full = getattr(st, "graph_full", None)
     ring = getattr(st, "metrics_ring", None)
@@ -116,6 +111,8 @@ def state_from_numpy(st, device=None) -> SlamState:
         metrics_ring=(None if ring is None else
                       (_t(ring[0], device, torch.float32),
                        _t(ring[1], device, torch.int32))),
+        prev_ground=(None if prev_ground is None
+                     else _cloud(prev_ground, device)),
     )
 
 

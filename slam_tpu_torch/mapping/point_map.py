@@ -64,6 +64,13 @@ def shift_point_map(grid: PointMapGrid, new_center_xy: torch.Tensor,
                         center=center)
 
 
+def offset_point_map_z(grid: PointMapGrid, dz: torch.Tensor) -> PointMapGrid:
+    """Shift every stored point's z by dz (B,): the graph's z pose offset
+    (MLS::offsetMap). sum_z holds absolute z sums, so the shift is
+    sum_z + dz * count; empty cells stay as they are."""
+    return grid.replace(sum_z=grid.sum_z + dz[:, None, None] * grid.count)
+
+
 def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
                         qy: torch.Tensor, qz, valid: torch.Tensor,
                         resolution: float | None = None) -> PointMapGrid:

@@ -26,7 +26,10 @@ hold equal to the plain versions.
 and GA masks, which the TPU packed only to save a relayout. Here it splits
 the columns, encodes the classes as `_pack3` does and launches K1's kernel
 on the planes; `icp_fused_reference` is the same adapter on K1's plain
-version.
+version. slam_tpu's K2 takes any size; K1 holds at most
+RESIDENT_TILE_LIMIT scene x model points, so packed problems above it go
+to K3 (and to K3's plain version), the route by size fused_register
+takes (the reference scale's 2,048-point keyframe edges).
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ K3_SPLIT_LEN = 2048
 
 # kernel launches made by icp_fused_planes (K1), icp_fused (K2) and
 # icp_fused_planes_tiled (K3), the card path only; a K3 launch is one call,
-# which queues its kernels' whole fit loop
+# which queues its kernels' whole fit loop. A K2 call above
+# RESIDENT_TILE_LIMIT launches K3 and counts in both.
 launches = 0
 packed_launches = 0
 tiled_launches = 0
@@ -396,15 +400,24 @@ def fit_iterations(sx, sy, sc, mx, my, mc, init, cfg) -> torch.Tensor:
 
 def _slab(sx, sy, sc, mx, my, mc, init, cfg, packed=False):
     """The (B, 8) slab: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    _check_resident(sx.shape[-1], mx.shape[-1])
+    CPU tensors. K1 (`packed` False) takes problems up to
+    RESIDENT_TILE_LIMIT; K2 (`packed`) sends larger ones to K3."""
+    global packed_launches
+    tiled = sx.shape[-1] * mx.shape[-1] > RESIDENT_TILE_LIMIT
+    if not packed:
+        _check_resident(sx.shape[-1], mx.shape[-1])
     init4 = _pack_init4(init)
     dev = sx.device
     if dev.type == "cpu":
-        return _reference_slab(sx, sy, sc, mx, my, mc, init4, cfg)[0]
-    if dev.type == "cuda":
+        slab = _tiled_reference_slab if tiled else _reference_slab
+        return slab(sx, sy, sc, mx, my, mc, init4, cfg)[0]
+    if dev.type != "cuda":
+        raise ValueError(f"fused ICP: unsupported device {dev}")
+    if not tiled:
         return _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed)
-    raise ValueError(f"fused ICP: unsupported device {dev}")
+    out = _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg)
+    packed_launches += 1
+    return out
 
 
 def icp_fused_planes(sx, sy, sc, mx, my, mc, init, cfg) -> IcpResult:
@@ -476,17 +489,20 @@ def packed_planes(scene_xy, scene_valid, scene_ga, model_xy, model_valid,
 def icp_fused_reference(scene_xy, scene_valid, scene_ga, model_xy,
                         model_valid, model_ga, init, cfg) -> IcpResult:
     """Plain PyTorch version of K2, on any device: K1's plain version
-    behind the packed adapter."""
-    return icp_fused_planes_reference(
-        *packed_planes(scene_xy, scene_valid, scene_ga, model_xy,
-                       model_valid, model_ga), init, cfg)
+    behind the packed adapter, K3's above RESIDENT_TILE_LIMIT."""
+    fit = (icp_fused_planes_tiled_reference
+           if scene_xy.shape[-2] * model_xy.shape[-2] > RESIDENT_TILE_LIMIT
+           else icp_fused_planes_reference)
+    return fit(*packed_planes(scene_xy, scene_valid, scene_ga, model_xy,
+                              model_valid, model_ga), init, cfg)
 
 
 def icp_fused(scene_xy, scene_valid, scene_ga, model_xy, model_valid,
               model_ga, init, cfg) -> IcpResult:
     """K2: fused ICP on packed points. scene_xy (B, S, 2), model_xy
     (B, C, 2), masks (B, S) / (B, C) bool, init (B, 3). Launches K1's kernel
-    for CUDA tensors, its plain version for CPU tensors."""
+    for CUDA tensors (K3 above RESIDENT_TILE_LIMIT scene x model points),
+    its plain version for CPU tensors."""
     return _decode(_slab(*packed_planes(scene_xy, scene_valid, scene_ga,
                                         model_xy, model_valid, model_ga),
                          init, cfg, packed=True))

@@ -1,11 +1,18 @@
-"""Class-constrained 2D nearest neighbour — counterpart of slam_tpu/ops/nn.py
+"""Class-constrained nearest neighbour — counterpart of slam_tpu/ops/nn.py
 and the dispatch in slam_tpu/ops/nn_pallas.py, with kernel K4
 (`csrc/nn.cu`, replacing nn_pallas.py's `_nn_kernel`).
 
-`nearest_neighbor` and `nearest_neighbor_planes` launch K4 for CUDA tensors
-(one launch, the operands read as they lie: no copy, cast or mask op) and
-run `nearest_neighbor_reference`, the plain PyTorch version, for CPU
-tensors.
+In 2D, `nearest_neighbor` and `nearest_neighbor_planes` launch K4 for
+CUDA tensors (one launch, the operands read as they lie: no copy, cast or
+mask op) and run `nearest_neighbor_reference`, the plain PyTorch version,
+for CPU tensors. In any other dimension (the 3D keyframe edges) no TPU
+kernel stands behind slam_tpu's function, and `nearest_neighbor` is plain
+PyTorch on every device: slam_tpu's masks (BIG added for an invalid model
+point and again for another class) on the direct form, its queries in
+chunks that keep each (B, chunk, C) temporary near NN_CHUNK_ELEMENTS.
+`nearest_neighbor_tiled` is slam_tpu's query-chunked form: the same
+results in chunks of a given size (K4 on the card in 2D, which walks any
+model in tiles itself).
 
 The plain version follows the Pallas kernel's direct form
 `d2 = dx*dx + dy*dy` with `where(bad, BIG + d2, d2)`, not slam_tpu/ops/nn.py's
@@ -29,6 +36,10 @@ BIG = 1e30
 launches = 0
 
 MAX_QCHUNK = 2048     # queries a block stages (24 bytes each)
+
+# elements of one (B, chunk, C) distance temporary of the plain N-D form:
+# 512 MiB of f32, a few such live at once
+NN_CHUNK_ELEMENTS = 1 << 27
 
 # class plane types K4 reads (the value is the class's f32 cast)
 CLASS_KINDS = {torch.float32: 1, torch.bool: 2}
@@ -119,15 +130,36 @@ def nearest_neighbor_planes(qx, qy, qc, mx, my, mc):
     return _launch(qx, qy, qc, mx, my, None, mc)
 
 
-def nearest_neighbor(q, m, m_valid, q_class=None, m_class=None):
-    """For each query (B, S, 2) return (index, squared distance) of its
-    nearest valid model point (B, C, 2), restricted to its own class when
-    both class planes are given (one-sided classes mean unconstrained)."""
-    if q.shape[-1] != 2 or m.shape[-1] != 2:
-        raise ValueError(f"nearest_neighbor is 2D-only (got q D={q.shape[-1]}"
-                         f", m D={m.shape[-1]})")
-    if q_class is None or m_class is None:
-        q_class = m_class = None
+def _nearest_direct(q, m, m_valid, q_class, m_class):
+    """slam_tpu's nearest_neighbor on the direct form, any dimension D:
+    d2 = sum over axes of (q - m)^2, plus BIG for an invalid model point
+    and BIG for another class, first minimum. (B, s, D) queries against
+    (B, C, D) models -> (idx (B, s) int32, d2 (B, s))."""
+    d2 = None
+    for k in range(q.shape[-1]):
+        d = q[..., :, None, k] - m[..., None, :, k]
+        d2 = d.mul_(d) if d2 is None else d2.add_(d.mul_(d))
+    d2.add_(torch.where(m_valid, 0.0, BIG)[..., None, :])
+    if q_class is not None:
+        d2.add_(torch.where(q_class[..., :, None] != m_class[..., None, :],
+                            BIG, 0.0))
+    idx = torch.argmin(d2, dim=-1)
+    return idx.to(torch.int32), torch.gather(d2, -1, idx[..., None])[..., 0]
+
+
+def _by_query_chunks(fn, q, q_class, chunk):
+    """fn(q, q_class) over chunks of `chunk` queries, results joined."""
+    S = q.shape[-2]
+    if S <= chunk:
+        return fn(q, q_class)
+    parts = [fn(q[..., s:s + chunk, :],
+                None if q_class is None else q_class[..., s:s + chunk])
+             for s in range(0, S, chunk)]
+    return tuple(torch.cat(r, -1) for r in zip(*parts))
+
+
+def _nearest_2d(q, m, m_valid, q_class, m_class):
+    """2D: K4 for CUDA tensors, its plain version for CPU tensors."""
     if q.device.type == "cuda":
         return _launch(q[..., 0], q[..., 1], q_class, m[..., 0], m[..., 1],
                        m_valid, m_class)
@@ -140,3 +172,36 @@ def nearest_neighbor(q, m, m_valid, q_class=None, m_class=None):
     mc = torch.where(m_valid, mc, 2.0)
     return nearest_neighbor_planes(q[..., 0], q[..., 1], qc, m[..., 0],
                                    m[..., 1], mc)
+
+
+def nearest_neighbor(q, m, m_valid, q_class=None, m_class=None):
+    """For each query (B, S, D) return (index int32, squared distance) of
+    its nearest valid model point (B, C, D), restricted to its own class
+    when both class planes are given (one-sided classes mean
+    unconstrained). D = 2: K4 on the card, its plain version on the CPU;
+    any other D: plain PyTorch in query chunks on every device."""
+    if q.shape[-1] != m.shape[-1]:
+        raise ValueError(f"query D={q.shape[-1]} and model D={m.shape[-1]}")
+    if q_class is None or m_class is None:
+        q_class = m_class = None
+    if q.shape[-1] == 2:
+        return _nearest_2d(q, m, m_valid, q_class, m_class)
+    rows = q.numel() // q.shape[-1] // q.shape[-2] * m.shape[-2]
+    chunk = max(1, NN_CHUNK_ELEMENTS // max(1, rows))
+    return _by_query_chunks(
+        lambda qq, qc: _nearest_direct(qq, m, m_valid, qc, m_class),
+        q, q_class, chunk)
+
+
+def nearest_neighbor_tiled(q, m, m_valid, q_class=None, m_class=None,
+                           chunk: int = 512):
+    """nearest_neighbor over chunks of `chunk` queries: the same results,
+    with temporaries of (B, chunk, C). 2D on the card is one K4 launch,
+    which never holds an (S, C) array."""
+    if q.shape[-1] == 2 and q.device.type == "cuda":
+        return nearest_neighbor(q, m, m_valid, q_class, m_class)
+    if q_class is None or m_class is None:
+        q_class = m_class = None
+    return _by_query_chunks(
+        lambda qq, qc: nearest_neighbor(qq, m, m_valid, qc, m_class),
+        q, q_class, chunk)

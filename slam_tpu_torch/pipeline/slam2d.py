@@ -11,9 +11,13 @@ robot batch. `register_scan_to_scan` registers against the previous scene
 
 Graph mode (config 4, `rollout_with_graph`): the ticks register against a
 target regenerated from the pose graph's keyframes, and every graph tick
-(`graph_update`) adds keyframes with edges measured by K2, optimises the
-graph and regenerates the target by graph.map_regen's engine, "voxel",
-"mls" or "grid" (graph/pose_graph.py). Only the planar engine is ported.
+(`graph_update`) adds keyframes with edges (planar ones measured by K2),
+optimises the graph by graph.engine ("se2z", or "se3": the SE(3) solver
+over the lifted planar edges, or over measured 6-DoF edges with
+edge_registration "3d") and regenerates the target by graph.map_regen's
+engine, "voxel", "mls" or "grid" (graph/pose_graph.py,
+graph/pose_graph3d.py). The 3D path's graph mode
+(pipeline/slam3d.rollout_3d_with_graph) runs the same graph tick.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points". The grid matcher belongs to a later slice and
@@ -27,6 +31,7 @@ import torch
 from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.geometry import se2_apply, se2_apply_xy
 from slam_tpu_torch.graph import pose_graph as pg
+from slam_tpu_torch.graph import pose_graph3d as pg3
 from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy,
                                               init_occupancy, shift_origin)
 from slam_tpu_torch.mapping.point_map import (export_point_planes,
@@ -396,12 +401,6 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
                torch.stack(true, 1)[:, :num_steps])
 
 
-def _check_graph_cfg(cfg) -> None:
-    g = cfg.graph
-    if g.edge_registration != "2d" or g.engine != "se2z":
-        raise NotImplementedError(pg.LATER)
-
-
 def graph_update(state: SlamState, cfg) -> SlamState:
     """A graph tick, the pose offset discarded: 2D maps carry no z for it
     to shift."""
@@ -410,26 +409,46 @@ def graph_update(state: SlamState, cfg) -> SlamState:
 
 def graph_update_delta(state: SlamState, cfg):
     """A graph tick for every robot: gate and insert a keyframe (the last
-    scene at the fused pose) with its edges, optimise the graphs that
-    gained a keyframe and hold an edge, and regenerate the scan-to-map
-    target of the robots that gained one. Returns (state, delta): delta
-    (B, 4) is the newest node's pose change across the optimisation, zero
-    where none ran. The EKF is not shifted by it.
+    scene at the fused pose, with the last tick's ground sample appended
+    where the state carries one, for 6-DoF keyframes; the measured
+    attitude for their tilt) with its edges, optimise the graphs that
+    gained a keyframe and hold an edge (graph.engine "se2z":
+    pose_graph.optimize; "se3": pose_graph3d.optimize_planar, or
+    optimize_native over edge_registration "3d"), and regenerate the
+    scan-to-map target of the robots that gained one. Returns (state,
+    delta): delta (B, 4) is the newest node's pose change across the
+    optimisation, zero where none ran. The EKF is not shifted by it.
 
     Every robot runs every stage and torch.where keeps what its own gates
     select, so the tick never waits for the card. The target is
     regenerated by graph.map_regen's engine: "voxel" (a voxel merge of
     every keyframe), "mls" (a global MLS rebuild's obstacle export) or
-    "grid". Engine "se2z" only; the 6-DoF graph raises."""
-    _check_graph_cfg(cfg)
+    "grid"."""
     gcfg = cfg.graph
-    graph, added = pg.add_keyframe(state.graph, state.pose, state.prev_scene,
+    kf_cloud = state.prev_scene
+    if state.prev_ground is not None:
+        # obstacles first, so that the keyframe's compaction never drops
+        # them
+        kf_cloud = PointCloud(
+            xyz=torch.cat([kf_cloud.xyz, state.prev_ground.xyz], 1),
+            valid=torch.cat([kf_cloud.valid, state.prev_ground.valid], 1),
+            flags=torch.cat([kf_cloud.flags, state.prev_ground.flags], 1))
+    graph, added = pg.add_keyframe(state.graph, state.pose, kf_cloud,
                                    cfg.icp, gcfg,
-                                   min_points=gcfg.min_keyframe_points)
+                                   min_points=gcfg.min_keyframe_points,
+                                   attitude=state.attitude)
     opt = added & (graph.num_edges > 0)
-    optimized, delta = pg.optimize(graph, gcfg)
+    if gcfg.engine == "se3" and gcfg.edge_registration == "3d":
+        optimized, delta = pg3.optimize_native(graph, gcfg)
+    elif gcfg.engine == "se3":
+        optimized, delta = pg3.optimize_planar(graph, gcfg)
+    else:
+        optimized, delta = pg.optimize(graph, gcfg)
     graph = graph.replace(node_pose=torch.where(
         opt[:, None, None], optimized.node_pose, graph.node_pose))
+    if graph.node_rp is not None:
+        graph = graph.replace(node_rp=torch.where(
+            opt[:, None, None], optimized.node_rp, graph.node_rp))
     delta = torch.where(opt[:, None], delta, 0.0)
     capacity = state.map_cloud.capacity
     if gcfg.map_regen == "grid":
@@ -466,7 +485,6 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
     regenerated target (incremental_map=False: the robots keep no map
     grid), then a graph tick. Returns (final_state, (est, true)),
     trajectories (B, num_macro * graph_every, 3)."""
-    _check_graph_cfg(cfg)
     est, true = [], []
     s = state
     for _ in range(num_macro):

@@ -13,9 +13,18 @@ the state carries one. Every function takes and returns the whole robot
 batch; the scan-completeness gate is a tensor op, so a tick never waits
 for the card.
 
+Graph mode (`rollout_3d_with_graph`, config 4 in 3D): the ticks register
+against the target regenerated from the pose graph's keyframes, with
+ground adjacency re-classified around the prediction, and leave the
+obstacle point map alone; every graph tick (slam2d.graph_update_delta)
+adds keyframes, optimises and regenerates, and the newest node's z offset
+shifts the ground map (`apply_graph_offset`). Planar edges (K2, or K3
+above RESIDENT_TILE_LIMIT) or 6-DoF edges (ops/icp3d.py, with the ground
+sample the state carries in prev_ground) per cfg.graph.
+
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". The grid matcher and the 3D graph mode belong to
-later slices and raise or are absent here.
+swapped for "points". The grid matcher belongs to a later slice and
+raises (graph mode registers "grid" as "points", as slam_tpu does).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy2,
                                               shift_origin)
 from slam_tpu_torch.mapping.point_map import (export_point_planes,
                                               export_points, init_point_map,
+                                              offset_point_map_z,
                                               shift_point_map,
                                               update_point_map_xy)
 from slam_tpu_torch.models import ekf as ekf_mod
@@ -40,7 +50,8 @@ from slam_tpu_torch.ops.icp_fused import fused_register
 from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.voxel import (compact_planes, crop_box,
                                       voxel_downsample_pairwise_planes)
-from slam_tpu_torch.pipeline.slam2d import init_state, planes_to_cloud
+from slam_tpu_torch.pipeline.slam2d import (graph_update_delta, init_state,
+                                            planes_to_cloud)
 from slam_tpu_torch.sim import world2d, world3d
 from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
     make_cloud
@@ -50,10 +61,22 @@ MATCHERS = ("fused", "points")
 
 
 def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  with_graph: bool = False):
     """init_state with z anchored at the true sensor height over the start
-    point (the estimated z drifts from there), and a zero IMU attitude."""
-    s = init_state(cfg, batch, device=device, generator=generator)
+    point (the estimated z drifts from there), and a zero IMU attitude.
+    with_graph: graph mode, an empty pose graph beside the (unused)
+    point-map grid, and for 6-DoF edges an empty ground sample of
+    keyframe_points slots."""
+    s = init_state(cfg, batch, device=device, generator=generator,
+                   with_graph=with_graph)
+    if s.map_grid is None:
+        s = s.replace(map_grid=init_point_map(
+            batch, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
+            device=s.pose.device))
+    if with_graph and cfg.graph.edge_registration == "3d":
+        s = s.replace(prev_ground=make_cloud(batch, cfg.graph.keyframe_points,
+                                             device=s.pose.device))
     z0 = world3d.terrain_height(world, torch.zeros(2, device=s.pose.device)) \
         + cfg.sim.sensor_height
     pose = s.pose.clone()
@@ -106,6 +129,32 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
     return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
 
 
+def _reclassified_target_planes(map_cloud: PointCloud, pred, cfg):
+    """(mpx, mpy, mga, mvalid) of a graph-regenerated target, its ground
+    adjacency re-evaluated around the prediction pred (B, 3): the
+    keyframes' capture-time flags go stale after optimisation and
+    merging."""
+    mpx = map_cloud.xyz[..., 0]
+    mpy = map_cloud.xyz[..., 1]
+    mga = classify_ga_planes(mpx, mpy, map_cloud.valid, pred[:, :2],
+                             cfg.icp.ga_num_bins, cfg.icp.ga_resolution,
+                             cfg.icp.ga_threshold)
+    return mpx, mpy, mga, map_cloud.valid
+
+
+def _ground_sample(gx, gy, gz, gvalid, capacity: int) -> PointCloud:
+    """Every (N // capacity)-th ground slot (beam order: even angular and
+    ring coverage), compacted into `capacity` slots, in the robot frame."""
+    stride = max(1, gx.shape[-1] // capacity)
+    (px, py, pz), valid = compact_planes(
+        (gx[:, ::stride], gy[:, ::stride], gz[:, ::stride]),
+        gvalid[:, ::stride], capacity)
+    return PointCloud(
+        xyz=torch.where(valid[..., None], torch.stack([px, py, pz], -1), 0.0),
+        valid=valid,
+        flags=torch.where(valid, PointCloud.FLAG_GROUND, 0).to(torch.int32))
+
+
 def _planes_to_cloud_3d(px, py, pz, ga, drv, valid) -> PointCloud:
     xyz = torch.where(valid[..., None], torch.stack([px, py, pz], -1), 0.0)
     flags = torch.where(ga, PointCloud.FLAG_GA, 0) | \
@@ -116,7 +165,8 @@ def _planes_to_cloud_3d(px, py, pz, ga, drv, valid) -> PointCloud:
 
 def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                      pitch, gyro, cmd, cfg, refresh_map: bool = True,
-                     shift_maps: bool = True, target_planes=None):
+                     shift_maps: bool = True, target_planes=None,
+                     incremental_map: bool = True):
     """Sensor frames -> updated (state, ground_map). scan_tilted (B, N, 3)
     in the tilted sensor frame, hit (B, N), measured roll / pitch (B,), raw
     gyro z (B,), commanded body velocity cmd (B, 3).
@@ -124,8 +174,18 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     target_planes: optional (mx, my, mga, mvalid) registration target that
     the rollout refreshes once per macro; None registers against
     state.map_cloud. refresh_map re-exports the targets after the update;
-    shift_maps re-centres the rolling grids on the fused pose."""
+    shift_maps re-centres the rolling grids on the fused pose.
+
+    incremental_map False is graph mode: registration targets only the
+    graph-regenerated state.map_cloud, its ground adjacency re-classified
+    around the prediction, and the obstacle point map is left as it is;
+    the ground map and occupancy update as always. A state that carries
+    prev_ground gets this frame's strided ground sample there."""
     matcher = cfg.icp.matcher
+    if not incremental_map and matcher == "grid":
+        # the nearest-centroid field reads the obstacle grid, which graph
+        # mode does not keep
+        matcher = "points"
     if matcher == "grid":
         raise NotImplementedError(
             "icp.matcher 'grid' (slam_tpu/ops/grid_icp.py, the nearest-"
@@ -152,8 +212,18 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
         build_scene_3d_planes(scan_xyz, hit, cfg)
     if matcher == "fused":
+        if not incremental_map:
+            target_planes = _reclassified_target_planes(state.map_cloud,
+                                                        pred, cfg)
         icp = fused_register(ox, oy, ovalid, oga, target_planes,
                              state.map_cloud, pred, cfg.icp)
+    elif not incremental_map:
+        target = crop_box(state.map_cloud, pred[:, :2], cfg.icp.crop_dist)
+        mpx, mpy, mga, mvalid = _reclassified_target_planes(state.map_cloud,
+                                                            pred, cfg)
+        icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
+                      torch.stack([mpx, mpy], -1), target.valid & mvalid,
+                      mga, pred, cfg.icp)
     else:
         target = crop_box(state.map_cloud, pred[:, :2], cfg.icp.crop_dist)
         icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
@@ -193,15 +263,17 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     gwz = gz + z
 
     res = cfg.icp.voxel_leaf_obs[0]
-    owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
-    mg = shift_point_map(state.map_grid, fused[:, :2], res) \
-        if shift_maps else state.map_grid
-    mg = update_point_map_xy(mg, owx, owy, oz + z, ovalid, res)
+    mg = state.map_grid
+    if incremental_map:
+        owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
+        if shift_maps:
+            mg = shift_point_map(mg, fused[:, :2], res)
+        mg = update_point_map_xy(mg, owx, owy, oz + z, ovalid, res)
     gg = shift_point_map(ground_map.grid, fused[:, :2], res) \
         if shift_maps else ground_map.grid
     gg = update_point_map_xy(gg, gwx, gwy, gwz, gvalid, res)
     map_cloud, gnd_cloud = state.map_cloud, ground_map.cloud
-    if refresh_map:
+    if refresh_map and incremental_map:
         map_cloud = export_points(mg, map_cloud.capacity,
                                   ga_threshold=cfg.icp.ga_threshold)
         if cfg.height.source != "grid":
@@ -219,12 +291,17 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     # both scene builders fill cfg.cloud.scene_capacity slots, the
     # capacity of state.prev_scene
     prev_scene = _planes_to_cloud_3d(ox, oy, oz, oga, odrv, ovalid)
+    prev_ground = state.prev_ground
+    if prev_ground is not None:
+        prev_ground = _ground_sample(gx, gy, gz, gvalid,
+                                     prev_ground.capacity)
     new_state = state.replace(
         ekf=ekf, pose=pose4, scan_reg_pose=map_pose, scan_reg_ok=icp.ok,
         local_map=grid, prev_scene=prev_scene, map_cloud=map_cloud,
         map_grid=mg, step=state.step + 1, metrics_ring=ring,
         attitude=(None if state.attitude is None
-                  else torch.stack([roll, pitch], -1)))
+                  else torch.stack([roll, pitch], -1)),
+        prev_ground=prev_ground)
     return new_state, GroundMap(grid=gg, cloud=gnd_cloud)
 
 
@@ -241,7 +318,7 @@ def slam_step_3d_io(state, ground_map: GroundMap, scan_tilted, hit, roll,
 def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
                  generator: torch.Generator | None = None,
                  refresh_map: bool = True, shift_maps: bool = True,
-                 target_planes=None):
+                 target_planes=None, incremental_map: bool = True):
     """One simulated tick: drive on the terrain, sense (the robot tilts
     with the surface; range and IMU noise drawn from `generator`, none
     without one), then process the frame. Returns (state, ground_map)."""
@@ -260,7 +337,7 @@ def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
         state, ground_map, scan, hit, roll + imu[:, 0],
         pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
         refresh_map=refresh_map, shift_maps=shift_maps,
-        target_planes=target_planes)
+        target_planes=target_planes, incremental_map=incremental_map)
     return state.replace(true_pose=torch.cat([true2, true_z[:, None]], -1)), gm
 
 
@@ -300,3 +377,50 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
             reg_ok.append(s.scan_reg_ok)
     return s, gm, tuple(torch.stack(t, 1)[:, :num_steps]
                         for t in (est, true, reg_ok))
+
+
+def apply_graph_offset(gm: GroundMap, delta: torch.Tensor) -> GroundMap:
+    """The graph's pose offset applied to the ground store (MLS::offsetMap):
+    every stored point's z, in the grid and in the exported cloud that
+    shadows it between macros, shifts by delta[:, 3] (B,), so the next
+    height interpolation reads the corrected surface. x, y and yaw are
+    not applied, as in the reference."""
+    dz = delta[:, 3]
+    cloud = gm.cloud
+    z = cloud.xyz[..., 2] + torch.where(cloud.valid, dz[:, None], 0.0)
+    return GroundMap(grid=offset_point_map_z(gm.grid, dz),
+                     cloud=cloud.replace(xyz=torch.cat(
+                         [cloud.xyz[..., :2], z[..., None]], -1)))
+
+
+def rollout_3d_with_graph(state, world: world3d.World3D,
+                          ground_map: GroundMap, cfg, num_macro: int,
+                          generator: torch.Generator | None = None,
+                          graph_every: int = 8):
+    """The 3D stack with the pose graph in the loop: num_macro macros, each
+    one re-centring of the ground map and the occupancy grid (and, for
+    cfg.height.source "cloud", one ground export), graph_every ticks in
+    graph mode (incremental_map=False) and a graph tick, whose newest-node
+    z offset shifts the ground map. Returns (final state, final ground
+    map, (est, true)), trajectories (B, num_macro * graph_every, 4)."""
+    s, gm = state, ground_map
+    if s.map_grid is None:
+        s = s.replace(map_grid=init_point_map(
+            s.pose.shape[0], cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
+            device=s.pose.device))
+    est, true = [], []
+    for _ in range(num_macro):
+        if cfg.height.source != "grid":
+            gm = gm.replace(cloud=export_points(gm.grid, gm.cloud.capacity))
+        gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
+        s = s.replace(local_map=shift_origin(s.local_map, s.pose[:, :2],
+                                             cfg.mls))
+        for _ in range(graph_every):
+            s, gm = slam_step_3d(s, world, gm, cfg, generator,
+                                 refresh_map=False, shift_maps=False,
+                                 incremental_map=False)
+            est.append(s.pose)
+            true.append(s.true_pose)
+        s, delta = graph_update_delta(s, cfg)
+        gm = apply_graph_offset(gm, delta)
+    return s, gm, (torch.stack(est, 1), torch.stack(true, 1))

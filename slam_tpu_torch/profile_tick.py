@@ -9,9 +9,12 @@ the ticks, K2 and K4 on the graph tick's edges) or config 3 (macros of
 4 "fused" ticks at sim2d_reloc_config, B = 128, each folding the last
 scene into the robots' MLS grids and relocalizing the lost robots; robot
 0's belief is kidnapped and flagged lost in the third macro of every
-4-macro window, as bench.py's bench_mls_reloc does once a block).
+4-macro window, as bench.py's bench_mls_reloc does once a block) or
+config 4 in 3D (`--config 3d-graph`: slam3d.rollout_3d_with_graph at
+ref_scale_graph_config, B = 16, macros of 8 graph-mode ticks on K3 and a
+graph tick whose 2,048-point keyframe edges go to K3 as well).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4, 3
+    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4, 3, 3d-graph
 
 The package carries no spans; this script wraps the pipeline's stage
 functions in torch.profiler.record_function ranges for the run (a kernel
@@ -102,6 +105,15 @@ STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
     (slam3d, "shift_origin", "occupancy shift (once per macro)"),
     (slam3d, "add_to_occupancy_xy2", "occupancy update"),
 )
+STAGES_3D_GRAPH = STAGES_3D + (
+    (slam3d, "classify_ga_planes", "target GA reclassification"),
+    (slam3d, "graph_update_delta", "graph tick: keyframe gate and insert"),
+    (pg, "icp_fused", "graph tick: edge ICP (K3 for K2)"),
+    (pg, "_edge_information", "graph tick: edge information (K4, LUM)"),
+    (pg, "optimize", "graph tick: optimise"),
+    (pg, "regenerate_map", "graph tick: regenerate target"),
+    (slam3d, "apply_graph_offset", "graph tick: ground-map z offset"),
+)
 
 
 def kidnap(state, robot: int = 0):
@@ -191,7 +203,7 @@ def _attribute(trace: dict, labels) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref",
-                                         "4", "3"), default="5")
+                                         "4", "3", "3d-graph"), default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -203,7 +215,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     three_d = args.config in ("2", "ref")
-    per_macro = 8 if args.config == "4" else 4
+    per_macro = 8 if args.config in ("4", "3d-graph") else 4
     macros = 4 if args.config == "3" else MACROS
     if args.config == "3":
         cfg = cfg_mod.sim2d_reloc_config()
@@ -220,6 +232,14 @@ def main(argv=None) -> int:
         state = slam2d.init_state(cfg, batch, device=dev, generator=gen,
                                   with_graph=True)
         aux = None
+    elif args.config == "3d-graph":
+        cfg = cfg_mod.ref_scale_graph_config()
+        batch = 16
+        stages = STAGES_3D_GRAPH
+        world = world3d.make_world(gen, cfg.sim, device=dev)
+        state = slam3d.init_state_3d(cfg, batch, world, device=dev,
+                                     generator=gen, with_graph=True)
+        aux = slam3d.init_ground_map(cfg, batch, device=dev)
     elif three_d:
         cfg = (cfg_mod.sim3d_config() if args.config == "2"
                else cfg_mod.ref_scale_config())
@@ -252,6 +272,9 @@ def main(argv=None) -> int:
         elif args.config == "4":
             s, _ = slam2d.rollout_with_graph(s, world, cfg, macros, gen,
                                              per_macro)
+        elif args.config == "3d-graph":
+            s, a, _ = slam3d.rollout_3d_with_graph(s, world, a, cfg, macros,
+                                                   gen, per_macro)
         elif three_d:
             s, a, _ = slam3d.rollout_3d(s, world, a, cfg, 4 * macros, gen)
         elif args.config == "5":

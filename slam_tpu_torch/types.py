@@ -130,7 +130,7 @@ class MlsGrid(Replaceable):
 
 @dataclasses.dataclass
 class PoseGraph(Replaceable):
-    """Fixed-capacity keyframe pose graph per robot (planar mode).
+    """Fixed-capacity keyframe pose graph per robot.
 
     node_pose:  (B, N, 4) f32 x, y, yaw, z
     node_valid: (B, N) bool
@@ -146,9 +146,12 @@ class PoseGraph(Replaceable):
     num_nodes, num_edges: (B,) int32
     edges_dropped: (B,) int32 accepted measurements lost to a full table
 
-    node_rp, edge_rel6 and edge_info6 are slam_tpu's 6-DoF extension
-    (edge_registration "3d"); the port has only the planar graph, so they
-    stay None."""
+    The 6-DoF graph (edge_registration "3d") adds, else they are None:
+    node_rp:    (B, N, 2) roll, pitch of each node (its keyframe is stored
+                in that capture body frame)
+    edge_rel6:  (B, E, 6) measured relative pose [t; rotation vector]
+    edge_info6: (B, E, 6, 6) LUM information, tangent order [t; w]
+    and edge_rel / edge_info then hold their planar projection."""
 
     node_pose: torch.Tensor
     node_valid: torch.Tensor
@@ -171,10 +174,9 @@ class PoseGraph(Replaceable):
 @dataclasses.dataclass
 class SlamState(Replaceable):
     """Per-robot SLAM state, batched: the scan-to-map fields, the pose
-    graph of graph mode, the IMU attitude of the 3D path and the device
-    metrics ring. slam_tpu's 6-DoF keyframe ground cloud belongs to a
-    later slice; the random stream is not state here but an explicit
-    torch.Generator argument."""
+    graph of graph mode, the IMU attitude and the 6-DoF keyframes' ground
+    sample of the 3D path and the device metrics ring. The random stream
+    is not state here but an explicit torch.Generator argument."""
 
     ekf: EkfState
     pose: torch.Tensor           # (B, 4) fused pose x, y, yaw, z
@@ -195,6 +197,10 @@ class SlamState(Replaceable):
                                  # keyframes evict), or None without graph
     metrics_ring: object = None  # (buf (B, cap, 9), count (B,)) device
                                  # metrics ring (utils/metrics.py), or None
+    prev_ground: object = None   # PointCloud (B, keyframe_points): the last
+                                 # tick's strided ground sample (robot
+                                 # frame) that 6-DoF keyframes carry, or
+                                 # None
 
 
 @dataclasses.dataclass

@@ -450,15 +450,16 @@ def test_graph_rollout_noise_free_matches_jax():
 
 
 def test_graph_modes_not_ported_raise():
-    """Only the 6-DoF graph is still to port ("voxel" and "mls" are
-    test_graph_update_regenerations_match_jax's cases)."""
-    for g in (dict(engine="se3"), dict(edge_registration="3d")):
-        cfg = CFG.replace(graph=dataclasses.replace(GCFG, **g))
-        with pytest.raises(NotImplementedError):
-            tslam.graph_update(None, cfg)
-    with pytest.raises(NotImplementedError):
-        tpg.init_graph(dataclasses.replace(GCFG, engine="se3",
-                                           edge_registration="3d"), 1, "cpu")
+    """Every graph mode is ported now; the refusal that stays is
+    slam_tpu's own: edge_registration "3d" makes SE(3) measurements that
+    only engine "se3" consumes. Both packages refuse it."""
+    bad = dataclasses.replace(GCFG, edge_registration="3d")
+    with pytest.raises(ValueError, match='engine="se3"'):
+        jpg.init_graph(bad)
+    with pytest.raises(ValueError, match='engine="se3"'):
+        tpg.init_graph(bad, 1, "cpu")
+    g = tpg.init_graph(dataclasses.replace(bad, engine="se3"), 1, "cpu")
+    assert g.node_rp.shape == (1, GCFG.max_nodes, 2)
 
 
 def test_config4_is_the_jax_benchmarks():

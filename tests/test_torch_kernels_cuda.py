@@ -139,3 +139,19 @@ def test_k3_resident_branch_matches_streaming_plain(card, scattered):
                        icp_fused.icp_fused_planes_tiled_reference(*ops, cfg),
                        (0, 1, 2))
     assert r["pose_err"] <= card.POSE_TOL and r["dcorr"] <= card.NCORR_TOL
+
+
+def test_k2_above_the_resident_limit_runs_k3(card):
+    """Packed problems of 2,048 x 2,048 points (the reference scale's
+    keyframe edges): K2 sends them to K3, one launch counted as both,
+    against the plain version."""
+    from slam_tpu_torch.config import ref_scale_config
+    r = card.check_k2_tiled(ref_scale_config().icp)
+    assert r["pose_err"] <= card.POSE_TOL and r["ok_mismatch"] == 0
+
+
+def test_kabsch_on_the_card_needs_no_host_sync(card):
+    """ops/align's 3x3 SVD (Jacobi sweeps in tensor ops) on the card:
+    rotations within 1e-4 of the f64 SVD Kabsch, 0 host syncs."""
+    r = card.kabsch_on_card()
+    assert r["err"] <= 1e-4 and r["syncs"] == 0

@@ -86,13 +86,18 @@ def test_nn_unconstrained_and_2d_only():
                                    to_torch(m_valid))
     widx, _ = jax.vmap(jnn.nearest_neighbor)(q, m, m_valid)
     assert (gidx.numpy() == np.asarray(widx)).mean() > 0.99
-    try:
-        tnn.nearest_neighbor(torch.zeros(1, 4, 3), torch.zeros(1, 5, 3),
+    # K4 is 2D only: 3D queries take the plain N-D form (no launch, on any
+    # device; tests/test_torch_icp3d.py holds it to slam_tpu), and a query
+    # whose dimension differs from the model's is refused
+    idx, d2 = tnn.nearest_neighbor(torch.zeros(1, 4, 3),
+                                   torch.ones(1, 5, 3),
+                                   torch.ones(1, 5, dtype=torch.bool))
+    assert_equal(idx, torch.zeros(1, 4, dtype=torch.int32))
+    assert_equal(d2, torch.full((1, 4), 3.0))
+    assert tnn.launches == 0
+    with pytest.raises(ValueError, match="D=3"):
+        tnn.nearest_neighbor(torch.zeros(1, 4, 3), torch.zeros(1, 5, 2),
                              torch.ones(1, 5, dtype=torch.bool))
-    except ValueError as e:
-        assert "2D-only" in str(e)
-    else:
-        raise AssertionError("3D input was accepted")
 
 
 def test_procrustes_and_fit_step_match_jax():

@@ -114,13 +114,18 @@ non-zero:
              (engine "se3", 3D ICP edges in plain PyTorch, 6 x 6 LUM
              information, optimize_native), B=128, 6 macros of 8 ticks
              (K1) after a warm-up macro, then 4 macros of engine "se3"
-             over planar edges (K2): ms/tick, graph tick ms, host syncs
-             (gate 0), slam_tpu's own test bounds (median ATE < 0.6 m,
-             the median robot's nodes within 0.8 m of its true path, mean
-             |z error| < 0.15 m), node_rp finite; a 6-DoF relocalization edge injected on
-             a kidnapped robot and optimize_native after it, finite; the
-             Kabsch rotation (Jacobi SVD in tensor ops) on the card
-             against the f64 SVD, with 0 host syncs
+             over planar edges (K2, K4): ms/tick, graph tick ms, host
+             syncs (gate 0), slam_tpu's own test bounds (median ATE <
+             0.6 m, the 0.99 quantile robot's nodes within 0.8 m of its
+             true path, mean |z error| < 0.15 m), node_rp finite; K1 on
+             the last tick's registration, K2 on the planar edge problems
+             (512 of 1,024 x 1,024) of the graph tick with the most points
+             against their plain versions under [graph]'s near-tie rule,
+             K4 on that tick's edge information equal to plain; a 6-DoF
+             relocalization edge injected on a kidnapped robot and
+             optimize_native after it, finite; the Kabsch rotation
+             (Jacobi SVD in tensor ops) on the card against the f64 SVD,
+             with 0 host syncs
 18. div    — cell indices of t / python_float against a true division by
              a 0-dim tensor on the card at each site that divides by a
              configured width (ground sector and range bin at sim3d and the
@@ -203,9 +208,12 @@ SE3_FLEET = 128       # config 4 in 3D, the 6-DoF chain at sim3d
 SE3_MACROS = 6        # its timed macros of 8 ticks, after a warm-up macro
 SE3_2D_MACROS = 4     # then engine "se3" over planar edges (a 2nd keyframe)
 SE3_ATE_LIMIT = 0.6   # m, median ATE over ticks >= 8 (slam_tpu's own tests'
-SE3_NODE_LIMIT = 0.8  # m, the median robot's farthest node from its true
-                      #    path (bounds, tests/test_pipeline3d_graph.py and
+SE3_NODE_LIMIT = 0.8  # m, a robot's farthest node from its true path
+                      #    (bounds, tests/test_pipeline3d_graph.py and
 SE3_Z_LIMIT = 0.15    # m, mean |z error|     tests/test_graph_se3_edges.py)
+SE3_NODE_QUANTILE = 0.99  # the robot held to SE3_NODE_LIMIT: a 3D ICP edge
+                      # can settle in a wrong minimum that slam_tpu's gates
+                      # accept, as slam_tpu's own fit does on the same inputs
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -1445,14 +1453,16 @@ def division_phase(card) -> dict:
     return out
 
 
-def tie_margin(planes, init, pose, inlier_dist) -> torch.Tensor:
+def tie_margin(planes, init, pose, inlier_dist):
     """(n,) least margin of a near-tie in each fused-ICP problem at `pose`
     (n, 3): over its valid scene points whose class the model holds, the
     gap between the nearest and the second-nearest same-class model point
     (squared metres), or the nearest one's distance from the inlier gate.
     Below TIE_GAP, which correspondence (or the average of tied ones) a
     point takes is decided by rounding: the fit can settle a few mm apart
-    on two roundings of the same arithmetic."""
+    on two roundings of the same arithmetic. Also returns (n,) the widest
+    separation (m) of the two nearest model points over the points whose
+    gap is below TIE_GAP (0 where none)."""
     sx, sy, sc, mx, my, mc = planes
     c, s = torch.cos(pose[:, 2:3]), torch.sin(pose[:, 2:3])
     qx = c * sx - s * sy + pose[:, 0:1]
@@ -1460,11 +1470,79 @@ def tie_margin(planes, init, pose, inlier_dist) -> torch.Tensor:
     d2 = (qx[:, :, None] - mx[:, None, :]) ** 2 + \
         (qy[:, :, None] - my[:, None, :]) ** 2
     d2 = torch.where(sc[:, :, None] == mc[:, None, :], d2, BIG_D2)
-    two = torch.topk(d2, 2, dim=-1, largest=False).values
+    two, at = torch.topk(d2, 2, dim=-1, largest=False)
+    del d2
+    counts = (sc >= 0) & (two[..., 0] < BIG_D2)
     margin = torch.minimum(two[..., 1] - two[..., 0],
                            (two[..., 0] - inlier_dist).abs())
-    counts = (sc >= 0) & (two[..., 0] < BIG_D2)
-    return torch.where(counts, margin, float("inf")).amin(-1)
+    sep = torch.hypot(
+        torch.gather(mx, 1, at[..., 0]) - torch.gather(mx, 1, at[..., 1]),
+        torch.gather(my, 1, at[..., 0]) - torch.gather(my, 1, at[..., 1]))
+    gap_tied = counts & (two[..., 1] - two[..., 0] < TIE_GAP)
+    return (torch.where(counts, margin, float("inf")).amin(-1),
+            torch.where(gap_tied, sep, 0.0).amax(-1))
+
+
+def near_tie_agreement(label, got, ref, planes, init, cfg, max_excused,
+                       min_ok) -> dict:
+    """A fused-ICP kernel's result `got` (K1, K2 or K3) against its plain
+    version's `ref` on the same n problems of a path's own data: pose
+    within POSE_TOL on the problems without a near-tie (tie_margin below
+    TIE_GAP at either pose), within TIE_POSE_TOL on all, ok equal, num_corr
+    within NCORR_TOL, at most max_excused problems that need the near-tie
+    bound (a near-tie and a pose error above POSE_TOL) and at least min_ok
+    accepted problems. Raises with `label` when it disagrees. A near-tie
+    alone excuses nothing: between near-duplicate model points (the 3D
+    keyframes' voxels stacked within 1 cm of each other in xy) they are
+    common and do not move the fit."""
+    (m_got, sep_got), (m_ref, sep_ref) = (
+        tie_margin(planes, init, r.pose, cfg.inlier_dist) for r in (got, ref))
+    tied = torch.minimum(m_got, m_ref) < TIE_GAP
+    torch.cuda.synchronize()
+    errs = (got.pose - ref.pose).abs().amax(-1)
+    a = dict(err=float(errs.max()),
+             tie_sep=float(torch.maximum(sep_got, sep_ref).max()),
+             err_untied=float(torch.where(tied, 0.0, errs).max()),
+             n_tied=int(tied.sum()), n_excused=int((errs > POSE_TOL).sum()),
+             ok_mism=int((got.ok != ref.ok).sum()),
+             dcorr=int((got.num_corr - ref.num_corr).abs().max()),
+             n_ok=int(ref.ok.sum()), n=int(ref.ok.numel()))
+    if a["err_untied"] > POSE_TOL or a["ok_mism"] or a["dcorr"] > NCORR_TOL \
+            or a["err"] > TIE_POSE_TOL or a["n_excused"] > max_excused or \
+            a["n_ok"] < min_ok:
+        raise RuntimeError(
+            f"{label} disagrees with its plain version: pose err "
+            f"{a['err_untied']} (bound {POSE_TOL}) without a near-tie, "
+            f"{a['err']} (bound {TIE_POSE_TOL}) with the {a['n_tied']} "
+            f"near-ties, {a['n_excused']} of them above {POSE_TOL} (at most "
+            f"{max_excused}), ok mismatches {a['ok_mism']}, |d num_corr| "
+            f"{a['dcorr']}, {a['n_ok']} of {a['n']} accepted (at least "
+            f"{min_ok})")
+    return a
+
+
+def agreement_text(a) -> str:
+    """near_tie_agreement's result as printed."""
+    return (f"max pose err {a['err_untied']:.3g} (bound {POSE_TOL}) without "
+            f"a near-tie, {a['n_tied']} with one (a correspondence within "
+            f"{TIE_GAP} m^2 of a tie or of the inlier gate; tied model "
+            f"points at most {a['tie_sep']:.3g} m apart) {a['err']:.3g} "
+            f"(bound {TIE_POSE_TOL}; {a['n_excused']} above {POSE_TOL}), ok "
+            f"mismatches {a['ok_mism']}, max |d num_corr| {a['dcorr']}, "
+            f"{a['n_ok']} of {a['n']} accepted")
+
+
+def nn_equal(label, call) -> None:
+    """K4 on a recorded nearest_neighbor call (args, kwargs) against its
+    plain version: idx equal, dist equal in bits."""
+    from slam_tpu_torch.ops import nn
+    a, k = call
+    args = (*a, k.get("q_class"), k.get("m_class"))
+    (idx, dist), (ridx, rdist) = nn.nearest_neighbor(*args), nn_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, ridx) and same_bits(dist, rdist)):
+        raise RuntimeError(f"K4 on {label} disagrees with its plain version: "
+                           f"{int((idx != ridx).sum())} idx mismatches")
 
 
 def graph_phase(world, gen, card) -> dict:
@@ -1543,36 +1621,15 @@ def graph_phase(world, gen, card) -> dict:
     args = max((a for a, _ in k2_calls),
                key=lambda a: int(a[1].sum() + a[4].sum()))
     del k2_calls
-    got = icp_fused.icp_fused(*args)
-    ref = icp_fused.icp_fused_reference(*args)
     planes = icp_fused.packed_planes(*args[:6])
-    tied = torch.minimum(
-        tie_margin(planes, args[6], got.pose, args[7].inlier_dist),
-        tie_margin(planes, args[6], ref.pose, args[7].inlier_dist)) < TIE_GAP
-    torch.cuda.synchronize()
-    errs = (got.pose - ref.pose).abs().amax(-1)
-    err = float(errs.max())
-    err_untied = float(torch.where(tied, 0.0, errs).max())
-    n_tied = int(tied.sum())
-    ok_mism = int((got.ok != ref.ok).sum())
-    dcorr = int((got.num_corr - ref.num_corr).abs().max())
-    n_ok = int(ref.ok.sum())
-    if err_untied > POSE_TOL or ok_mism or dcorr > NCORR_TOL:
-        raise RuntimeError(f"K2 on config 4's edges disagrees with its plain "
-                           f"version: pose err {err_untied} (problems "
-                           f"without a near-tie), ok mismatches {ok_mism}, "
-                           f"|d num_corr| {dcorr}")
-    if err > TIE_POSE_TOL or n_tied > args[0].shape[0] // 100:
-        raise RuntimeError(f"K2 on config 4's edges: {n_tied} problems with "
-                           f"a near-tie, pose err {err} (bound "
-                           f"{TIE_POSE_TOL})")
-    if n_ok < B // 2:
-        raise RuntimeError(f"K2's recorded graph tick accepted {n_ok} of "
-                           f"{args[0].shape[0]} edge problems")
+    n = args[0].shape[0]
+    k2a = near_tie_agreement(
+        "K2 on config 4's edges", icp_fused.icp_fused(*args),
+        icp_fused.icp_fused_reference(*args), planes, args[6], args[7],
+        n // 100, B // 2)
     k2_ms = cuda_ms(lambda: icp_fused.icp_fused(*args))
     k2_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*args),
                           reps=1)
-    n = args[0].shape[0]
     k2_bound = bound(nbytes(*args[:7]) + n * (3 * 4 + 1 + 3 * 4),
                      icp_ops(planes, args[6], args[7]))
     iters = float(icp_fused.fit_iterations(*planes, args[6], args[7]).mean())
@@ -1614,18 +1671,15 @@ def graph_phase(world, gen, card) -> dict:
           f"aligned {aligned:.4f}), keyframes >= {nodes}, edges >= {edges}, "
           f"launches {launches}; K2 on {n} edge problems S=C=384 at "
           f"{args[7].max_iterations} iterations ({iters:.2f} run on "
-          f"average, {n_ok} accepted) vs plain: max pose err {err_untied:.3g} "
-          f"(bound {POSE_TOL}) on the problems without a near-tie, "
-          f"{n_tied} with one (a correspondence within {TIE_GAP} m^2 of a "
-          f"tie or of the inlier gate) {err:.3g} (bound {TIE_POSE_TOL}), "
-          f"ok mismatches {ok_mism}, max |d num_corr| {dcorr}; K2 {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"average) vs plain: {agreement_text(k2a)}; K2 {k2_ms:.4f} ms, "
+          f"plain {k2_plain_ms:.4f} ms, bound "
           f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); host syncs in one "
           f"graph_update: {len(syncs)}{': ' + ' | '.join(syncs) if syncs else ''}"
           f"; eviction run ({EVICT_MACROS} macros, 0.5 m gate): all "
           f"{ecfg.graph.max_nodes} slots full, >= {inserted} keyframes "
           f"inserted, edges_dropped total {int(eg.edges_dropped.sum())} "
           f"(max {int(eg.edges_dropped.max())}) | {card}", flush=True)
-    return dict(launches=launches, k2_err=err, k2_ms=k2_ms,
+    return dict(launches=launches, k2_err=k2a["err"], k2_ms=k2_ms,
                 k2_plain_ms=k2_plain_ms, k2_bound=k2_bound, syncs=syncs)
 
 
@@ -1760,26 +1814,11 @@ def graph3d_phase(gen, card) -> dict:
     C = args[3].shape[1]
     if S * C <= icp_fused.RESIDENT_TILE_LIMIT:
         raise RuntimeError(f"[graph3d] edge problems {S} x {C} fit K1")
-    got = icp_fused.icp_fused(*args)
-    ref = icp_fused.icp_fused_reference(*args)
     planes = icp_fused.packed_planes(*args[:6])
-    tied = torch.minimum(
-        tie_margin(planes, args[6], got.pose, args[7].inlier_dist),
-        tie_margin(planes, args[6], ref.pose, args[7].inlier_dist)) < TIE_GAP
-    torch.cuda.synchronize()
-    errs = (got.pose - ref.pose).abs().amax(-1)
-    err = float(errs.max())
-    err_untied = float(torch.where(tied, 0.0, errs).max())
-    n_tied = int(tied.sum())
-    ok_mism = int((got.ok != ref.ok).sum())
-    dcorr = int((got.num_corr - ref.num_corr).abs().max())
-    n_ok = int(ref.ok.sum())
-    if err_untied > POSE_TOL or ok_mism or dcorr > NCORR_TOL or \
-            err > TIE_POSE_TOL or n_tied > max(1, n // 20) or n_ok < 1:
-        raise RuntimeError(f"K3 on [graph3d]'s edges disagrees with its "
-                           f"plain version: pose err {err_untied} (no near-"
-                           f"tie), {err} ({n_tied} with one), ok mismatches "
-                           f"{ok_mism}, |d num_corr| {dcorr}, {n_ok} ok")
+    k3a = near_tie_agreement(
+        "K3 on [graph3d]'s edges", icp_fused.icp_fused(*args),
+        icp_fused.icp_fused_reference(*args), planes, args[6], args[7],
+        max(1, n // 20), 1)
     k3_ms = cuda_ms(lambda: icp_fused.icp_fused(*args))
     k3_plain_ms = cuda_ms(lambda: icp_fused.icp_fused_reference(*args),
                           reps=1)
@@ -1787,15 +1826,8 @@ def graph3d_phase(gen, card) -> dict:
                      icp_ops(planes, args[6], args[7]))
     iters = float(icp_fused.fit_iterations(*planes, args[6], args[7]).mean())
     # K4 on that graph tick's edge information, equal to its plain version
-    a, k = nn_calls[pick]
-    nargs = (*a, k.get("q_class"), k.get("m_class"))
+    nn_equal("[graph3d]'s edge information", nn_calls[pick])
     del nn_calls
-    (idx, dist), (ridx, rdist) = nn.nearest_neighbor(*nargs), nn_plain(*nargs)
-    torch.cuda.synchronize()
-    if not (torch.equal(idx, ridx) and same_bits(dist, rdist)):
-        raise RuntimeError(f"K4 on [graph3d]'s edge information disagrees "
-                           f"with its plain version: "
-                           f"{int((idx != ridx).sum())} idx mismatches")
 
     def tick(s=state, m=gm):
         s2, d = slam3d.graph_update_delta(s, cfg)
@@ -1814,14 +1846,12 @@ def graph3d_phase(gen, card) -> dict:
           f"mean |z error| {z_err:.4f} m, keyframes >= {nodes}, edges >= "
           f"{edges}, launches {launches}; K2 on {n} edge problems "
           f"S={S} C={C} at {args[7].max_iterations} iterations ({iters:.2f} "
-          f"run on average, {n_ok} accepted) on K3 vs plain: max pose err "
-          f"{err_untied:.3g} (bound {POSE_TOL}) without a near-tie, {n_tied} "
-          f"with one {err:.3g} (bound {TIE_POSE_TOL}), ok mismatches "
-          f"{ok_mism}, max |d num_corr| {dcorr}; {k3_ms:.4f} ms, plain "
+          f"run on average) on K3 vs plain: {agreement_text(k3a)}; "
+          f"{k3_ms:.4f} ms, plain "
           f"{k3_plain_ms:.4f} ms, bound {k3_bound[0]:.6f} ms ({k3_bound[1]})"
           f"; K4 on its edge information equal to plain | {card}",
           flush=True)
-    return dict(launches=launches, ms=ms, graph_ms=graph_ms, k3_err=err,
+    return dict(launches=launches, ms=ms, graph_ms=graph_ms, k3_err=k3a["err"],
                 k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_bound=k3_bound,
                 tick=tick)
 
@@ -1832,10 +1862,14 @@ def se3_phase(gen, card) -> dict:
     robots, SE3_MACROS macros of GRAPH_EVERY ticks after a warm-up macro
     on another fleet; then SE3_2D_MACROS macros of engine "se3" over
     planar edges. Gates: K1 every tick, node_rp finite, slam_tpu's own
-    test bounds (median ATE, nodes near the true path, mean |z error|),
-    no host sync in one graph tick; one 6-DoF relocalization edge on a
-    kidnapped robot (the match its true pose) and optimize_native after
-    it leave every pose finite."""
+    test bounds (median ATE, the SE3_NODE_QUANTILE robot's nodes near the
+    true path, mean |z error|), no host sync in one graph tick; K1 on the
+    3D-edge run's last tick, K2 on the planar-edge run's edge problems of
+    the graph tick with the most points against their plain versions
+    (near_tie_agreement), K4 on that tick's edge information equal to its
+    plain version; one 6-DoF relocalization edge on a kidnapped robot (the
+    match its true pose) and optimize_native after it leave every pose
+    finite."""
     from slam_tpu_torch.config import sim3d_se3_config
     from slam_tpu_torch.graph import pose_graph as pg
     from slam_tpu_torch.graph import pose_graph3d as pg3
@@ -1863,11 +1897,21 @@ def se3_phase(gen, card) -> dict:
                                      with_graph=True)
         gm = slam3d.init_ground_map(c, B, dev)
         tick_events, update = [], slam3d.graph_update_delta
+        # record the kernels' operands: K1's on the ticks (3D edges), K2's
+        # and K4's on the graph ticks (planar edges)
+        k1_calls, k2_calls, nn_calls = [], [], []
+        k1, k2, nn_fn = icp_fused.icp_fused_planes, pg.icp_fused, \
+            pg.nearest_neighbor
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         reset_counts(icp_fused, nn, particle)
         slam3d.graph_update_delta = event_timed(update, tick_events)
+        if edges == "3d":
+            icp_fused.icp_fused_planes = kept(k1, k1_calls)
+        else:
+            pg.icp_fused, pg.nearest_neighbor = kept(k2, k2_calls), kept(
+                nn_fn, nn_calls)
         try:
             e0.record()
             state, gm, (est, true) = slam3d.rollout_3d_with_graph(
@@ -1876,6 +1920,8 @@ def se3_phase(gen, card) -> dict:
             torch.cuda.synchronize()
         finally:
             slam3d.graph_update_delta = update
+            icp_fused.icp_fused_planes, pg.icp_fused, pg.nearest_neighbor = \
+                k1, k2, nn_fn
         launches = {"K1": icp_fused.launches,
                     "K2": icp_fused.packed_launches, "K4": nn.launches}
         for k, v in launches.items():
@@ -1896,32 +1942,72 @@ def se3_phase(gen, card) -> dict:
         z_err = float((est[:, 8:, 3] - true[:, 8:, 3]).abs().mean())
         nodes = int(g.num_nodes.min())
         # each robot's farthest valid node from its true path; slam_tpu's
-        # test holds one robot's, the fleet is held by its median robot
-        # (as the ATE gate is)
+        # test holds one robot's, the fleet is held at its 0.99 quantile
         d = torch.cdist(g.node_pose[..., :2], true[..., :2]).amin(-1)
         node_off = torch.where(g.node_valid, d, 0.0).amax(-1)
-        node_med = float(node_off.median())
+        node_q = float(torch.quantile(node_off, SE3_NODE_QUANTILE))
+        node_far = int((node_off >= SE3_NODE_LIMIT).sum())
         _, syncs = count_syncs(lambda s=state, cc=c: update(s, cc))
         if launches["K1"] < ticks or nodes < 2 or syncs or \
                 not med < SE3_ATE_LIMIT or not z_err < SE3_Z_LIMIT or \
-                not node_med < SE3_NODE_LIMIT:
+                not node_q < SE3_NODE_LIMIT:
             raise RuntimeError(
                 f"[se3] ({edges} edges): launches {launches} in {ticks} "
                 f"ticks, >= {nodes} keyframes, median ATE {med} m (limit "
                 f"{SE3_ATE_LIMIT}; max {float(ate.max())}), mean |z error| "
-                f"{z_err} m (limit {SE3_Z_LIMIT}), the median robot's nodes "
-                f"{node_med} m off its true path (limit {SE3_NODE_LIMIT}; "
-                f"max {float(node_off.max())}), host syncs "
+                f"{z_err} m (limit {SE3_Z_LIMIT}), the {SE3_NODE_QUANTILE} "
+                f"quantile robot's nodes {node_q} m off its true path (limit "
+                f"{SE3_NODE_LIMIT}; max {float(node_off.max())}, {node_far} "
+                f"robots at or beyond the limit), host syncs "
                 f"{sync_sites(syncs)}")
+        if edges == "3d":
+            # K1 on the last tick's registration (against the regenerated
+            # keyframe map)
+            args = k1_calls[-1][0]
+            del k1_calls
+            held = near_tie_agreement(
+                "K1 on [se3]'s last tick", icp_fused.icp_fused_planes(*args),
+                icp_fused.icp_fused_planes_reference(*args), args[:6],
+                args[6], args[7], max(1, B // 20), 1)
+            held_text = (f"K1 on the last tick's (B={B}, S="
+                         f"{args[0].shape[1]}, C={args[3].shape[1]}) "
+                         f"registration vs plain: {agreement_text(held)}")
+        else:
+            # K2 on the planar edge problems of the graph tick with the most
+            # valid points, K4 on that tick's edge information
+            if len(k2_calls) != macros or len(nn_calls) != macros:
+                raise RuntimeError(f"[se3] recorded {len(k2_calls)} K2 and "
+                                   f"{len(nn_calls)} K4 calls in {macros} "
+                                   f"graph ticks")
+            pick = max(range(macros), key=lambda i: int(
+                k2_calls[i][0][1].sum() + k2_calls[i][0][4].sum()))
+            args = k2_calls[pick][0]
+            del k2_calls
+            n, S = args[0].shape[:2]
+            held = near_tie_agreement(
+                "K2 on [se3]'s planar edges", icp_fused.icp_fused(*args),
+                icp_fused.icp_fused_reference(*args),
+                icp_fused.packed_planes(*args[:6]), args[6], args[7],
+                max(1, n // 20), 1)
+            nn_equal("[se3]'s planar edge information", nn_calls[pick])
+            held_text = (f"K2 on the {n} edge problems of S=C={S} of the "
+                         f"graph tick with the most points vs plain: "
+                         f"{agreement_text(held)}; K4 on their information "
+                         f"equal to plain")
+            del nn_calls
+        out["k1_err" if edges == "3d" else "k2_err"] = held["err"]
         line = (f"{edges} edges, {macros} macros: {ms:.3f} ms/tick, "
                 f"{B * 1000.0 / ms:.1f} robot-steps/s, graph tick mean "
                 f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
                 f"{max(graph_ms):.3f}), host syncs 0, median ATE {med:.4f} m"
                 f" (ticks>=8, {float(ate.max()):.4f} max), mean |z error| "
                 f"{z_err:.4f} m, nodes off the true path: median robot "
-                f"{node_med:.4f} m, worst {float(node_off.max()):.4f} m, "
+                f"{float(node_off.median()):.4f} m, {SE3_NODE_QUANTILE} "
+                f"quantile {node_q:.4f} m (limit {SE3_NODE_LIMIT}), worst "
+                f"{float(node_off.max()):.4f} m ({node_far} robots at or "
+                f"beyond the limit), "
                 f"keyframes >= {nodes}, edges >= {int(g.num_edges.min())}, "
-                f"launches {launches}")
+                f"launches {launches}; {held_text}")
         if edges == "3d":
             kid = kidnap(state)
             only0 = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -2258,16 +2344,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("icp_fused_planes (K1)", "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:59", "K1, every path",
-               k1["pose_err"], k1_ms,
+               max(k1["pose_err"], se3["k1_err"]), k1_ms,
                k1_plain_ms, k1_bound),
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",
-               "slam_tpu/ops/icp_pallas.py:39", "K2", graph["k2_err"],
+               "slam_tpu/ops/icp_pallas.py:39", "K2",
+               max(graph["k2_err"], se3["k2_err"]),
                graph["k2_ms"], graph["k2_plain_ms"], graph["k2_bound"]),
         record("icp_fused_planes_tiled (K3)",
                "slam_tpu_torch/csrc/icp_tiled.cu",
                "slam_tpu/ops/icp_pallas.py:271", "K3",
-               k3["ref"]["pose_err"], k3_ms, k3_plain_ms, k3_bound),
+               max(k3["ref"]["pose_err"], graph3d["k3_err"]), k3_ms,
+               k3_plain_ms, k3_bound),
         record("nearest_neighbor (K4)", "slam_tpu_torch/csrc/nn.cu",
                "slam_tpu/ops/nn_pallas.py:38", "K4", k4["max_abs_err"],
                t4["call"], t4["plain"], t4["bound"]),

@@ -10,9 +10,8 @@ kernel stands behind slam_tpu's function, and `nearest_neighbor` is plain
 PyTorch on every device: slam_tpu's masks (BIG added for an invalid model
 point and again for another class) on the direct form, its queries in
 chunks that keep each (B, chunk, C) temporary near NN_CHUNK_ELEMENTS.
-`nearest_neighbor_tiled` is slam_tpu's query-chunked form: the same
-results in chunks of a given size (K4 on the card in 2D, which walks any
-model in tiles itself).
+`nearest_neighbor_tiled`, slam_tpu's query-chunked form, is therefore
+`nearest_neighbor` itself.
 
 The plain version follows the Pallas kernel's direct form
 `d2 = dx*dx + dy*dy` with `where(bad, BIG + d2, d2)`, not slam_tpu/ops/nn.py's
@@ -193,15 +192,7 @@ def nearest_neighbor(q, m, m_valid, q_class=None, m_class=None):
         q, q_class, chunk)
 
 
-def nearest_neighbor_tiled(q, m, m_valid, q_class=None, m_class=None,
-                           chunk: int = 512):
-    """nearest_neighbor over chunks of `chunk` queries: the same results,
-    with temporaries of (B, chunk, C). 2D on the card is one K4 launch,
-    which never holds an (S, C) array."""
-    if q.shape[-1] == 2 and q.device.type == "cuda":
-        return nearest_neighbor(q, m, m_valid, q_class, m_class)
-    if q_class is None or m_class is None:
-        q_class = m_class = None
-    return _by_query_chunks(
-        lambda qq, qc: nearest_neighbor(qq, m, m_valid, qc, m_class),
-        q, q_class, chunk)
+# slam_tpu's query-chunked form: nearest_neighbor already walks the queries
+# in chunks of NN_CHUNK_ELEMENTS (any D other than 2) or the model in tiles
+# (K4), so it is the same function
+nearest_neighbor_tiled = nearest_neighbor

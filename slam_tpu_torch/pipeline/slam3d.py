@@ -65,15 +65,13 @@ def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
                   with_graph: bool = False):
     """init_state with z anchored at the true sensor height over the start
     point (the estimated z drifts from there), and a zero IMU attitude.
-    with_graph: graph mode, an empty pose graph beside the (unused)
-    point-map grid, and for 6-DoF edges an empty ground sample of
-    keyframe_points slots."""
+    with_graph: graph mode, an empty pose graph, no obstacle point-map grid
+    (graph mode registers against the regenerated keyframe map and never
+    reads or writes one; slam_tpu allocates it only to keep its pytree's
+    shape, and interop carries either), and for 6-DoF edges an empty
+    ground sample of keyframe_points slots."""
     s = init_state(cfg, batch, device=device, generator=generator,
                    with_graph=with_graph)
-    if s.map_grid is None:
-        s = s.replace(map_grid=init_point_map(
-            batch, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
-            device=s.pose.device))
     if with_graph and cfg.graph.edge_registration == "3d":
         s = s.replace(prev_ground=make_cloud(batch, cfg.graph.keyframe_points,
                                              device=s.pose.device))
@@ -404,10 +402,6 @@ def rollout_3d_with_graph(state, world: world3d.World3D,
     z offset shifts the ground map. Returns (final state, final ground
     map, (est, true)), trajectories (B, num_macro * graph_every, 4)."""
     s, gm = state, ground_map
-    if s.map_grid is None:
-        s = s.replace(map_grid=init_point_map(
-            s.pose.shape[0], cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
-            device=s.pose.device))
     est, true = [], []
     for _ in range(num_macro):
         if cfg.height.source != "grid":

@@ -126,14 +126,35 @@ non-zero:
              optimize_native after it, finite; the Kabsch rotation
              (Jacobi SVD in tensor ops) on the card against the f64 SVD,
              with 0 host syncs
-18. div    — cell indices of t / python_float against a true division by
+18. refgrid — config 2 at the reference's working point with the "grid"
+             matcher (bench.py's bench_ref_scale configuration:
+             ref_scale_config, 20,480-ray scans, a scene of 4,096, a 384 x
+             384 map grid at 0.5 m, height source "grid"), B=16, 16 ticks
+             after a warm-up macro: ms/tick, robot-steps/s, device ops a
+             tick and a field build, median raw and aligned ATE, mean |z
+             error|, the share of ticks that registered; gates: ATE, z,
+             every robot registered on its last tick, no K1 / K3 / K4
+             launch, no host sync in one macro; the last macro's field on
+             the card equal to the CPU path's from the same grid (valid and
+             n_class exact, px / py within 1e-5 m but at near-ties, which
+             are counted), icp_fit_grid on the last tick's scenes within
+             1e-3 of the CPU run with ok equal
+19. grid2d — config 1 with the "grid" matcher (examples/run_fleet.py
+             --matcher grid) at sim2d_config, B=1024, 40 ticks after a
+             warm-up macro: ms/tick, median ATE (gate), no K1 or K4 launch
+             and no host sync in one macro; build_scene_planes on the card:
+             the fleet's last scans through the "incidence" and "grid"
+             builders, and 16 robots' 8,192-beam scans through "auto"
+             (grid) and "incidence" (compacted into 4,096 slots), each
+             robot with the same centroids and GA flags from both
+20. div    — cell indices of t / python_float against a true division by
              a 0-dim tensor on the card at each site that divides by a
              configured width (ground sector and range bin at sim3d and the
              reference scale, occupancy at 0.2 m), counted on random values
              and on values at cell edges; the port's binning
              (ops/ground.polar_bins, mapping/occupancy.cells_of and a whole
              add_to_occupancy_xy at 0.2 m) must equal the CPU's
-19. time   — K1, K2, K3, K4 and K5 timed alone against their plain
+21. time   — K1, K2, K3, K4 and K5 timed alone against their plain
              versions at their main path's shapes (K3 on the full and on
              the sparse problem), beside the least time the card could take
              for the same work; K4 and K5 (P=128 and P=1) both as the
@@ -143,7 +164,7 @@ non-zero:
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
 
-Every kernel launch count is set to 0 just before a main path (8-17) runs
+Every kernel launch count is set to 0 just before a main path (8-19) runs
 and read just after it; the JSON record's launches add up every path's. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
 package.
@@ -214,6 +235,13 @@ SE3_Z_LIMIT = 0.15    # m, mean |z error|     tests/test_graph_se3_edges.py)
 SE3_NODE_QUANTILE = 0.99  # the robot held to SE3_NODE_LIMIT: a 3D ICP edge
                       # can settle in a wrong minimum that slam_tpu's gates
                       # accept, as slam_tpu's own fit does on the same inputs
+GRID_ATE_LIMIT = 0.3  # m, config 1 with matcher "grid": median ATE over
+                      # ticks >= 10 (tests/test_grid_icp.py's bound)
+FIELD_TOL = 1e-5      # m: the field's px / py, card vs the CPU path
+FIELD_TIE = 1e-6      # m^2: two picks this close from a cell centre are a tie
+WIDE_BEAMS = 8192     # [grid2d]: beams of the scans "auto" sends to the grid
+WIDE_ROBOTS = 16      #           builder, robots, and the scene capacity
+WIDE_CAPACITY = 4096  #           that holds their cells
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -2038,6 +2066,283 @@ def se3_phase(gen, card) -> dict:
     return out
 
 
+def host_grid(grid):
+    """A point-map grid's copy on the host."""
+    return grid.replace(**{n: getattr(grid, n).cpu() for n in (
+        "count", "sum_x", "sum_y", "sum_z", "center")})
+
+
+def field_agreement(label, grid) -> dict:
+    """The nearest-centroid field of `grid` built on the card against the
+    field the CPU path builds from the same grid copied to the host:
+    valid and n_class equal, px / py within FIELD_TOL except in cells
+    where the two packages' picks lie within FIELD_TIE of each other from
+    the cell centre (a near-tie, which the visiting order decides on
+    roundings of equal distances)."""
+    from slam_tpu_torch.ops.grid_icp import nearest_point_field
+    host = host_grid(grid)
+    card = nearest_point_field(grid, grid.resolution)
+    plain = nearest_point_field(host, grid.resolution)
+    G = plain.px.shape[-1]
+    base = (torch.arange(G) - G // 2 + 0.5) * grid.resolution
+    ccx = (base[None, :] + host.center[:, 0:1])[:, None, :, None]
+    ccy = (base[None, :] + host.center[:, 1:2])[:, None, None, :]
+    cx, cy = card.px.cpu(), card.py.cpu()
+    off = torch.maximum((cx - plain.px).abs(), (cy - plain.py).abs())
+    off = torch.where(plain.valid, off, 0.0)
+    gap = ((cx - ccx) ** 2 + (cy - ccy) ** 2 -
+           (plain.px - ccx) ** 2 - (plain.py - ccy) ** 2).abs()
+    apart = off > FIELD_TOL
+    tied = apart & (gap <= FIELD_TIE)
+    a = dict(valid_mism=int((card.valid.cpu() != plain.valid).sum()),
+             n_class_mism=int((card.n_class.cpu() != plain.n_class).sum()),
+             max_off=float(off.max()), n_apart=int(apart.sum()),
+             n_tied=int(tied.sum()), cells=int(plain.valid.sum()))
+    if a["valid_mism"] or a["n_class_mism"] or a["n_apart"] > a["n_tied"]:
+        raise RuntimeError(f"{label}: the card's field disagrees with the "
+                           f"CPU path's: {a}")
+    return a
+
+
+def field_text(a) -> str:
+    return (f"field on the card vs the CPU path on the same grid: valid and "
+            f"n_class equal over {a['cells']} valid cells, px/py max diff "
+            f"{a['max_off']:.3g} m, {a['n_apart']} cells beyond {FIELD_TOL} "
+            f"m, all near-ties (picks within {FIELD_TIE} m^2 of each other "
+            f"from the cell centre: {a['n_tied']})")
+
+
+def refgrid_phase(gen, card) -> None:
+    """[refgrid]: bench.py's bench_ref_scale configuration on the card,
+    slam3d.rollout_3d at ref_scale_config with icp.matcher "grid" (20,480-
+    ray scans, a scene of 4,096, a 384 x 384 map grid at 0.5 m, height
+    source "grid") for FLEET_REF robots, TICKS_REF ticks after a warm-up
+    macro. Gates (tests/test_scale_rollout.py's): median ATE, mean |z
+    error|, every robot registered on its last tick; no K1, K3 or K4
+    launch; no host sync in one macro (its field build, shifts and 4
+    ticks); the last macro's field on the card against the CPU path's
+    (field_agreement), and icp_fit_grid on the last tick's scenes against
+    the CPU run (pose within POSE_TOL, ok equal)."""
+    from slam_tpu_torch.config import ref_scale_config
+    from slam_tpu_torch.ops import grid_icp, icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.sim import world3d
+    cfg = ref_scale_config()
+    cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, matcher="grid"))
+    dev = torch.device("cuda")
+    B, ticks = FLEET_REF, TICKS_REF
+    world = world3d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
+    state = slam3d.init_state_3d(cfg, B, world, device=dev,
+                                 generator=gen.manual_seed(0))
+    gm = slam3d.init_ground_map(cfg, B, dev)
+    state, gm, _ = slam3d.rollout_3d(state, world, gm, cfg, 4, gen)
+    grids, fits = [], []
+    build, fit = slam3d.nearest_point_field, slam3d.icp_fit_grid
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    slam3d.nearest_point_field = kept(build, grids)
+    slam3d.icp_fit_grid = kept(fit, fits)
+    try:
+        e0.record()
+        state, gm, (est, true, reg_ok) = slam3d.rollout_3d(
+            state, world, gm, cfg, ticks, gen)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        slam3d.nearest_point_field, slam3d.icp_fit_grid = build, fit
+    launches = {"K1": icp_fused.launches, "K3": icp_fused.tiled_launches,
+                "K4": nn.launches}
+    ms = e0.elapsed_time(e1) / ticks
+    if est.shape != (B, ticks, 4) or len(grids) != ticks // 4 or \
+            len(fits) != ticks:
+        raise RuntimeError(f"[refgrid] trajectory {tuple(est.shape)}, "
+                           f"{len(grids)} field builds, {len(fits)} fits")
+    for what, x in (("est", est), ("map", state.map_grid.count),
+                    ("ground map", gm.grid.sum_z)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"[refgrid]: non-finite values in {what}")
+    ate = slam2d.ate(est[:, 4:], true[:, 4:])
+    ate_al = slam2d.ate_aligned(est[:, 4:], true[:, 4:])
+    med, med_al = float(ate.median()), float(ate_al.median())
+    z_err = float((est[:, 4:, 3] - true[:, 4:, 3]).abs().mean())
+    ok_share = float(reg_ok.float().mean())
+    if any(launches.values()):
+        raise RuntimeError(f"[refgrid] the grid path launched {launches}")
+    if not med < ATE_REF_LIMIT or not z_err < Z_REF_LIMIT:
+        raise RuntimeError(f"[refgrid] median ATE {med} m (limit "
+                           f"{ATE_REF_LIMIT}), mean |z error| {z_err} m "
+                           f"(limit {Z_REF_LIMIT})")
+    if not bool(state.scan_reg_ok.all()):
+        raise RuntimeError(f"[refgrid] {int((~state.scan_reg_ok).sum())} "
+                           f"robots did not register on the last tick")
+
+    last_grid = grids[-1][0][0]
+    fa = field_agreement("[refgrid]", last_grid)
+    (sx, sv, sga, field, pred, icfg), _ = fits[-1]
+    got = fit(sx, sv, sga, field, pred, icfg)
+    hfield = grid_icp.nearest_point_field(host_grid(last_grid),
+                                          field.resolution,
+                                          icfg.ga_threshold)
+    ref = fit(sx.cpu(), sv.cpu(), sga.cpu(), hfield, pred.cpu(), icfg)
+    fit_err = float((got.pose.cpu() - ref.pose).abs().max())
+    fit_ok_mism = int((got.ok.cpu() != ref.ok).sum())
+    if fit_err > POSE_TOL or fit_ok_mism:
+        raise RuntimeError(f"[refgrid] icp_fit_grid on the card vs the CPU: "
+                           f"pose err {fit_err}, ok mismatches {fit_ok_mism}")
+    del grids, fits
+
+    def tick(s=state, m=gm, f=field):
+        return slam3d.slam_step_3d(s, world, m, cfg, gen, refresh_map=False,
+                                   shift_maps=False, field=f)
+    tick_ops = device_ops(tick)["n"]
+    field_ops = device_ops(lambda: grid_icp.nearest_point_field(
+        state.map_grid, field.resolution, icfg.ga_threshold))["n"]
+    _, syncs = count_syncs(lambda: slam3d.rollout_3d(state, world, gm, cfg,
+                                                     4, gen))
+    if syncs:
+        raise RuntimeError(f"[refgrid] host syncs in one macro: "
+                           f"{sync_sites(syncs)}")
+    print(f"[refgrid] config 2 at ref_scale_config with matcher grid "
+          f"(bench.py's bench_ref_scale) B={B} {ticks} ticks after a warm-up "
+          f"macro: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} robot-steps/s, "
+          f"device ops a tick {tick_ops} and a field build {field_ops} (one "
+          f"a macro of 4 ticks), median ATE {med:.4f} m raw, {med_al:.4f} m "
+          f"aligned (ticks>=4, {float(ate.max()):.4f} max raw), mean |z "
+          f"error| {z_err:.4f} m, registration ok share {ok_share:.4f}, "
+          f"every robot registered on the last tick, host syncs in one "
+          f"macro 0, launches {launches}; {field_text(fa)}; icp_fit_grid on "
+          f"the last tick's scenes vs the CPU: max pose err {fit_err:.3g} "
+          f"(bound {POSE_TOL}), ok mismatches 0 | {card}", flush=True)
+
+
+def centroid_sets(sx, sy, ga, keep) -> list:
+    """Each robot's scene as tests/test_scale.py's _centroid_set rounds it:
+    sorted (x, y, ga) with x and y rounded to 4 decimals."""
+    sx, sy, ga, keep = (t.cpu().numpy() for t in (sx, sy, ga, keep))
+    return [sorted((round(float(x), 4), round(float(y), 4), bool(g))
+                   for x, y, g in zip(sx[b][keep[b]], sy[b][keep[b]],
+                                      ga[b][keep[b]]))
+            for b in range(sx.shape[0])]
+
+
+def same_centroids(label, a, b) -> int:
+    """Robots whose centroid sets a and b (centroid_sets) are equal, or
+    differ only where one centroid rounds to either side of a 1e-4 step
+    (the two builders sum a cell's points in other orders: ulps apart).
+    Returns the number of such rounding straddles; raises otherwise."""
+    straddles = 0
+    for r, (sa, sb) in enumerate(zip(a, b)):
+        if sa == sb:
+            continue
+        ra, rb = sorted(set(sa) - set(sb)), sorted(set(sb) - set(sa))
+        ok = len(sa) == len(sb) and len(ra) == len(rb) and all(
+            p[2] == q[2] and abs(p[0] - q[0]) <= 1.5e-4 and
+            abs(p[1] - q[1]) <= 1.5e-4 for p, q in zip(ra, rb))
+        if not ok:
+            raise RuntimeError(f"{label}: robot {r}'s centroid sets differ: "
+                               f"{ra[:4]} vs {rb[:4]}")
+        straddles += len(ra)
+    return straddles
+
+
+def grid2d_phase(world, gen, card) -> None:
+    """[grid2d]: config 1 with matcher "grid" (examples/run_fleet.py
+    --matcher grid): slam2d.rollout at sim2d_config for FLEET robots,
+    TICKS ticks after a warm-up macro. Gates: median ATE below
+    GRID_ATE_LIMIT (tests/test_grid_icp.py's), no K1 or K4 launch, no host
+    sync in one macro. Then build_scene_planes on the card: the fleet's
+    last scans through the "incidence" and "grid" builders, and
+    WIDE_ROBOTS robots' WIDE_BEAMS-beam scans that "auto" routes to the
+    grid builder against "incidence" (compacted into WIDE_CAPACITY slots,
+    which hold their cells), must give each robot the same centroids and
+    GA flags (same_centroids); both builders on ga_num_bins cells, so that
+    their extents agree."""
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d
+    from slam_tpu_torch.sim import world2d
+    cfg = sim2d_config()
+    cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp,
+                                                           matcher="grid"))
+    dev = torch.device("cuda")
+    state = slam2d.init_state(cfg, FLEET, device=dev,
+                              generator=gen.manual_seed(6))
+    state, _ = slam2d.rollout(state, world, cfg, 4, gen)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    reset_counts(icp_fused, nn, particle)
+    e0.record()
+    state, (est, true) = slam2d.rollout(state, world, cfg, TICKS, gen)
+    e1.record()
+    torch.cuda.synchronize()
+    launches = {"K1": icp_fused.launches, "K4": nn.launches}
+    ms = e0.elapsed_time(e1) / TICKS
+    if est.shape != (FLEET, TICKS, 3) or not bool(
+            torch.isfinite(est).all()):
+        raise RuntimeError(f"[grid2d] trajectory {tuple(est.shape)}, or "
+                           f"not finite")
+    ate = slam2d.ate(est[:, 10:], true[:, 10:])
+    med = float(ate.median())
+    ok_share = float(state.scan_reg_ok.float().mean())
+    if any(launches.values()):
+        raise RuntimeError(f"[grid2d] the grid path launched {launches}")
+    if not med < GRID_ATE_LIMIT:
+        raise RuntimeError(f"[grid2d] median ATE {med} m not below "
+                           f"{GRID_ATE_LIMIT} m")
+    _, syncs = count_syncs(lambda: slam2d.rollout(state, world, cfg, 4, gen))
+    if syncs:
+        raise RuntimeError(f"[grid2d] host syncs in one macro: "
+                           f"{sync_sites(syncs)}")
+
+    # the scene builders on the card
+    G = cfg.icp.ga_num_bins
+    same = dataclasses.replace(cfg, icp=dataclasses.replace(
+        cfg.icp, scan_grid_bins=G))
+    inc = dataclasses.replace(same, cloud=dataclasses.replace(
+        same.cloud, scene_builder="incidence"))
+    grd = dataclasses.replace(same, cloud=dataclasses.replace(
+        same.cloud, scene_builder="grid"))
+    ranges, hit = world2d.raycast(world, state.true_pose[:, :3], cfg.sim,
+                                  generator=gen)
+    x, y, h = world2d.scan_to_planes(ranges, hit)
+    fleet_a = centroid_sets(*slam2d.build_scene_planes(x, y, h, inc))
+    fleet_b = centroid_sets(*slam2d.build_scene_planes(x, y, h, grd))
+    fleet_straddles = same_centroids("[grid2d] fleet scans", fleet_a,
+                                     fleet_b)
+    wide_sim = dataclasses.replace(cfg.sim, num_beams=WIDE_BEAMS)
+    wide = dataclasses.replace(same, cloud=dataclasses.replace(
+        same.cloud, scene_capacity=WIDE_CAPACITY, scene_builder="auto"))
+    ranges, hit = world2d.raycast(world, state.true_pose[:WIDE_ROBOTS, :3],
+                                  wide_sim, generator=gen)
+    x, y, h = world2d.scan_to_planes(ranges, hit)
+    auto = slam2d.build_scene_planes(x, y, h, wide)
+    cells = int(auto[3].sum(-1).max())
+    if cells >= WIDE_CAPACITY:
+        raise RuntimeError(f"[grid2d] {cells} cells of a {WIDE_BEAMS}-beam "
+                           f"scan fill scene_capacity {WIDE_CAPACITY}")
+    wide_inc = dataclasses.replace(wide, cloud=dataclasses.replace(
+        wide.cloud, scene_builder="incidence"))
+    wide_straddles = same_centroids(
+        "[grid2d] wide scans", centroid_sets(*auto), centroid_sets(
+            *slam2d.build_scene_planes(x, y, h, wide_inc)))
+    print(f"[grid2d] config 1 with matcher grid (examples/run_fleet.py "
+          f"--matcher grid) B={FLEET} {TICKS} ticks after a warm-up macro: "
+          f"{ms:.3f} ms/tick, {FLEET * 1000.0 / ms:.1f} robot-steps/s, "
+          f"median ATE {med:.4f} m (ticks>=10, {float(ate.max()):.4f} max), "
+          f"ok share on the last tick {ok_share:.4f}, host syncs in one "
+          f"macro 0, launches {launches}; build_scene_planes on the card, "
+          f"incidence vs grid on {G} x {G} cells: the fleet's last scans "
+          f"({FLEET} robots, {sum(map(len, fleet_a))} centroids) and "
+          f"{WIDE_ROBOTS} robots' {WIDE_BEAMS}-beam scans (auto -> grid vs "
+          f"incidence compacted into {WIDE_CAPACITY} slots, up to {cells} "
+          f"cells) give the same centroid sets and GA flags (rounded to 4 "
+          f"decimals; {fleet_straddles} + {wide_straddles} centroids "
+          f"straddle a rounding step) | {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
@@ -2220,6 +2525,8 @@ def main() -> int:
     launches["K1 (config 4 in 3D, se3)"] = se3["launches"]["K1"]
     launches["K2"] += se3["launches"]["K2"]
     launches["K4"] += se3["launches"]["K4"]
+    refgrid_phase(gen, card)
+    grid2d_phase(world, gen, card)
     division_phase(card)
 
     # kernels alone, at their main path's shapes

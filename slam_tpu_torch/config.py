@@ -67,11 +67,12 @@ class IcpConfig:
     max_points: int = 20000              # per class
     max_iterations: int = 20
     # scan-to-map matcher: "fused" (whole fit loop in one kernel, K1),
-    # "points" (icp_fit on nearest-neighbour kernel K4), "grid" (not
-    # ported yet), "particle" (particle filter on the point-map grid,
-    # kernel K5; cfg.pf)
+    # "points" (icp_fit on nearest-neighbour kernel K4), "grid" (the
+    # nearest-centroid field of the point-map grid, ops/grid_icp.py),
+    # "particle" (particle filter on the point-map grid, kernel K5; cfg.pf)
     matcher: str = "fused"
-    loop: str = "while"                  # grid-matcher loop form
+    loop: str = "while"                  # grid-matcher loop form ("scan"
+                                         # or "while": the same result)
     min_delta: float = 1e-6              # convergence gate
     inlier_dist: float = 5.0
     crop_dist: float = 75.0              # target crop half-extent [m]

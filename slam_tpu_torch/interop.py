@@ -7,9 +7,10 @@ robots (leading dim B) for a fleet, the 6-DoF graph's fields included. `state_fr
 such objects by attribute (no jax import), so both packages can start from
 the identical state; `mls_grid_from_numpy` reads an MlsGrid stacked over
 robots; `point_map_from_numpy` reads one unbatched grid (config 5's shared
-map) as a batch-1 PointMapGrid; `state_to_numpy` turns a port state, ground
-map, pose graph or MLS grid back into a nested dict of numpy arrays with
-the same field names (a metrics ring stays a (buf, count) pair). The JAX
+map) as a batch-1 PointMapGrid, or grids stacked over robots;
+`state_to_numpy` turns a port state, ground map, pose graph or MLS grid
+back into a nested dict of numpy arrays with the same field names (a
+metrics ring stays a (buf, count) pair); `se3_graph_from_numpy` reads a 6-DoF Se3Graph stacked over robots. The JAX
 state's random key is dropped: the port draws from an explicit
 torch.Generator. Tensors land on the card unless `device` says otherwise.
 """
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch import default_device
+from slam_tpu_torch.graph.pose_graph3d import Se3Graph
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
 from slam_tpu_torch.sim.world3d import World3D
@@ -60,6 +62,17 @@ def graph_from_numpy(g, device=None) -> PoseGraph:
         ("edge_valid", b8), ("num_nodes", i32), ("num_edges", i32),
         ("edges_dropped", i32), ("node_rp", f32), ("edge_rel6", f32),
         ("edge_info6", f32)) if getattr(g, k, None) is not None})
+
+
+def se3_graph_from_numpy(g, device=None) -> Se3Graph:
+    """Port Se3Graph (graph/pose_graph3d.py) from a slam_tpu Se3Graph with
+    numpy leaves stacked over robots."""
+    device = default_device(device)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    return Se3Graph(**{k: _t(getattr(g, k), device, dt) for k, dt in (
+        ("node_t", f32), ("node_R", f32), ("node_valid", b8),
+        ("edge_ij", i32), ("edge_t", f32), ("edge_R", f32),
+        ("edge_info", f32), ("edge_valid", b8))})
 
 
 def mls_grid_from_numpy(g, device=None) -> MlsGrid:
@@ -143,10 +156,13 @@ def world3d_from_numpy(world, device=None) -> World3D:
 
 
 def point_map_from_numpy(grid, device=None) -> PointMapGrid:
-    """A batch-1 port PointMapGrid from one unbatched slam_tpu PointMapGrid
-    with numpy leaves ((G, G) channels, (2,) centre)."""
+    """A port PointMapGrid from a slam_tpu PointMapGrid with numpy leaves:
+    one unbatched grid ((G, G) channels, (2,) centre) as batch 1, or grids
+    stacked over robots ((B, G, G), (B, 2)) as they are."""
     device = default_device(device)
     g = _grid(grid, device)
+    if g.center.dim() == 2:
+        return g
     return g.replace(count=g.count[None], sum_x=g.sum_x[None],
                      sum_y=g.sum_y[None], sum_z=g.sum_z[None],
                      center=g.center[None])

@@ -51,7 +51,9 @@ def _plane_normal(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     c = torch.gather(crosses, 1, k[:, None, None].expand(-1, 1, 3))[:, 0]
     n = c / torch.clamp(torch.sqrt(best), min=1e-12)[:, None]
     degenerate = (lam_mid < 1e-6) | (best < 1e-24)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    # (0, 0, 1) made on the device: a tensor from a host list, or an
+    # element set from a Python number, is a copy that waits for the card
+    up = (torch.arange(3, device=n.device) == 2).to(n.dtype)
     return torch.where(degenerate[:, None], up, n)
 
 
@@ -61,8 +63,11 @@ def height_interpolate_planes(gx, gy, gz, gvalid, pose_xyyawz: torch.Tensor,
     z]; the old z where fewer than min_corr_points wheels find ground."""
     x, y, yaw, z0 = pose_xyyawz.unbind(-1)
     xw, yw = cfg.x_wheel_dist, cfg.y_wheel_dist
-    wl = torch.tensor([[-xw, -yw], [-xw, yw], [xw, -yw], [xw, yw]],
-                      dtype=gx.dtype, device=gx.device)
+    # wheels (-xw, -yw), (-xw, yw), (xw, -yw), (xw, yw), made on the device
+    # (a tensor from a host list is a copy that waits for the card)
+    k = torch.arange(4, device=gx.device)
+    wl = torch.stack([xw * (2 * (k // 2) - 1), yw * (2 * (k % 2) - 1)],
+                     -1).to(gx.dtype)
     c, s = torch.cos(yaw)[:, None], torch.sin(yaw)[:, None]
     wx = wl[:, 0] * c - wl[:, 1] * s + x[:, None]             # (B, 4)
     wy = wl[:, 0] * s + wl[:, 1] * c + y[:, None]

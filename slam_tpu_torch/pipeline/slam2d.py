@@ -5,8 +5,10 @@ One tick (slam_step) runs: raycast -> EKF predict + gyro update -> scene
 build -> registration (kernel K1 for matcher "fused", icp_fit on kernel K4
 for "points", the particle filter on kernel K5 for "particle") -> EKF SLAM
 update -> point-map update -> occupancy update, and writes the metrics
-ring when the state carries one. Every function takes and returns the whole
-robot batch. `register_scan_to_scan` registers against the previous scene
+ring when the state carries one; the "grid" matcher (ops/grid_icp.py)
+fits against a nearest-centroid field of the point-map grid, built once a
+macro, in plain PyTorch. Every function takes and returns the whole robot
+batch. `register_scan_to_scan` registers against the previous scene
 (kernel K2 for "fused").
 
 Graph mode (config 4, `rollout_with_graph`): the ticks register against a
@@ -20,8 +22,7 @@ graph/pose_graph3d.py). The 3D path's graph mode
 (pipeline/slam3d.rollout_3d_with_graph) runs the same graph tick.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". The grid matcher belongs to a later slice and
-raises.
+swapped for "points".
 """
 
 from __future__ import annotations
@@ -41,18 +42,20 @@ from slam_tpu_torch.mapping.point_map import (export_point_planes,
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.classify import (classify_ga_planes,
                                          classify_ground_adjacent)
+from slam_tpu_torch.ops.grid_icp import icp_fit_grid, nearest_point_field
 from slam_tpu_torch.ops.icp import IcpResult, icp_fit
 from slam_tpu_torch.ops.icp_fused import fused_register, icp_fused
 from slam_tpu_torch.ops.particle import pf_match
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
+from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
-from slam_tpu_torch.ops.voxel import crop_box, voxel_downsample
+from slam_tpu_torch.ops.voxel import compact_planes, crop_box, voxel_downsample
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import (PointCloud, SlamState, make_cloud,
                                   select_cloud)
 from slam_tpu_torch.utils import metrics
 
-MATCHERS = ("fused", "points", "particle")
+MATCHERS = ("fused", "points", "grid", "particle")
 
 
 def init_state(cfg, batch: int, device=None,
@@ -95,24 +98,28 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
                        cfg):
     """Scene build for (B, N) scan planes: voxel-downsample at the GA grid's
     resolution and flag ground-adjacent (GA) points. Returns (sx, sy, ga,
-    keep) planes padded to cfg.cloud.scene_capacity.
+    keep) planes of cfg.cloud.scene_capacity slots.
 
-    The first point of a cell keeps the slot; its centroid is the cell
-    centre plus the mean offset of the cell's points from that centre. A
-    cell is GA when it is interior and has >= ga_threshold empty
-    8-neighbours. (slam_tpu's incidence builder computes the same with
-    same-cell (N, N) matmuls; here the cells are scattered and gathered.)"""
+    Builder "grid" (and "auto" above 4,096 points) is the scatter-to-grid
+    builder of ops/scene_grid.py on cfg.icp.scan_grid_bins cells: the
+    most observed cells, in its order. Otherwise ("incidence", "auto" up
+    to 4,096) the first point of a cell keeps the slot, and its centroid
+    is the cell centre plus the mean offset of the cell's points from that
+    centre; a scan wider than the capacity is compacted, then truncated,
+    so that only valid centroids beyond the capacity are dropped. A cell
+    is GA when it is interior and has >= ga_threshold empty 8-neighbours.
+    (slam_tpu's incidence builder computes the same with same-cell (N, N)
+    matmuls; here the cells are scattered and gathered.)"""
     B, N = px.shape
     cap = cfg.cloud.scene_capacity
     builder = cfg.cloud.scene_builder
-    if builder == "grid" or (builder == "auto" and N > 4096):
-        raise NotImplementedError(
-            "the scatter-to-grid scene builder (slam_tpu/ops/scene_grid.py) "
-            "is not ported yet")
-    if N > cap:
-        raise NotImplementedError(
-            f"scans of {N} points exceed scene_capacity {cap}: compaction "
-            "(slam_tpu/ops/voxel.py:compact_planes) is not ported yet")
+    if builder == "auto":
+        builder = "grid" if N > 4096 else "incidence"
+    if builder == "grid":
+        sx, sy, _, ga, _, keep = build_scene_grid_planes(
+            px, py, None, hit, None, cap, cfg.icp.ga_resolution,
+            cfg.icp.scan_grid_bins, cfg.icp.ga_threshold)
+        return sx, sy, ga, keep
     res = cfg.icp.ga_resolution
     G = cfg.icp.ga_num_bins
     ci = torch.floor(true_div(px, res)).to(torch.int32) + G // 2
@@ -146,11 +153,18 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
     sy = ccy + oy / count
     ga = (g > 0.5) & keep
 
-    pad = cap - N
-    keep = torch.nn.functional.pad(keep, (0, pad))
-    ga = torch.nn.functional.pad(ga, (0, pad))
-    sx = torch.where(keep, torch.nn.functional.pad(sx, (0, pad)), 0.0)
-    sy = torch.where(keep, torch.nn.functional.pad(sy, (0, pad)), 0.0)
+    if N > cap:
+        (sx, sy, gaf), keep = compact_planes((sx, sy, ga.to(sx.dtype)), keep,
+                                             cap)
+        ga = gaf > 0.5
+    else:
+        pad = cap - N
+        keep = torch.nn.functional.pad(keep, (0, pad))
+        ga = torch.nn.functional.pad(ga, (0, pad))
+        sx = torch.nn.functional.pad(sx, (0, pad))
+        sy = torch.nn.functional.pad(sy, (0, pad))
+    sx = torch.where(keep, sx, 0.0)
+    sy = torch.where(keep, sy, 0.0)
     return sx, sy, ga, keep
 
 
@@ -160,6 +174,13 @@ def planes_to_cloud(sx, sy, ga, keep, sz=None) -> PointCloud:
     flags = torch.where(ga, PointCloud.FLAG_GA, 0).to(torch.int32)
     return PointCloud(xyz=torch.stack([sx, sy, z], -1), valid=keep,
                       flags=flags)
+
+
+def build_scene(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg) -> PointCloud:
+    """build_scene_planes on (B, N, 3) robot-frame scan points, as a
+    PointCloud."""
+    return planes_to_cloud(*build_scene_planes(scan_xyz[..., 0],
+                                               scan_xyz[..., 1], hit, cfg))
 
 
 def update_map_cloud(map_cloud: PointCloud, scene: PointCloud,
@@ -223,7 +244,7 @@ def _pf_register(state, scene, skeep, pred, cfg, pf_target,
 
 
 def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
-                         cfg, incremental_map: bool = True,
+                         cfg, incremental_map: bool = True, field=None,
                          refresh_map: bool = True,
                          shift_maps: bool = True,
                          target_planes=None, pf_target=None,
@@ -235,8 +256,10 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
     incremental_map: fold the registered scene into state.map_grid (False:
     the robots keep no map of their own, as in config 5's fleet or graph
     mode; then the "points" and "fused" targets are re-classified around
-    the prediction, and a particle matcher without pf_target registers
-    with "points" against state.map_cloud, as slam_tpu does).
+    the prediction, and the grid matcher, or a particle matcher without
+    pf_target, registers with "points" against state.map_cloud, as
+    slam_tpu does). field: the grid matcher's NearestField, which the
+    rollout builds once per macro; None builds it from state.map_grid.
     target_planes: optional (mx, my, mga, mvalid) registration target that
     the rollout refreshes once per macro; None registers against
     state.map_cloud. pf_target: a PointMapGrid (batch 1 when the fleet
@@ -246,9 +269,10 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
     fused pose."""
     matcher = cfg.icp.matcher
     if matcher not in MATCHERS:
-        raise NotImplementedError(
-            f"icp.matcher {matcher!r} is not ported yet (have {MATCHERS})")
-    if not incremental_map and matcher == "particle" and pf_target is None:
+        raise ValueError(f"unknown icp.matcher {matcher!r} (have "
+                         f"{MATCHERS})")
+    if not incremental_map and (matcher == "grid" or (
+            matcher == "particle" and pf_target is None)):
         matcher = "points"
     dt = cfg.sim.dt
 
@@ -265,7 +289,14 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
 
     sx, sy, sga, skeep = build_scene_planes(scan_x, scan_y, hit, cfg)
     scene = planes_to_cloud(sx, sy, sga, skeep)
-    if matcher == "particle":
+    if matcher == "grid":
+        if field is None:
+            field = nearest_point_field(state.map_grid,
+                                        cfg.icp.voxel_leaf_obs[0],
+                                        cfg.icp.ga_threshold)
+        icp = icp_fit_grid(scene.xyz[..., :2], skeep, sga, field, pred,
+                           cfg.icp)
+    elif matcher == "particle":
         icp = _pf_register(state, scene, skeep, pred, cfg, pf_target,
                            generator)
     elif matcher == "fused":
@@ -329,24 +360,24 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
 
 
 def process_frame(state: SlamState, scan_xyz, hit, gyro, cmd, cfg,
-                  incremental_map: bool = True) -> SlamState:
+                  incremental_map: bool = True, field=None) -> SlamState:
     """process_frame_planes on (B, N, 3) robot-frame scan points."""
     return process_frame_planes(state, scan_xyz[..., 0], scan_xyz[..., 1],
                                 hit, gyro, cmd, cfg,
-                                incremental_map=incremental_map)
+                                incremental_map=incremental_map, field=field)
 
 
-def slam_step_io(state: SlamState, scan_xyz, hit, gyro, cmd,
-                 cfg) -> SlamState:
+def slam_step_io(state: SlamState, scan_xyz, hit, gyro, cmd, cfg,
+                 field=None) -> SlamState:
     """A tick driven by external sensor frames (replay, live transport or
     oracle comparison): (B, N, 3) scan points, (B,) raw gyro z, (B, 3)
-    commanded body velocity."""
-    return process_frame(state, scan_xyz, hit, gyro, cmd, cfg)
+    commanded body velocity; `field` as process_frame_planes takes it."""
+    return process_frame(state, scan_xyz, hit, gyro, cmd, cfg, field=field)
 
 
 def slam_step(state: SlamState, world: world2d.World2D, cfg,
               generator: torch.Generator, incremental_map: bool = True,
-              refresh_map: bool = True, shift_maps: bool = True,
+              field=None, refresh_map: bool = True, shift_maps: bool = True,
               target_planes=None, pf_target=None) -> SlamState:
     """One simulated tick: drive, sense (range and gyro noise drawn from
     `generator`), then process the frame (the particle matcher draws from
@@ -360,7 +391,7 @@ def slam_step(state: SlamState, world: world2d.World2D, cfg,
         cmd.shape[0], generator=generator, device=cmd.device)
     state = process_frame_planes(state, scan_x, scan_y, hit, gyro, cmd, cfg,
                                  incremental_map=incremental_map,
-                                 refresh_map=refresh_map,
+                                 field=field, refresh_map=refresh_map,
                                  shift_maps=shift_maps,
                                  target_planes=target_planes,
                                  pf_target=pf_target, generator=generator)
@@ -373,17 +404,21 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
     """Run num_steps ticks, rounded up to whole macros of field_every ticks.
 
     Each macro exports the registration target from the point map once
-    (the particle matcher scores the grid itself and skips the export) and
-    re-centres both rolling grids once (the robot moves about a cell per
-    macro); its ticks then register against that target and skip the
-    shifts. Returns (final_state, (est, true)), trajectories (B, num_steps,
-    3)."""
+    (the grid matcher builds its nearest-centroid field from the grid
+    instead, before the shift, and the particle matcher scores the grid
+    itself: neither exports) and re-centres both rolling grids once (the
+    robot moves about a cell per macro); its ticks then register against
+    that target and skip the shifts. Returns (final_state, (est, true)),
+    trajectories (B, num_steps, 3)."""
     num_macro = -(-num_steps // field_every)
     est, true = [], []
     s = state
     for _ in range(num_macro):
-        planes = None
-        if cfg.icp.matcher != "particle":
+        planes = field = None
+        if cfg.icp.matcher == "grid":
+            field = nearest_point_field(s.map_grid, cfg.icp.voxel_leaf_obs[0],
+                                        cfg.icp.ga_threshold)
+        elif cfg.icp.matcher != "particle":
             ex, ey, ez, ega, evalid = export_point_planes(
                 s.map_grid, s.map_cloud.capacity,
                 ga_threshold=cfg.icp.ga_threshold)
@@ -393,8 +428,9 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
             map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
             local_map=shift_origin(s.local_map, s.pose[:, :2], cfg.mls))
         for _ in range(field_every):
-            s = slam_step(s, world, cfg, generator, refresh_map=False,
-                          shift_maps=False, target_planes=planes)
+            s = slam_step(s, world, cfg, generator, field=field,
+                          refresh_map=False, shift_maps=False,
+                          target_planes=planes)
             est.append(s.pose[:, :3])
             true.append(s.true_pose[:, :3])
     return s, (torch.stack(est, 1)[:, :num_steps],

@@ -7,11 +7,12 @@ GP-INSAC ground segmentation -> obstacle scene (compaction, ground
 adjacency and pairwise voxels for small scans, the scatter-to-grid builder
 for reference-scale scans) -> registration (kernel K1, or K3 above
 RESIDENT_TILE_LIMIT, for matcher "fused"; icp_fit on kernel K4 for
-"points") -> EKF SLAM update -> wheel-contact height interpolation ->
-obstacle and ground point maps -> occupancy, and the metrics ring when
-the state carries one. Every function takes and returns the whole robot
-batch; the scan-completeness gate is a tensor op, so a tick never waits
-for the card.
+"points"; for "grid" the nearest-centroid field of the obstacle point map,
+ops/grid_icp.py, in plain PyTorch) -> EKF SLAM update -> wheel-contact
+height interpolation -> obstacle and ground point maps -> occupancy, and
+the metrics ring when the state carries one. Every function takes and
+returns the whole robot batch; the scan-completeness gate is a tensor op,
+so a tick never waits for the card.
 
 Graph mode (`rollout_3d_with_graph`, config 4 in 3D): the ticks register
 against the target regenerated from the pose graph's keyframes, with
@@ -23,8 +24,9 @@ above RESIDENT_TILE_LIMIT) or 6-DoF edges (ops/icp3d.py, with the ground
 sample the state carries in prev_ground) per cfg.graph.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". The grid matcher belongs to a later slice and
-raises (graph mode registers "grid" as "points", as slam_tpu does).
+swapped for "points". Graph mode registers "grid" as "points", as
+slam_tpu does: the field reads the obstacle grid, which graph mode does
+not keep.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from slam_tpu_torch.mapping.point_map import (export_point_planes,
                                               update_point_map_xy)
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.classify import classify_ga_planes
+from slam_tpu_torch.ops.grid_icp import icp_fit_grid, nearest_point_field
 from slam_tpu_torch.ops.ground import segment_ground, split_ground_obstacle
 from slam_tpu_torch.ops.height import (height_interpolate,
                                        height_interpolate_grid,
@@ -57,7 +60,7 @@ from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
     make_cloud
 from slam_tpu_torch.utils import metrics
 
-MATCHERS = ("fused", "points")
+MATCHERS = ("fused", "points", "grid")
 
 
 def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
@@ -164,15 +167,17 @@ def _planes_to_cloud_3d(px, py, pz, ga, drv, valid) -> PointCloud:
 def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                      pitch, gyro, cmd, cfg, refresh_map: bool = True,
                      shift_maps: bool = True, target_planes=None,
-                     incremental_map: bool = True):
+                     field=None, incremental_map: bool = True):
     """Sensor frames -> updated (state, ground_map). scan_tilted (B, N, 3)
     in the tilted sensor frame, hit (B, N), measured roll / pitch (B,), raw
     gyro z (B,), commanded body velocity cmd (B, 3).
 
     target_planes: optional (mx, my, mga, mvalid) registration target that
     the rollout refreshes once per macro; None registers against
-    state.map_cloud. refresh_map re-exports the targets after the update;
-    shift_maps re-centres the rolling grids on the fused pose.
+    state.map_cloud. field: the grid matcher's NearestField, which the
+    rollout builds once per macro; None builds it from state.map_grid.
+    refresh_map re-exports the targets after the update; shift_maps
+    re-centres the rolling grids on the fused pose.
 
     incremental_map False is graph mode: registration targets only the
     graph-regenerated state.map_cloud, its ground adjacency re-classified
@@ -180,17 +185,13 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     the ground map and occupancy update as always. A state that carries
     prev_ground gets this frame's strided ground sample there."""
     matcher = cfg.icp.matcher
+    if matcher not in MATCHERS:
+        raise ValueError(f"unknown 3D icp.matcher {matcher!r} (have "
+                         f"{MATCHERS}; particle is 2D-only)")
     if not incremental_map and matcher == "grid":
         # the nearest-centroid field reads the obstacle grid, which graph
         # mode does not keep
         matcher = "points"
-    if matcher == "grid":
-        raise NotImplementedError(
-            "icp.matcher 'grid' (slam_tpu/ops/grid_icp.py, the nearest-"
-            "centroid field) is not ported yet")
-    if matcher not in MATCHERS:
-        raise ValueError(f"unknown 3D icp.matcher {matcher!r} (have "
-                         f"{MATCHERS}; 'grid' is not ported yet)")
     dt = cfg.sim.dt
 
     # non-finite points are misses; an incomplete scan masks every point
@@ -209,7 +210,14 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
 
     (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
         build_scene_3d_planes(scan_xyz, hit, cfg)
-    if matcher == "fused":
+    if matcher == "grid":
+        if field is None:
+            field = nearest_point_field(state.map_grid,
+                                        cfg.icp.voxel_leaf_obs[0],
+                                        cfg.icp.ga_threshold)
+        icp = icp_fit_grid(torch.stack([ox, oy], -1), ovalid, oga, field,
+                           pred, cfg.icp)
+    elif matcher == "fused":
         if not incremental_map:
             target_planes = _reclassified_target_planes(state.map_cloud,
                                                         pred, cfg)
@@ -305,18 +313,19 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
 
 def slam_step_3d_io(state, ground_map: GroundMap, scan_tilted, hit, roll,
                     pitch, gyro, cmd, cfg, refresh_map: bool = True,
-                    shift_maps: bool = True):
+                    shift_maps: bool = True, field=None):
     """A tick driven by external sensor frames (replay, live transport or
     oracle comparison); the arguments are process_frame_3d's."""
     return process_frame_3d(state, ground_map, scan_tilted, hit, roll, pitch,
                             gyro, cmd, cfg, refresh_map=refresh_map,
-                            shift_maps=shift_maps)
+                            shift_maps=shift_maps, field=field)
 
 
 def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
                  generator: torch.Generator | None = None,
                  refresh_map: bool = True, shift_maps: bool = True,
-                 target_planes=None, incremental_map: bool = True):
+                 target_planes=None, field=None,
+                 incremental_map: bool = True):
     """One simulated tick: drive on the terrain, sense (the robot tilts
     with the surface; range and IMU noise drawn from `generator`, none
     without one), then process the frame. Returns (state, ground_map)."""
@@ -335,7 +344,8 @@ def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
         state, ground_map, scan, hit, roll + imu[:, 0],
         pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
         refresh_map=refresh_map, shift_maps=shift_maps,
-        target_planes=target_planes, incremental_map=incremental_map)
+        target_planes=target_planes, field=field,
+        incremental_map=incremental_map)
     return state.replace(true_pose=torch.cat([true2, true_z[:, None]], -1)), gm
 
 
@@ -345,12 +355,13 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
     """Run num_steps ticks, rounded up to whole macros of field_every.
 
     Each macro re-centres the rolling grids once, exports the registration
-    target from the obstacle point map (and, for cfg.height.source
-    "cloud", the ground cloud) once; its ticks then register against that
-    target and skip the shifts. Returns (final state, final ground map,
-    (est, true, reg_ok)): trajectories (B, num_steps, 4) [x, y, yaw, z]
-    and each tick's registration flag (B, num_steps) (slam_tpu returns
-    the first two)."""
+    target from the obstacle point map (the grid matcher builds its
+    nearest-centroid field from the re-centred grid instead) and, for
+    cfg.height.source "cloud", the ground cloud once; its ticks then
+    register against that target and skip the shifts. Returns (final
+    state, final ground map, (est, true, reg_ok)): trajectories (B,
+    num_steps, 4) [x, y, yaw, z] and each tick's registration flag (B,
+    num_steps) (slam_tpu returns the first two)."""
     num_macro = -(-num_steps // field_every)
     s, gm = state, ground_map
     est, true, reg_ok = [], [], []
@@ -359,17 +370,22 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
                       local_map=shift_origin(s.local_map, s.pose[:, :2],
                                              cfg.mls))
         gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
-        ex, ey, ez, ega, evalid = export_point_planes(
-            s.map_grid, s.map_cloud.capacity,
-            ga_threshold=cfg.icp.ga_threshold)
-        planes = (ex, ey, ega, evalid)
-        s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
+        planes = field = None
+        if cfg.icp.matcher == "grid":
+            field = nearest_point_field(s.map_grid, cfg.icp.voxel_leaf_obs[0],
+                                        cfg.icp.ga_threshold)
+        else:
+            ex, ey, ez, ega, evalid = export_point_planes(
+                s.map_grid, s.map_cloud.capacity,
+                ga_threshold=cfg.icp.ga_threshold)
+            planes = (ex, ey, ega, evalid)
+            s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
         if cfg.height.source != "grid":
             gm = gm.replace(cloud=export_points(gm.grid, gm.cloud.capacity))
         for _ in range(field_every):
             s, gm = slam_step_3d(s, world, gm, cfg, generator,
                                  refresh_map=False, shift_maps=False,
-                                 target_planes=planes)
+                                 target_planes=planes, field=field)
             est.append(s.pose)
             true.append(s.true_pose)
             reg_ok.append(s.scan_reg_ok)

@@ -1,11 +1,14 @@
 """Where a tick's device time goes, on the card: torch.profiler over a few
 macros of config 1 (slam2d.rollout, "fused", B = 1024, or with
-`--config 1points` the "points" matcher: icp_fit on K4), config 5
+`--config 1points` the "points" matcher: icp_fit on K4, or with
+`--config 1grid` the "grid" matcher), config 5
 (shared_map.fleet_rollout_shared, "particle", stride 4, B = 1024), config
 2 (slam3d.rollout_3d, "fused": at sim3d_config with K1, B = 128, or at
-ref_scale_config with K3, B = 16) or config 4 (slam2d.rollout_with_graph
-at sim2d_graph_config, B = 256, macros of 8 ticks and a graph tick: K1 on
-the ticks, K2 and K4 on the graph tick's edges) or config 3 (macros of
+ref_scale_config with K3, B = 16, or with `--config refgrid` the "grid"
+matcher at ref_scale_config, bench.py's bench_ref_scale, B = 16) or
+config 4 (slam2d.rollout_with_graph at sim2d_graph_config, B = 256,
+macros of 8 ticks and a graph tick: K1 on the ticks, K2 and K4 on the
+graph tick's edges) or config 3 (macros of
 4 "fused" ticks at sim2d_reloc_config, B = 128, each folding the last
 scene into the robots' MLS grids and relocalizing the lost robots; robot
 0's belief is kidnapped and flagged lost in the third macro of every
@@ -14,7 +17,8 @@ config 4 in 3D (`--config 3d-graph`: slam3d.rollout_3d_with_graph at
 ref_scale_graph_config, B = 16, macros of 8 graph-mode ticks on K3 and a
 graph tick whose 2,048-point keyframe edges go to K3 as well).
 
-    python3 -m slam_tpu_torch.profile_tick --config 5  # 1, 1points, 5, 2, ref, 4, 3, 3d-graph
+    python3 -m slam_tpu_torch.profile_tick --config 5
+    # or 1, 1points, 1grid, 5, 2, ref, refgrid, 4, 3, 3d-graph
 
 The package carries no spans; this script wraps the pipeline's stage
 functions in torch.profiler.record_function ranges for the run (a kernel
@@ -68,6 +72,8 @@ STAGES_2D = ((world2d, "raycast", "raycast"),) + _EKF + (
     (slam2d, "build_scene_planes", "scene build"),
     (slam2d, "fused_register", "registration, K1"),
     (slam2d, "register_scan", "registration, icp_fit (K4)"),
+    (slam2d, "icp_fit_grid", "registration, grid"),
+    (slam2d, "nearest_point_field", "nearest-centroid field (once per macro)"),
     (slam2d, "pf_match", "registration, particle filter (K5)"),
     (slam2d, "update_point_map_xy", "point-map update"),
     (slam2d, "export_point_planes", "map export"),
@@ -96,6 +102,8 @@ STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
     (slam3d, "segment_ground", "ground segmentation"),
     (slam3d, "build_scene_3d_planes", "obstacle scene (besides ground)"),
     (slam3d, "fused_register", "registration, K1 / K3"),
+    (slam3d, "icp_fit_grid", "registration, grid"),
+    (slam3d, "nearest_point_field", "nearest-centroid field (once per macro)"),
     (slam3d, "height_interpolate_grid", "height interpolation"),
     (slam3d, "height_interpolate", "height interpolation"),
     (slam3d, "height_interpolate_planes", "height interpolation"),
@@ -202,8 +210,9 @@ def _attribute(trace: dict, labels) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("1", "1points", "5", "2", "ref",
-                                         "4", "3", "3d-graph"), default="5")
+    ap.add_argument("--config", choices=("1", "1points", "1grid", "5", "2",
+                                         "ref", "refgrid", "4", "3",
+                                         "3d-graph"), default="5")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -214,7 +223,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    three_d = args.config in ("2", "ref")
+    three_d = args.config in ("2", "ref", "refgrid")
     per_macro = 8 if args.config in ("4", "3d-graph") else 4
     macros = 4 if args.config == "3" else MACROS
     if args.config == "3":
@@ -243,6 +252,9 @@ def main(argv=None) -> int:
     elif three_d:
         cfg = (cfg_mod.sim3d_config() if args.config == "2"
                else cfg_mod.ref_scale_config())
+        if args.config == "refgrid":
+            cfg = cfg.replace(icp=dataclasses.replace(cfg.icp,
+                                                      matcher="grid"))
         batch = 128 if args.config == "2" else 16
         stages = STAGES_3D
         world = world3d.make_world(gen, cfg.sim, device=dev)
@@ -251,9 +263,9 @@ def main(argv=None) -> int:
         aux = slam3d.init_ground_map(cfg, batch, device=dev)
     else:
         cfg = cfg_mod.sim2d_config()
-        if args.config == "1points":
-            cfg = dataclasses.replace(
-                cfg, icp=dataclasses.replace(cfg.icp, matcher="points"))
+        if args.config in ("1points", "1grid"):
+            cfg = dataclasses.replace(cfg, icp=dataclasses.replace(
+                cfg.icp, matcher=args.config[1:]))
         if args.config == "5":
             cfg = dataclasses.replace(
                 cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),

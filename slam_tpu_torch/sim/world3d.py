@@ -73,8 +73,12 @@ def ray_directions(cfg, yaw: torch.Tensor) -> torch.Tensor:
 def terrain_attitude(world: World3D, xy: torch.Tensor, eps: float = 0.25):
     """(roll, pitch) of robots resting on the terrain at xy (B, 2), from
     the finite-difference surface gradient."""
-    ex = torch.tensor([eps, 0.0], device=xy.device)
-    ey = torch.tensor([0.0, eps], device=xy.device)
+    # the offsets (eps, 0) and (0, eps) made on the device: a tensor from a
+    # host list, or an element set from a Python number, is a copy that
+    # waits for the card
+    k = torch.arange(2, device=xy.device)
+    ex = (k == 0).to(xy.dtype) * eps
+    ey = (k == 1).to(xy.dtype) * eps
     gx = (terrain_height(world, xy + ex) - terrain_height(world, xy - ex)) \
         / (2 * eps)
     gy = (terrain_height(world, xy + ey) - terrain_height(world, xy - ey)) \

@@ -5,6 +5,8 @@ Integer outputs (counts, keep and GA flags, rolled grids) must match
 exactly. Coordinate sums match to 1e-5: one-hot matmuls and index_add_
 add in different orders."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,10 +126,65 @@ def test_build_scene_planes_matches_jax():
     assert got[3].sum() > 100 and got[2].sum() > 10
 
 
+def _assert_scene_matches_jax(x, y, h, cfg):
+    xs, ys = np.where(h, x, 0.0), np.where(h, y, 0.0)
+    got = tslam.build_scene_planes(to_torch(xs), to_torch(ys), to_torch(h),
+                                   cfg)
+    want = jax.jit(jax.vmap(lambda a, b, c: jslam.build_scene_planes(
+        a, b, c, cfg)))(xs, ys, h)
+    assert_equal(got[3], want[3], "keep")
+    assert_equal(got[2], want[2], "ga")
+    assert_close(got[0], want[0], atol=1e-5, what="sx")
+    assert_close(got[1], want[1], atol=1e-5, what="sy")
+    return got
+
+
+def _cloud_cfg(**kw):
+    return dataclasses.replace(CFG, cloud=dataclasses.replace(CFG.cloud,
+                                                              **kw))
+
+
 def test_build_scene_planes_needs_capacity():
-    x = torch.zeros(1, CFG.cloud.scene_capacity + 1)
-    with pytest.raises(NotImplementedError, match="compact_planes"):
-        tslam.build_scene_planes(x, x, x > 0, CFG)
+    """A scan wider than scene_capacity: the incidence builder compacts
+    its kept centroids to the front, then truncates (a 360-beam scan into
+    128 slots)."""
+    x, y, h = _scans()
+    got = _assert_scene_matches_jax(x, y, h, _cloud_cfg(scene_capacity=128))
+    assert got[3].shape == (3, 128)
+    assert bool(got[3][:, :100].all())        # the front slots are filled
+
+
+def test_build_scene_planes_grid_builder_matches_jax():
+    """Builder "grid": the scatter-to-grid builder on the 360-beam scans."""
+    x, y, h = _scans()
+    got = _assert_scene_matches_jax(x, y, h, _cloud_cfg(scene_builder="grid"))
+    assert got[3].sum() > 100 and got[2].sum() > 10
+
+
+def test_build_scene_planes_auto_above_4096_matches_jax():
+    """Builder "auto" routes a 5,000-point scan to the grid builder: more
+    occupied cells than scene_capacity keeps the most observed."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-40, 40, (2, 5000)).astype(np.float32)
+    y = rng.uniform(-40, 40, (2, 5000)).astype(np.float32)
+    x[:, :2000] = rng.normal(0, 3, (2, 2000))    # dense cells near the robot
+    h = rng.random((2, 5000)) < 0.9
+    got = _assert_scene_matches_jax(x, y, h, _cloud_cfg(scene_capacity=1024))
+    assert bool(got[3].all())
+
+
+def test_build_scene_matches_build_scene_planes():
+    x, y, h = _scans()
+    xyz = torch.stack([to_torch(np.where(h, x, 0.0)),
+                       to_torch(np.where(h, y, 0.0)),
+                       torch.zeros(x.shape)], -1)
+    cloud = tslam.build_scene(xyz, to_torch(h), CFG)
+    sx, sy, ga, keep = tslam.build_scene_planes(xyz[..., 0], xyz[..., 1],
+                                                to_torch(h), CFG)
+    assert_equal(cloud.valid, keep)
+    assert_equal(cloud.is_ga(), ga)
+    assert_equal(cloud.xyz[..., 0], sx)
+    assert_equal(cloud.xyz[..., 1], sy)
 
 
 def test_classify_ground_adjacent_matches_jax():

@@ -59,6 +59,7 @@ from slam_tpu_torch import interop
 from slam_tpu_torch.mapping import occupancy as tocc
 from slam_tpu_torch.mapping.point_map import init_point_map, \
     update_point_map_xy
+from slam_tpu_torch.ops import grid_icp
 from slam_tpu_torch.ops import ground as tground
 from slam_tpu_torch.ops import height as theight
 from slam_tpu_torch.ops import icp_fused
@@ -470,11 +471,24 @@ def test_fused_frame_matches_jax(mapped, route):
 
 
 def test_grid_matcher_names_its_module(mapped):
+    """Matcher "grid" (ops/grid_icp.py) on sim3d's frame against
+    slam_tpu's: without a field the frame builds it from the obstacle map
+    grid, as nearest_point_field does (the mid-scale grid frames and
+    rollout: tests/test_torch_grid_icp.py)."""
     cfg, start, frame = mapped
     cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp,
                                                            matcher="grid"))
-    with pytest.raises(NotImplementedError, match="grid_icp"):
-        tslam3d.slam_step_3d_io(*_port(start), *_port_frame(frame), cfg)
+    want = jax.jit(lambda s, g, f: jslam3d.process_frame_3d(s, g, *f, cfg))(
+        *start, frame)
+    ts, tg = _port(start)
+    got = tslam3d.slam_step_3d_io(ts, tg, *_port_frame(frame), cfg)
+    _assert_frame_close(got, want)
+    field = grid_icp.nearest_point_field(ts.map_grid,
+                                         cfg.icp.voxel_leaf_obs[0],
+                                         cfg.icp.ga_threshold)
+    again, _ = tslam3d.slam_step_3d_io(ts, tg, *_port_frame(frame), cfg,
+                                       field=field)
+    assert_equal(again.scan_reg_pose, got[0].scan_reg_pose)
 
 
 def test_incomplete_scan_dead_reckons(mapped):

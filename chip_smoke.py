@@ -163,9 +163,39 @@ non-zero:
              table alone; K1 against K3 on problems both take around
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
-
-Every kernel launch count is set to 0 just before a main path (8-19) runs
-and read just after it; the JSON record's launches add up every path's. The last two lines are the kernels' JSON record
+22. live   — the live-frame path (slam_tpu_torch.live, examples/run_live.py
+             's counterpart), run within [time], after its device ops a
+             call and before its large profiler sessions: sim2d_config, one
+             robot, 200 frames of synth_frames written to a replay file,
+             replayed by the native ScanLoader into a FrameRing and
+             consumed on the card by live.GraphedStep (every stage but K4
+             replayed from CUDA graphs, K4 through its wrapper) after
+             live.warm_up: paced at 100 Hz into 32 slots (0 dropped, gate)
+             and unpaced (frames/s); ms/frame, median position error
+             against the true poses (gate), the graphed step's poses
+             against consume's (gate), consume's own ms/frame and device
+             ops a frame (frames 16-19, before any graph exists; its
+             canaries must show, as every count's: device_ops), K4 launches
+             and K4 held to its plain version on every recorded call
+             (its arguments cloned at the call), host syncs a frame and
+             their sites
+23. fiducial — the camera periphery at the reference zoom camera's
+             resolution (3,876 x 2,541 px): 8 frames of 4-6 tag36h11 tags
+             (150-300 px) with clutter, an illumination ramp and noise,
+             through detect_tags with both segmenters at decimate 1 and 2,
+             ms a frame; gates: every tag decodes with its id and
+             Hamming 0 but the misses pinned per run (FID_MISSES, with
+             slam_tpu's witness where a crop shows one), corners within
+             1.5 px ("gradient"; one pinned to slam_tpu's own) or the
+             pixel-pick bound ("cc"), no false detection; then the chain
+             (detected centre -> calib.pixel_to_global -> a 400 x 400
+             sample map -> extract_samples) puts a sample within 0.8 m of
+             every ground point but those of the tags all four runs may
+             miss, and none farther; peak device memory, host syncs a
+             frame
+Every kernel launch count is set to 0 just before a main path (8-19, 22)
+runs and read just after it; the JSON record's launches add up every
+path's. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
 package.
 """
@@ -242,6 +272,53 @@ FIELD_TIE = 1e-6      # m^2: two picks this close from a cell centre are a tie
 WIDE_BEAMS = 8192     # [grid2d]: beams of the scans "auto" sends to the grid
 WIDE_ROBOTS = 16      #           builder, robots, and the scene capacity
 WIDE_CAPACITY = 4096  #           that holds their cells
+LIVE_FRAMES = 200     # [live]: frames of the replayed feed
+LIVE_RATE_HZ = 100.0  # [live]: the paced feed, ten times the lidar's 10 Hz
+LIVE_SLOTS = 32       # [live]: ring slots of the paced run
+                      # (examples/run_live.py)
+LIVE_ERR_LIMIT = 0.1  # m, config 1's bound: median position error, frames
+                      # >= 10
+LIVE_GRAPH_TOL = 1e-3 # m: the graphed step's poses against consume's (the map
+                      # fold's float atomics add in another order each run)
+FID_FRAMES = 8        # [fiducial]: frames, each 4-6 tag36h11 tags
+FID_H, FID_W = 2541, 3876   # twice the reference zoom camera's principal
+                            # point (calib.REFERENCE_CAMERA)
+FID_TAG_PX = (150, 300)     # tag sides
+FID_CORNER_TOL = 1.5  # px: the gradient segmenter's corners (line
+                      # intersections) against the rendered ones
+# The tags each run may miss, (frame, id) of tag_frames' layout (seed 10);
+# every other tag must decode. "crop": slam_tpu misses it too on a 576 px
+# crop of the same frame (tests/test_torch_fiducial_frames.py); "frame":
+# both packages decode that crop, so the miss comes from the whole frame
+# (no slam_tpu witness at full size; the gradient segmenter keeps an
+# image's 64 largest edge components and 32 longest segments, and a frame
+# holds 12 clutter blocks besides its 4-6 tags)
+FID_MISSES = {
+    ("cc", 1): {(0, 197): "crop", (2, 384): "crop"},
+    ("cc", 2): {(0, 197): "crop", (2, 384): "crop", (3, 461): "crop"},
+    ("gradient", 1): {(0, 197): "crop", (6, 0): "crop", (1, 58): "frame",
+                      (2, 384): "frame"},
+    ("gradient", 2): {(1, 290): "crop", (0, 197): "frame", (1, 58): "frame",
+                      (2, 384): "frame"},
+}
+# gradient corners held to slam_tpu's own worst corner on the same crop
+# (px, within FID_PINNED_TOL) instead of FID_CORNER_TOL:
+# (segmenter, decimate, frame, id)
+FID_CORNER_PINNED = {("gradient", 2, 1, 243): 6.54}
+FID_PINNED_TOL = 0.05
+FID_CHAIN_LIMIT = 0.8 # m: extracted sample to its ground point
+                      # (tests/test_scan_to_scan_periphery.py's bound)
+FID_GROUND = -1.3     # m: the ground plane in the lidar frame
+FID_BLOB = (2.0, 0.3) # a detection's evidence, added 3 times (as
+                      # tests/test_scan_to_scan_periphery.py does):
+                      # amplitude, sigma [m]. Centred anywhere in a 0.5 m
+                      # cell, its peak passes the map's pixel_prob_threshold
+                      # without saturating a plateau, and tags 1 m apart
+                      # stay separate peaks
+# ground points (depth, lateral) the tags are placed at, in the lidar
+# frame: three image rows, two columns, every pair >= 1 m apart
+FID_SLOTS = ((8.0, 0.9), (8.0, -0.9), (5.6, 0.6), (5.6, -0.6), (4.0, 0.47),
+             (4.0, -0.53))
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -762,19 +839,49 @@ def time_k5(pf, P, cfg, reps=20) -> dict:
                 bound=pf_bound(grid, scan, valid, parts))
 
 
-def device_ops(fn) -> dict:
+def device_ops(fn, required=False) -> dict:
     """Device operations (kernels, copies, fills) that one call of `fn`
     runs, by torch.profiler, after a warm-up call: their total and their
-    names."""
+    names. A K4 launch on a one-point problem before and after the call
+    is the canary: after a session that records some 15,000 or more
+    device operations, later sessions in the process can lose device
+    operations, the ctypes-launched kernels first (PERF.md, open
+    questions). A session that misses a canary gives n None ("not
+    measured"), or raises if the count is `required`."""
+    from slam_tpu_torch.ops import nn
+    one = torch.zeros(1, 1, 2, device="cuda")
+    valid = torch.ones(1, 1, dtype=torch.bool, device="cuda")
+
+    def canary():
+        before = nn.launches
+        nn.nearest_neighbor(one, one, valid)
+        nn.launches = before
+
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        canary()
         fn()
+        canary()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if len(ev) < 2 or not all("nn_kernel" in e.name for e in
+                              (ev[0], ev[-1])):
+        if required:
+            raise RuntimeError("torch.profiler missed the K4 canaries")
+        return dict(n=None, names=[])
+    names = [e.name for e in ev[1:-1]]
     return dict(n=len(names), names=names)
+
+
+def ops_text(n, per=1) -> str:
+    """A device_ops count (over `per` calls) for a printed line."""
+    if n is None:
+        return "not measured (the profiler missed its canaries)"
+    return f"{n / per:.1f}" if per != 1 else str(n)
 
 
 def call_ops(pf, cfg) -> dict:
@@ -787,12 +894,14 @@ def call_ops(pf, cfg) -> dict:
                       flags=torch.zeros_like(pf["mask"], dtype=torch.int32))
     pred = pf["parts"][:, 0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"nearest_neighbor": device_ops(lambda: nn.nearest_neighbor(*args)),
+    out = {"nearest_neighbor": device_ops(
+               lambda: nn.nearest_neighbor(*args), required=True),
            "score_particles": device_ops(lambda: particle.score_particles(
                pf["shared"], pf["scan"], pf["valid"], pf["parts"], 0.5,
-               cfg)),
+               cfg), required=True),
            "pf_match": device_ops(lambda: particle.pf_match(
-               pf["shared"], scan, pred, 0.5, cfg, generator=gen))}
+               pf["shared"], scan, pred, 0.5, cfg, generator=gen),
+               required=True)}
     out["pf_match"]["K5"] = sum("pf_" in n for n in out["pf_match"]["names"])
     return out
 
@@ -870,10 +979,16 @@ def event_timed(fn, events):
     return timed
 
 
-def kept(fn, calls):
-    """fn, keeping each call's arguments in `calls`."""
+def kept(fn, calls, copy=False):
+    """fn, keeping each call's arguments in `calls`: the tensors themselves,
+    or with `copy` their values at the call (clones, for a caller that
+    overwrites its arguments in place, as live.GraphedStep's replays do)."""
+    def value(x):
+        return x.clone() if copy and isinstance(x, torch.Tensor) else x
+
     def keep(*a, **k):
-        calls.append((a, k))
+        calls.append((tuple(map(value, a)),
+                      {n: value(v) for n, v in k.items()}))
         return fn(*a, **k)
     return keep
 
@@ -2207,7 +2322,8 @@ def refgrid_phase(gen, card) -> None:
     print(f"[refgrid] config 2 at ref_scale_config with matcher grid "
           f"(bench.py's bench_ref_scale) B={B} {ticks} ticks after a warm-up "
           f"macro: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} robot-steps/s, "
-          f"device ops a tick {tick_ops} and a field build {field_ops} (one "
+          f"device ops a tick {ops_text(tick_ops)} and a field build "
+          f"{ops_text(field_ops)} (one "
           f"a macro of 4 ticks), median ATE {med:.4f} m raw, {med_al:.4f} m "
           f"aligned (ticks>=4, {float(ate.max()):.4f} max raw), mean |z "
           f"error| {z_err:.4f} m, registration ok share {ok_share:.4f}, "
@@ -2341,6 +2457,378 @@ def grid2d_phase(world, gen, card) -> None:
           f"cells) give the same centroid sets and GA flags (rounded to 4 "
           f"decimals; {fleet_straddles} + {wide_straddles} centroids "
           f"straddle a rounding step) | {card}", flush=True)
+
+
+def live_phase(card) -> dict:
+    """[live]: the live-frame path (slam_tpu_torch.live, examples/run_live.py
+    's counterpart) at sim2d_config for one robot. synth_frames writes
+    LIVE_FRAMES frames to a replay file under the build directory; the
+    native ScanLoader replays it into a FrameRing and live.drain consumes
+    it on the card (pinned double-buffered copies, live.GraphedStep:
+    the stages around icp_fit replayed from CUDA graphs, icp_fit on K4
+    between them), after live.warm_up. First paced at LIVE_RATE_HZ into
+    LIVE_SLOTS slots (gate:
+    0 dropped, every frame consumed), with K4's launches counted and its
+    calls recorded; then unpaced into a ring that holds the whole feed, for
+    the frames a second the consumer sustains. Gates: median position error
+    against the drive loop's true poses below LIVE_ERR_LIMIT (frames >=
+    10), K4 equal to its plain version on the recorded calls (idx, dist in
+    bits), the graphed step's poses within LIVE_GRAPH_TOL of consume's on
+    the same frames. Host syncs a frame and their sites from 20 frames of
+    the graphed step under set_sync_debug_mode."""
+    from slam_tpu_torch import live
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.ops import icp as icp_mod
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.runtime import native
+    from slam_tpu_torch.sim import replay, world2d
+    cfg = sim2d_config()
+    dev = torch.device("cuda")
+    world = world2d.make_world(torch.Generator(dev).manual_seed(42),
+                               cfg.sim, device=dev)
+    n = LIVE_FRAMES
+    frames = replay.synth_frames(world, cfg.sim, n, seed=0)
+    native.build()
+    path = native.BUILD_DIR / "live_replay.bin"
+    path.write_bytes(frames.tobytes())
+    _, truth = replay.drive_poses(n, cfg.sim.dt, dev)
+    floats = replay.frame_floats(cfg.sim)
+    B = cfg.sim.num_beams
+    live.warm_up(frames, cfg, dev)
+    frame0 = torch.from_numpy(frames[0]).to(dev)
+    on_card = torch.from_numpy(frames).to(dev)
+
+    def direct(carry, k=n):
+        out = []
+        for fr in on_card[:k]:
+            carry, f = live.consume(carry, *live.split_frame(fr, B), cfg)
+            out.append(f[0])
+        return torch.stack(out)
+    carry0 = live.init_carry(cfg, dev)
+    # consume's device ops on frames 16-19 (a map to register against),
+    # counted before any GraphedStep exists
+    carry16 = carry0
+    for fr in on_card[:16]:
+        carry16, _ = live.consume(carry16, *live.split_frame(fr, B), cfg)
+
+    def frames16():
+        c = carry16
+        for fr in on_card[16:20]:
+            c, _ = live.consume(c, *live.split_frame(fr, B), cfg)
+    eager_ops = device_ops(frames16)["n"]
+
+    def run(slots, rate):
+        ring = native.FrameRing(slots, (floats,))
+        loader = native.ScanLoader(ring, path=str(path), rate_hz=rate,
+                                   loop=False)
+        prof = native.Profiler()
+        staging = live.Staging(floats, dev)
+        step = live.make_step(cfg, dev, frame0)
+        t0 = time.perf_counter()
+        loader.start()
+        try:
+            poses, done = live.drain(
+                ring, step, n, prof, staging,
+                feed_alive=lambda: loader.produced < n, timeout=120.0)
+            torch.cuda.synchronize()
+        finally:
+            loader.stop()
+        secs = time.perf_counter() - t0
+        step = prof.stats("device_step")
+        out = dict(poses=poses, secs=secs, dropped=ring.dropped, done=done,
+                   ms=step["total_us"] / max(step["calls"], 1) / 1000.0,
+                   max_ms=step["max_us"] / 1000.0, waits=staging.waits)
+        if loader.error or done != n or ring.dropped:
+            raise RuntimeError(f"[live] {slots} slots at {rate:g} Hz: "
+                               f"consumed {done} of {n} frames, dropped "
+                               f"{ring.dropped}, {out['ms']:.3f} ms/frame "
+                               f"(max {out['max_ms']:.3f}), loader error "
+                               f"{loader.error}")
+        return out
+
+    calls = []
+    reset_counts(icp_fused, nn, particle)
+    icp_mod.nearest_neighbor = kept(nn.nearest_neighbor, calls, copy=True)
+    try:
+        paced = run(LIVE_SLOTS, LIVE_RATE_HZ)
+    finally:
+        icp_mod.nearest_neighbor = nn.nearest_neighbor
+    launches = nn.launches
+    if launches < n or icp_fused.launches:
+        raise RuntimeError(f"[live] K4 launched {launches} times in {n} "
+                           f"frames, K1 {icp_fused.launches}")
+    err = (paced["poses"][:, :2] - truth[:, :2]).norm(dim=-1)
+    med = float(err[10:].median())
+    if not med < LIVE_ERR_LIMIT:
+        raise RuntimeError(f"[live] median position error {med} m not below "
+                           f"{LIVE_ERR_LIMIT} m")
+    for c in calls:
+        nn_equal("[live]'s recorded calls", c)
+    # the recorded values are each call's own: consecutive calls that
+    # placed the scene differently
+    distinct = 1 + sum(not torch.equal(c[0][0], b[0][0])
+                       for b, c in zip(calls, calls[1:]))
+    unpaced = run(n + 8, 0.0)
+    fps = n / unpaced["secs"]
+
+    # the graphed step against consume itself on the same frames, and the
+    # host syncs of the graphed step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = direct(carry0)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1000.0 / n
+    graph_err = float((eager - paced["poses"]).abs().max())
+    if not graph_err <= LIVE_GRAPH_TOL:
+        raise RuntimeError(f"[live] the graphed step is {graph_err} from "
+                           f"consume (bound {LIVE_GRAPH_TOL})")
+    k, step = 20, live.make_step(cfg, dev, frame0)
+
+    def stepped():
+        for fr in on_card[:k]:
+            step(fr)
+    _, syncs = count_syncs(stepped)
+    print(f"[live] sim2d_config, one robot, {n} replayed frames through "
+          f"ScanLoader -> FrameRing -> live.GraphedStep: paced at "
+          f"{LIVE_RATE_HZ:g} Hz into {LIVE_SLOTS} slots (GraphedStep: "
+          f"{graph_err:.2e} from consume's poses): consumed {n}, "
+          f"dropped {paced['dropped']}, {paced['ms']:.3f} ms/frame "
+          f"(device_step, K4's arguments cloned; max "
+          f"{paced['max_ms']:.3f}), median position error {med:.4f} m "
+          f"(frames>=10, "
+          f"{float(err.max()):.4f} max), staging waits {paced['waits']}; "
+          f"K4 launches {launches} ({launches / n:.2f} a frame), equal to "
+          f"its plain version on all {len(calls)} recorded calls (their "
+          f"arguments cloned at the call; {distinct} differ from the call "
+          f"before); unpaced: "
+          f"{fps:.1f} frames/s, {unpaced['ms']:.3f} ms/frame (device_step), "
+          f"dropped {unpaced['dropped']}; consume without graphs "
+          f"{eager_ms:.3f} ms/frame, {ops_text(eager_ops, 4)} device ops "
+          f"a frame (frames 16-19); host syncs a frame "
+          f"{len(syncs) / k:.2f} ({sync_sites(syncs)}) | {card}", flush=True)
+    return dict(launches=launches, ms=paced["ms"], fps=fps)
+
+
+def tag_frames(cam, codebook, seed, dev):
+    """FID_FRAMES frames (FID_FRAMES, FID_H, FID_W) in [0, 1]: 4-6
+    tag36h11 tags each, rendered by render_tag (sides FID_TAG_PX, rotated,
+    corners jittered by 4%) centred on the pixels of ground points (a
+    subset of FID_SLOTS, jittered 2.5 cm); dark clutter blocks clear of the
+    tags' quiet zones, an illumination ramp (x0.6 to x1.0) and noise
+    (sigma 0.02), all drawn from numpy.random.default_rng(seed), so the
+    frames are the same on every device (up to the rounding of the
+    rendering).
+    Returns (frames, per frame a list of (id, corners (4, 2), lidar-frame
+    ground point (3,)), robot poses (FID_FRAMES, 4))."""
+    from slam_tpu_torch import calib
+    from slam_tpu_torch.ops import fiducial
+
+    rng = np.random.default_rng(seed)
+    frames, truth = [], []
+    ramp = (0.6 + 0.25 * torch.arange(FID_W, device=dev)[None] / FID_W
+            + 0.15 * torch.arange(FID_H, device=dev)[:, None] / FID_H)
+    for f in range(FID_FRAMES):
+        img = torch.full((FID_H, FID_W), 0.9, device=dev)
+        k = 4 + f % 3
+        slots = rng.permutation(len(FID_SLOTS))[:k].tolist()
+        ids = rng.permutation(len(codebook))[:k].tolist()
+        tags, boxes = [], []
+        for slot, code in zip(slots, ids):
+            depth, lat = FID_SLOTS[slot]
+            g = torch.tensor([depth, lat, FID_GROUND], device=dev)
+            g[:2] += torch.from_numpy((rng.random(2) - 0.5) * 0.05).to(dev)
+            uv = calib.camera_to_pixel(cam, calib.lidar_to_camera(cam, g))
+            side = FID_TAG_PX[0] + rng.random() * (FID_TAG_PX[1]
+                                                   - FID_TAG_PX[0])
+            ang = rng.random() - 0.5
+            c, s = np.cos(ang), np.sin(ang)
+            jitter = (rng.random((4, 2)) - 0.5) * 0.08 * side
+            base = np.float32([[-1, -1], [1, -1], [1, 1], [-1, 1]]) * side / 2
+            corners = torch.from_numpy((base @ np.float32([[c, -s], [s, c]]).T
+                                        + jitter).astype(np.float32)).to(dev)
+            corners = corners + uv
+            x0, y0 = corners.min(0).values.floor().int().tolist()
+            x1, y1 = corners.max(0).values.ceil().int().tolist()
+            if x0 < 40 or y0 < 40 or x1 > FID_W - 40 or y1 > FID_H - 40:
+                raise RuntimeError(f"[fiducial] a tag at {uv.tolist()} "
+                                   f"leaves the frame")
+            off = torch.tensor([x0 - 2, y0 - 2], dtype=torch.float32,
+                               device=dev)
+            t = fiducial.render_tag(codebook[code], corners - off,
+                                    y1 - y0 + 5, x1 - x0 + 5, bg=-1.0)
+            sub = img[y0 - 2:y1 + 3, x0 - 2:x1 + 3]
+            sub.copy_(torch.where(t >= 0, t, sub))
+            m = int(0.3 * (x1 - x0))
+            boxes.append((x0 - m, y0 - m, x1 + m, y1 + m))
+            tags.append((code, corners, g))
+        placed = 0
+        while placed < 12:
+            w, h = (20 + rng.random(2) * 130).astype(int).tolist()
+            x = int(rng.random() * (FID_W - w))
+            y = int(rng.random() * (FID_H - h))
+            if any(x < bx1 and x + w > bx0 and y < by1 and y + h > by0
+                   for bx0, by0, bx1, by1 in boxes):
+                continue
+            img[y:y + h, x:x + w] = 0.1
+            placed += 1
+        noise = rng.standard_normal((FID_H, FID_W), dtype=np.float32)
+        img = img * ramp + 0.02 * torch.from_numpy(noise).to(dev)
+        frames.append(img.clamp(0.0, 1.0))
+        truth.append(tags)
+    th = 2 * np.pi * np.arange(FID_FRAMES) / FID_FRAMES
+    poses = torch.tensor(np.stack([60 * np.cos(th), 60 * np.sin(th),
+                                   th + 1.0, np.full(FID_FRAMES, 1.3)], -1),
+                         dtype=torch.float32, device=dev)
+    return torch.stack(frames), truth, poses
+
+
+def fiducial_phase(card) -> None:
+    """[fiducial]: the camera periphery at the reference zoom camera's
+    resolution (FID_W x FID_H, twice its principal point): tag_frames'
+    FID_FRAMES frames through detect_tags with both segmenters at decimate
+    1 and 2, timed (CUDA events, ms a frame of the batch of 8). Gates: the
+    gradient segmenter's corners within FID_CORNER_TOL px, the
+    dark-component ("cc") one's
+    corners within (1 + open_radius) sqrt(2) d px (pixel picks of an opened
+    mask on a 1/d grid), but for the corners in FID_CORNER_PINNED, held to
+    slam_tpu's own; every tag decodes with its id and Hamming 0 but for
+    the run's FID_MISSES, and no false or repeated detection. Then the
+    chain: each tag's centre (from the first run that decoded it; every
+    tag but those all four runs may miss) through calib.pixel_to_global
+    at its frame's robot pose into one 400 x 400 sample map (FID_BLOB's
+    blobs); extract_samples must put a sample within FID_CHAIN_LIMIT of
+    every ground point and none farther from all of them. Peak device
+    memory and
+    host syncs a frame are printed."""
+    from slam_tpu_torch import calib
+    from slam_tpu_torch.config import SampleMapConfig
+    from slam_tpu_torch.mapping import sample_map
+    from slam_tpu_torch.ops import fiducial
+    dev = torch.device("cuda")
+    cam = calib.REFERENCE_CAMERA
+    codebook = torch.from_numpy(fiducial.tag36h11()).to(dev)
+    frames, truth, poses = tag_frames(cam, codebook, 10, dev)
+    n_tags = sum(len(t) for t in truth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results, lines, failures = {}, [], []
+    for seg in ("cc", "gradient"):
+        for d in (1, 2):
+            cfg = fiducial.FiducialConfig(segmenter=seg, decimate=d)
+            fiducial.detect_tags(frames, codebook, cfg)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            det, syncs = count_syncs(
+                lambda: fiducial.detect_tags(frames, codebook, cfg))
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / FID_FRAMES
+            tol = FID_CORNER_TOL if seg == "gradient" else \
+                (1 + cfg.open_radius) * np.sqrt(2) * d
+            found, worst, pinned = 0, 0.0, []
+            for f, tags in enumerate(truth):
+                valid = det.valid[f].tolist()
+                got = [q for q in range(len(valid)) if valid[q]]
+                ids = [int(det.tag_id[f, q]) for q in got]
+                want = {code: corners for code, corners, _ in tags}
+                if len(set(ids)) != len(ids) or set(ids) - set(want):
+                    raise RuntimeError(
+                        f"[fiducial] {seg} d={d} frame {f}: detections "
+                        f"{ids}, tags {sorted(want)}")
+                for q, code in zip(got, ids):
+                    if int(det.hamming[f, q]) != 0:
+                        raise RuntimeError(f"[fiducial] {seg} d={d}: tag "
+                                           f"{code} at Hamming "
+                                           f"{int(det.hamming[f, q])}")
+                    dist = float((det.corners[f, q][:, None]
+                                  - want[code][None]).norm(dim=-1)
+                                 .min(1).values.max())
+                    held = FID_CORNER_PINNED.get((seg, d, f, code))
+                    if held is None:
+                        worst = max(worst, dist)
+                        continue
+                    pinned.append((f, code, round(dist, 3), held))
+                    if abs(dist - held) > FID_PINNED_TOL:
+                        failures.append(f"{seg} d={d}: tag {code} of frame "
+                                        f"{f} has a corner {dist:.3f} px "
+                                        f"off, slam_tpu's {held}")
+                found += len(ids)
+            if worst > tol:
+                failures.append(f"{seg} d={d}: a corner {worst:.3f} px from "
+                                f"the rendered one (bound {tol:.3f})")
+            missed = [(f, code, round(float((c[1] - c[0]).norm())))
+                      for f, tags in enumerate(truth) for code, c, _ in tags
+                      if code not in det.tag_id[f][det.valid[f]].tolist()]
+            beyond = [(f, code) for f, code, _ in missed
+                      if (f, code) not in FID_MISSES[(seg, d)]]
+            if beyond:
+                failures.append(f"{seg} d={d} missed {beyond}, beyond its "
+                                f"pinned misses")
+            results[(seg, d)] = det
+            lines.append(f"{seg} d={d} {found}/{n_tags} decoded (missed "
+                         f"(frame, id, side px) {missed}; not pinned "
+                         f"{beyond}), worst "
+                         f"corner {worst:.3f} px (bound {tol:.2f}; pinned "
+                         f"(frame, id, px, slam_tpu's px) {pinned}), "
+                         f"{ms:.2f} ms/frame, host syncs a frame "
+                         f"{len(syncs) / FID_FRAMES:.2f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[fiducial] {FID_FRAMES} frames of {FID_W} x {FID_H} px, "
+          f"{n_tags} tag36h11 tags of {FID_TAG_PX[0]}-{FID_TAG_PX[1]} px with "
+          f"clutter, an illumination ramp and noise: " + "; ".join(lines) +
+          f"; peak device memory {peak:.2f} GiB | {card}", flush=True)
+    if failures:
+        raise RuntimeError("[fiducial] " + "; ".join(failures))
+
+    # the chain: detected centre -> ground point -> sample map
+    scfg = SampleMapConfig()
+    m = sample_map.init_sample_map(scfg, 1, device=dev)
+    truth_xy = []
+    # the tags every run may miss: their ground points cannot be reached
+    unreachable = set.intersection(*(set(m) for m in FID_MISSES.values()))
+    for f, tags in enumerate(truth):
+        pose = poses[f]
+        c, s = torch.cos(pose[2]), torch.sin(pose[2])
+        for code, _, g in tags:
+            # the tag's centre from the first run that decoded it, the
+            # sub-pixel gradient one first
+            centre = next((det.center[f, q] for det in (
+                results[k] for k in (("gradient", 1), ("cc", 1),
+                                     ("gradient", 2), ("cc", 2)))
+                for q in range(det.valid.shape[1])
+                if bool(det.valid[f, q]) and int(det.tag_id[f, q]) == code),
+                None)
+            if centre is None:
+                if (f, code) not in unreachable:
+                    raise RuntimeError(f"[fiducial] chain: tag {code} of "
+                                       f"frame {f} decoded by no run")
+                continue
+            truth_xy.append(torch.stack([c * g[0] - s * g[1] + pose[0],
+                                         s * g[0] + c * g[1] + pose[1]]))
+            gxy = calib.pixel_to_global(cam, centre, pose, FID_GROUND)[:2]
+            for _ in range(3):
+                m = sample_map.add_sample(
+                    m, gxy[None], torch.full((1,), FID_BLOB[0], device=dev),
+                    torch.full((1,), FID_BLOB[1], device=dev), scfg)
+    peaks = sample_map.extract_samples(m, scfg, max_samples=64)
+    found = peaks.xy[0][peaks.valid[0]]
+    truth_xy = torch.stack(truth_xy)
+    dmat = (truth_xy[:, None] - found[None]).norm(dim=-1)
+    miss = float(dmat.min(1).values.max())
+    stray = float(dmat.min(0).values.max())
+    if not (miss <= FID_CHAIN_LIMIT and stray <= FID_CHAIN_LIMIT):
+        raise RuntimeError(f"[fiducial] chain: a ground point {miss:.3f} m "
+                           f"from its nearest sample, a sample {stray:.3f} "
+                           f"m from every ground point (bound "
+                           f"{FID_CHAIN_LIMIT})")
+    print(f"[fiducial] chain (gradient d=1 centres -> pixel_to_global -> "
+          f"400 x 400 sample map): "
+          f"{len(found)} samples for the {len(truth_xy)} ground points of "
+          f"the tags some run decoded (of {n_tags}), worst "
+          f"{miss:.3f} m, farthest sample {stray:.3f} m (bound "
+          f"{FID_CHAIN_LIMIT}) | {card}", flush=True)
 
 
 def main() -> int:
@@ -2565,16 +3053,22 @@ def main() -> int:
         raise RuntimeError(f"device ops a call: nearest_neighbor {nn_ops}, "
                            f"score_particles {k5_ops}, K5 in pf_match "
                            f"{ops_a_call['pf_match']['K5']} (want 1, 2, 3)")
+    # the live path before the large profiler sessions below (device_ops)
+    live = live_phase(card)
+    launches["K4"] += live["launches"]
+    # the larger counts last: a session of some 15,000 device operations
+    # or more can leave the later ones blind (device_ops)
+    g3_ops = device_ops(graph3d.pop("tick"))["n"]
     regen_ops = {r: device_ops(regen[r].pop("tick"))["n"]
                  for r in ("voxel", "mls")}
-    print(f"[regen] device ops a graph tick (config 4, B={GRAPH_FLEET}): "
-          f"voxel {regen_ops['voxel']}, mls {regen_ops['mls']} | {card}",
-          flush=True)
-    g3_ops = device_ops(graph3d.pop("tick"))["n"]
     se3_ops = device_ops(se3.pop("tick"))["n"]
+    print(f"[regen] device ops a graph tick (config 4, B={GRAPH_FLEET}): "
+          f"voxel {ops_text(regen_ops['voxel'])}, mls "
+          f"{ops_text(regen_ops['mls'])} | {card}", flush=True)
     print(f"[graph3d] device ops a graph tick and its ground-map offset "
-          f"(B={GRAPH3D_FLEET}): {g3_ops}; [se3] device ops a 6-DoF graph "
-          f"tick (B={SE3_FLEET}): {se3_ops} | {card}", flush=True)
+          f"(B={GRAPH3D_FLEET}): {ops_text(g3_ops)}; [se3] device ops a "
+          f"6-DoF graph tick (B={SE3_FLEET}): {ops_text(se3_ops)} | {card}",
+          flush=True)
     # K3 at the reference scale's shapes, on the [K3] phase's problem
     ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
                                                seed=11, span=100.0,
@@ -2632,6 +3126,8 @@ def main() -> int:
           f"B={FLEET_REF} S={REF_S}, K1 / K3 ms: " + ", ".join(
               f"C={C} {a:.4f} / {b:.4f}" for C, a, b in crossover) +
           f" | {card}", flush=True)
+
+    fiducial_phase(card)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"

@@ -2,7 +2,7 @@
 
 The same frozen dataclasses, with the same field names, defaults and order,
 and the same constructors (`default_config`, `sim2d_config`,
-`sim3d_config`, `ref_scale_config`), so a config means the same in both
+`sim3d_config`, `ref_scale_config`) and `apply_sweep_overrides`, so a config means the same in both
 packages (tests/test_torch_config.py holds them equal field for field).
 Provenance of each value (file:line of the servos/SLAM reference) is in
 slam_tpu/config.py. The port imports nothing of that package, not even this
@@ -370,3 +370,34 @@ def sim3d_se3_config() -> SlamConfig:
     c = sim3d_config()
     return dataclasses.replace(c, graph=dataclasses.replace(
         c.graph, engine="se3", edge_registration="3d", knn_dist_thresh=2.5))
+
+
+def apply_sweep_overrides(cfg: SlamConfig,
+                          spec: str | None = None) -> SlamConfig:
+    """Apply dotted-path overrides from a sweep spec onto the frozen config
+    tree: "icp.loop=while;cloud.export_recall=1.0". `spec` defaults to the
+    SLAM_TPU_SWEEP_SET environment variable (the variable slam_tpu's
+    sweeps set, so one spec configures both packages). Values are coerced
+    to the type of the field they replace; unknown paths raise."""
+    import os
+    if spec is None:
+        spec = os.environ.get("SLAM_TPU_SWEEP_SET", "")
+    for item in filter(None, (s.strip() for s in spec.split(";"))):
+        path, _, raw = item.partition("=")
+        parts = path.split(".")
+        nodes = [cfg]
+        for p in parts[:-1]:
+            nodes.append(getattr(nodes[-1], p))
+        old = getattr(nodes[-1], parts[-1])
+        if isinstance(old, bool):
+            val: object = raw.lower() in ("1", "true", "yes")
+        elif isinstance(old, int):
+            val = int(raw)
+        elif isinstance(old, float):
+            val = float(raw)
+        else:
+            val = raw
+        for node, name in zip(reversed(nodes), reversed(parts)):
+            val = dataclasses.replace(node, **{name: val})
+        cfg = val
+    return cfg

@@ -8,7 +8,9 @@ such objects by attribute (no jax import), so both packages can start from
 the identical state; `mls_grid_from_numpy` reads an MlsGrid stacked over
 robots; `point_map_from_numpy` reads one unbatched grid (config 5's shared
 map) as a batch-1 PointMapGrid, or grids stacked over robots;
-`state_to_numpy` turns a port state, ground map, pose graph or MLS grid
+`codebook_from_numpy` places a fiducial codebook (K, bits) on a device,
+and `sample_map_from_numpy` reads a SampleMap (one map as batch 1, or
+maps stacked over robots); `state_to_numpy` turns a port state, ground map, pose graph or MLS grid
 back into a nested dict of numpy arrays with the same field names (a
 metrics ring stays a (buf, count) pair); `se3_graph_from_numpy` reads a 6-DoF Se3Graph stacked over robots. The JAX
 state's random key is dropped: the port draws from an explicit
@@ -22,6 +24,7 @@ import torch
 
 from slam_tpu_torch import default_device
 from slam_tpu_torch.graph.pose_graph3d import Se3Graph
+from slam_tpu_torch.mapping.sample_map import SampleMap
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.sim.world2d import World2D
 from slam_tpu_torch.sim.world3d import World3D
@@ -166,6 +169,18 @@ def point_map_from_numpy(grid, device=None) -> PointMapGrid:
     return g.replace(count=g.count[None], sum_x=g.sum_x[None],
                      sum_y=g.sum_y[None], sum_z=g.sum_z[None],
                      center=g.center[None])
+
+
+def codebook_from_numpy(codebook, device=None) -> torch.Tensor:
+    """A fiducial codebook (K, bits) as a bool tensor."""
+    return _t(codebook, default_device(device), torch.bool)
+
+
+def sample_map_from_numpy(m, device=None) -> SampleMap:
+    """Port SampleMap from a slam_tpu SampleMap with numpy leaves: one map
+    (H, W) as batch 1, or maps stacked over robots (B, H, W)."""
+    prob = _t(m.prob, default_device(device), torch.float32)
+    return SampleMap(prob=prob[None] if prob.dim() == 2 else prob)
 
 
 def _np(x):

@@ -1,6 +1,7 @@
 """Rolling occupancy / drivability grid — counterpart of
 slam_tpu/mapping/occupancy.py (`init_occupancy`, `shift_origin`,
-`add_to_occupancy_xy`, `add_to_occupancy_xy2`), batched over robots."""
+`add_to_occupancy`, `add_to_occupancy_xy`, `add_to_occupancy_xy2`,
+`occupancy_cloud`), batched over robots."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import torch
 from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
 from slam_tpu_torch.ops.scatter2d import scatter_add_2d_multi
-from slam_tpu_torch.types import OccupancyGrid
+from slam_tpu_torch.types import OccupancyGrid, PointCloud
 
 
 def init_occupancy(cfg, batch: int, device=None,
@@ -90,3 +91,41 @@ def add_to_occupancy_xy2(grid: OccupancyGrid, ox, oy, ovalid, gx, gy, gvalid,
         (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
     delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep, (H, W))
     return _apply_counts_drivability(grid, delta, touch, cfg)
+
+
+def add_to_occupancy(grid: OccupancyGrid, obstacle: PointCloud,
+                     ground: PointCloud, cfg) -> OccupancyGrid:
+    """Cloud-form occupancy update: +increment per obstacle point,
+    -decrement per ground point, for robot-centred, world-oriented clouds
+    (B, No) and (B, Ng); points beyond cfg.max_range (by their xy norm) or
+    off the grid are dropped."""
+    xy = torch.cat([obstacle.xyz[..., :2], ground.xyz[..., :2]], 1)
+    x, y = cells_of(xy[..., 0], xy[..., 1], cfg)
+    rng = torch.sqrt((xy * xy).sum(-1))
+    keep = torch.cat([obstacle.valid, ground.valid], 1) & \
+        (rng <= cfg.max_range)
+    sign = torch.cat([
+        torch.full(obstacle.valid.shape, cfg.occupancy_increment,
+                   dtype=grid.counts.dtype, device=xy.device),
+        torch.full(ground.valid.shape, -cfg.occupancy_decrement,
+                   dtype=grid.counts.dtype, device=xy.device)], 1)
+    delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep,
+                                        grid.counts.shape[1:])
+    return _apply_counts_drivability(grid, delta, touch, cfg)
+
+
+def occupancy_cloud(grid: OccupancyGrid, cfg, capacity: int) -> PointCloud:
+    """Occupied-cell centres as a world-frame obstacle cloud (B, capacity):
+    the `capacity` highest-count occupied cells, equal counts in flat cell
+    order (a stable descending sort: jax.lax.top_k's order, and counts are
+    integer-valued, so ties are common)."""
+    B, H, W = grid.counts.shape
+    score = torch.where(grid.drivable == 0, grid.counts, -1.0).reshape(B, -1)
+    top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    top, idx = top[:, :capacity], idx[:, :capacity]
+    sel = top > 0
+    x = (idx // W - H // 2 + 0.5) * cfg.resolution + grid.center[:, 0:1]
+    y = (idx % W - W // 2 + 0.5) * cfg.resolution + grid.center[:, 1:2]
+    xyz = torch.stack([x, y, torch.zeros_like(x)], -1)
+    return PointCloud(xyz=torch.where(sel[..., None], xyz, 0.0), valid=sel,
+                      flags=torch.zeros_like(idx, dtype=torch.int32))

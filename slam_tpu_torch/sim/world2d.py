@@ -86,6 +86,17 @@ def raycast(world: World2D, pose: torch.Tensor, cfg, noise=None,
     return t, hit
 
 
+def scan_to_points(ranges: torch.Tensor, hit: torch.Tensor, yaw=None):
+    """Scans (B, N) -> points (B, N, 3) with z = 0, and the hit mask. In
+    the sensor frame when yaw is None, else rotated by each robot's yaw
+    (B,) to world orientation."""
+    rel = _beam_angles(ranges.shape[-1], ranges.device)
+    ang = rel if yaw is None else yaw[..., None] + rel
+    x = ranges * torch.cos(ang)
+    y = ranges * torch.sin(ang)
+    return torch.stack([x, y, torch.zeros_like(x)], -1), hit
+
+
 def scan_to_planes(ranges: torch.Tensor, hit: torch.Tensor):
     """Sensor-frame (x, y) planes of a scan (B, N)."""
     rel = _beam_angles(ranges.shape[-1], ranges.device)

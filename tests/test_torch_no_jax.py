@@ -1,6 +1,7 @@
 """The port stands alone: slam_tpu_torch imports and runs a tick (and
-imports its pose graph, MLS, FFT-match, relocalization and metrics
-modules) with jax unimportable and no
+imports its pose graph, MLS, FFT-match, relocalization, metrics, live,
+fiducial, calibration, sample-map and utility modules, and builds and
+drives its native runtime in build/slam_tpu_torch/) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
 slam_tpu package or builds a path into slam_tpu/, and chip_smoke.py
 refuses to report without a GPU."""
@@ -40,6 +41,22 @@ import slam_tpu_torch.mapping.mls
 import slam_tpu_torch.ops.fft_match
 import slam_tpu_torch.pipeline.relocalize
 import slam_tpu_torch.utils.metrics
+# the live-frame path and the camera periphery
+import slam_tpu_torch.calib
+import slam_tpu_torch.live
+import slam_tpu_torch.mapping.sample_map
+import slam_tpu_torch.ops.fiducial
+import slam_tpu_torch.sim.replay
+import slam_tpu_torch.utils.checkpoint
+import slam_tpu_torch.utils.pcd
+import slam_tpu_torch.utils.profiling
+import slam_tpu_torch.utils.trajectory
+import slam_tpu_torch.utils.viz
+from slam_tpu_torch.runtime import native
+lib = native.build()
+assert str(lib.parent) == os.path.join(ROOT, "build", "slam_tpu_torch"), lib
+ring = native.FrameRing(4, (8,))
+assert ring.push(torch.arange(8.0).numpy()) and ring.pop()[0] == 1
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "slam_tpu")
        and sys.modules[m] is not None]
 assert not bad, bad

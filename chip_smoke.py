@@ -105,7 +105,8 @@ non-zero:
              ticks (K3 on every tick: S x C = 4096 x 40960) and a graph
              tick (K2's 2,048 x 2,048 edge problems go to K3): ms/tick,
              graph tick ms, host syncs of one graph tick and its
-             ground-map offset (gate 0), median ATE and mean |z error|,
+             ground-map offset (gate 0 with icp.loop "scan" and "while":
+             the tick runs no loop fit), median ATE and mean |z error|,
              >= 2 keyframes and >= 1 edge a robot, finite poses, graph and
              ground map (gates); K3 on the recorded edge problems against
              its plain version under [graph]'s near-tie rule, timed with
@@ -114,8 +115,11 @@ non-zero:
              (engine "se3", 3D ICP edges in plain PyTorch, 6 x 6 LUM
              information, optimize_native), B=128, 6 macros of 8 ticks
              (K1) after a warm-up macro, then 4 macros of engine "se3"
-             over planar edges (K2, K4): ms/tick, graph tick ms, host
-             syncs (gate 0), slam_tpu's own test bounds (median ATE <
+             over planar edges (K2, K4), each with icp.loop "scan":
+             ms/tick, graph tick ms, host syncs (gate 0); the 3D-edge run
+             again with "while" (ms/tick, graph tick ms, at most
+             edge_icp_max_iter + 1 host syncs a graph tick, all
+             icp3d_fit's), slam_tpu's own test bounds (median ATE <
              0.6 m, the 0.99 quantile robot's nodes within 0.8 m of its
              true path, mean |z error| < 0.15 m), node_rp finite; K1 on
              the last tick's registration, K2 on the planar edge problems
@@ -134,15 +138,19 @@ non-zero:
              tick and a field build, median raw and aligned ATE, mean |z
              error|, the share of ticks that registered; gates: ATE, z,
              every robot registered on its last tick, no K1 / K3 / K4
-             launch, no host sync in one macro; the last macro's field on
+             launch, no host sync in one macro with icp.loop "scan"; the
+             same run with "while" (ms/tick, ATE and z, at most
+             max_iterations + 1 host reads a fit); the last macro's field on
              the card equal to the CPU path's from the same grid (valid and
              n_class exact, px / py within 1e-5 m but at near-ties, which
              are counted), icp_fit_grid on the last tick's scenes within
              1e-3 of the CPU run with ok equal
 19. grid2d — config 1 with the "grid" matcher (examples/run_fleet.py
              --matcher grid) at sim2d_config, B=1024, 40 ticks after a
-             warm-up macro: ms/tick, median ATE (gate), no K1 or K4 launch
-             and no host sync in one macro; build_scene_planes on the card:
+             warm-up macro, with icp.loop "scan" and "while": ms/tick,
+             median ATE (gate), no K1 or K4 launch, in one macro no host
+             sync ("scan") or at most max_iterations + 1 a fit ("while");
+             build_scene_planes on the card:
              the fleet's last scans through the "incidence" and "grid"
              builders, and 16 robots' 8,192-beam scans through "auto"
              (grid) and "incidence" (compacted into 4,096 slots), each
@@ -163,6 +171,7 @@ non-zero:
              table alone; K1 against K3 on problems both take around
              RESIDENT_TILE_LIMIT; the device operations one
              nearest_neighbor, score_particles and pf_match call runs
+             (counted right after [pf], before any large profiler session)
 22. live   — the live-frame path (slam_tpu_torch.live, examples/run_live.py
              's counterpart), run within [time], after its device ops a
              call and before its large profiler sessions: sim2d_config, one
@@ -179,7 +188,22 @@ non-zero:
              and K4 held to its plain version on every recorded call
              (its arguments cloned at the call), host syncs a frame and
              their sites
-23. fiducial — the camera periphery at the reference zoom camera's
+23. entry  — the user entry points' run() on the card at full width (after
+             [time]'s device-op counts, before [fiducial]):
+             run_fleet (B=1024, 40 steps twice, the second timed: "fused",
+             "points", "grid", --shared-map "fused" and "particle"),
+             run_sim2d (200 steps, with and without --graph), run_sim3d
+             (sim3d, --ref-scale), run_reloc (--graph --save-pcd, then
+             --prior-pcd), eviction_study (--max-nodes 16 and 64, 128
+             macros), make_replay (100 frames, equal to synth_frames' bit
+             for bit, replayed by the native loader into live.consume);
+             gates: PERF.md's accuracy bounds for each configuration
+             (at the reference scale z to sim3d's 0.4 m: its 0.1 m fails
+             over 60 steps in slam_tpu too, tests/test_torch_ref_height.py),
+             every robot registered after both shared-map runs, each
+             path's kernels launched; K1, K2, K4 and K5 held to their
+             plain versions on recorded calls (arguments cloned)
+24. fiducial — the camera periphery at the reference zoom camera's
              resolution (3,876 x 2,541 px): 8 frames of 4-6 tag36h11 tags
              (150-300 px) with clutter, an illumination ramp and noise,
              through detect_tags with both segmenters at decimate 1 and 2,
@@ -193,7 +217,8 @@ non-zero:
              every ground point but those of the tags all four runs may
              miss, and none farther; peak device memory, host syncs a
              frame
-Every kernel launch count is set to 0 just before a main path (8-19, 22)
+Every kernel launch count is set to 0 just before a main path (8-19,
+22, 23)
 runs and read just after it; the JSON record's launches add up every
 path's. The last two lines are the kernels' JSON record
 and the device JSON. Imports torch and the port only: no jax, no slam_tpu
@@ -272,6 +297,13 @@ FIELD_TIE = 1e-6      # m^2: two picks this close from a cell centre are a tie
 WIDE_BEAMS = 8192     # [grid2d]: beams of the scans "auto" sends to the grid
 WIDE_ROBOTS = 16      #           builder, robots, and the scene capacity
 WIDE_CAPACITY = 4096  #           that holds their cells
+ENTRY_STEPS = 40      # [entry]: run_fleet's --steps (its default), B = FLEET
+ENTRY_SIM2D_STEPS = 200   # run_sim2d's default --steps
+ENTRY_SIM3D_STEPS = 60    # run_sim3d's default --steps
+ENTRY_RELOC_STEPS = 80    # run_reloc's default --steps
+ENTRY_EVICT_MACROS = 128  # eviction_study's default --macros
+ENTRY_EVICT_NODES = (16, 64)   # the --max-nodes its docstring runs
+ENTRY_FRAMES = 100    # make_replay's frames, fed to live.consume
 LIVE_FRAMES = 200     # [live]: frames of the replayed feed
 LIVE_RATE_HZ = 100.0  # [live]: the paced feed, ten times the lidar's 10 Hz
 LIVE_SLOTS = 32       # [live]: ring slots of the paced run
@@ -979,16 +1011,19 @@ def event_timed(fn, events):
     return timed
 
 
-def kept(fn, calls, copy=False):
+def kept(fn, calls, copy=False, last=False):
     """fn, keeping each call's arguments in `calls`: the tensors themselves,
     or with `copy` their values at the call (clones, for a caller that
-    overwrites its arguments in place, as live.GraphedStep's replays do)."""
+    overwrites its arguments in place, as live.GraphedStep's replays do);
+    with `last` only the latest call's."""
     def value(x):
         return x.clone() if copy and isinstance(x, torch.Tensor) else x
 
     def keep(*a, **k):
-        calls.append((tuple(map(value, a)),
-                      {n: value(v) for n, v in k.items()}))
+        call = (tuple(map(value, a)), {n: value(v) for n, v in k.items()})
+        if last:
+            calls.clear()
+        calls.append(call)
         return fn(*a, **k)
     return keep
 
@@ -1202,6 +1237,27 @@ def sync_sites(syncs) -> str:
                      collections.Counter(syncs).most_common())
 
 
+def loop_forms(cfg) -> dict:
+    """cfg with icp.loop "scan" (every fit runs max_iterations steps, no
+    host read) and "while" (a fit stops once every robot has converged,
+    reading the converged flags each iteration)."""
+    return {loop: cfg.replace(icp=dataclasses.replace(cfg.icp, loop=loop))
+            for loop in ("scan", "while")}
+
+
+def while_sync_gate(label, syncs, fits, max_iterations, source) -> int:
+    """The "while" form's host reads: at most max_iterations + 1 for each
+    of `fits` fits, every one in the fit's module `source`. Raises with
+    `label` otherwise; returns the bound."""
+    most = fits * (max_iterations + 1)
+    stray = [x for x in syncs if not x.startswith(source + ":")]
+    if len(syncs) > most or stray:
+        raise RuntimeError(f"{label} with icp.loop while: {len(syncs)} host "
+                           f"syncs (bound {most}, all in {source}): "
+                           f"{sync_sites(syncs)}")
+    return most
+
+
 def search_fracs(scene, map_cloud, prior, gcfg):
     """global_match's coarse search planes for one robot, on the operands'
     device: the (K, (2G)^2) correlation over each rotation's occupied scene
@@ -1384,7 +1440,9 @@ def mls_phase(world, gen, card) -> dict:
           f"{B * 1000.0 / ms:.1f} robot-steps/s; a macro that relocalizes "
           f"{macro_ms[MLS_KIDNAP_AT]:.3f} ms, one that does not "
           f"{sum(quiet) / max(len(quiet), 1):.3f} ms (mean of {len(quiet)}; "
-          f"{sum(fired)} macros relocalized); host syncs: a macro with "
+          f"{sum(fired)} macros relocalized); host syncs (icp.loop while: "
+          f"the polish's icp_fit reads its converged flags each iteration): "
+          f"a macro with "
           f"{n_lost} robots lost {len(healthy_syncs)} "
           f"({sync_sites(healthy_syncs)}), the "
           f"relocalizing gate {len(gate_syncs)} ({sync_sites(gate_syncs)}); "
@@ -1470,7 +1528,9 @@ def regen_phase(world, gen, card) -> dict:
         line = (f"{regen}: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
                 f"robot-steps/s, graph tick mean "
                 f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
-                f"{max(graph_ms):.3f}), host syncs 0, median ATE {med:.4f} m (ticks>=8, "
+                f"{max(graph_ms):.3f}), host syncs 0 (icp.loop "
+                f"{cfg.icp.loop}; a graph tick runs no loop fit), median ATE "
+                f"{med:.4f} m (ticks>=8, "
                 f"{float(ate.max()):.4f} max), keyframes >= {nodes}, target "
                 f"points {int(target.min())}-{int(target.max())} a robot, "
                 f"launches {launches}")
@@ -1817,7 +1877,8 @@ def graph_phase(world, gen, card) -> dict:
           f"average) vs plain: {agreement_text(k2a)}; K2 {k2_ms:.4f} ms, "
           f"plain {k2_plain_ms:.4f} ms, bound "
           f"{k2_bound[0]:.6f} ms ({k2_bound[1]}); host syncs in one "
-          f"graph_update: {len(syncs)}{': ' + ' | '.join(syncs) if syncs else ''}"
+          f"graph_update (icp.loop {cfg.icp.loop}; a graph tick runs no "
+          f"loop fit): {len(syncs)}{': ' + ' | '.join(syncs) if syncs else ''}"
           f"; eviction run ({EVICT_MACROS} macros, 0.5 m gate): all "
           f"{ecfg.graph.max_nodes} slots full, >= {inserted} keyframes "
           f"inserted, edges_dropped total {int(eg.edges_dropped.sum())} "
@@ -1972,19 +2033,23 @@ def graph3d_phase(gen, card) -> dict:
     nn_equal("[graph3d]'s edge information", nn_calls[pick])
     del nn_calls
 
-    def tick(s=state, m=gm):
-        s2, d = slam3d.graph_update_delta(s, cfg)
-        return s2, slam3d.apply_graph_offset(m, d)
-    _, syncs = count_syncs(tick)
-    if syncs:
-        raise RuntimeError(f"[graph3d] graph tick host syncs: "
-                           f"{sync_sites(syncs)}")
+    # its graph tick runs no loop fit (the edges run on K3): no host sync
+    # in either icp.loop form
+    for loop, fcfg in loop_forms(cfg).items():
+        def tick(s=state, m=gm, c=fcfg):
+            s2, d = slam3d.graph_update_delta(s, c)
+            return s2, slam3d.apply_graph_offset(m, d)
+        _, syncs = count_syncs(tick)
+        if syncs:
+            raise RuntimeError(f"[graph3d] graph tick host syncs with "
+                               f"icp.loop {loop}: {sync_sites(syncs)}")
     print(f"[graph3d] config 4 in 3D at ref_scale_graph_config B={B} "
           f"{GRAPH3D_MACROS} macros x {GRAPH_EVERY} ticks + a graph tick, "
           f"after a warm-up macro: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} "
           f"robot-steps/s (graph ticks included), graph tick mean "
           f"{sum(graph_ms) / len(graph_ms):.3f} ms (max {max(graph_ms):.3f})"
-          f", host syncs in one graph tick and its ground-map offset 0, "
+          f", host syncs in one graph tick and its ground-map offset 0 "
+          f"with icp.loop scan and with while (no loop fit there), "
           f"median ATE {med:.4f} m (ticks>=8, {float(ate.max()):.4f} max), "
           f"mean |z error| {z_err:.4f} m, keyframes >= {nodes}, edges >= "
           f"{edges}, launches {launches}; K2 on {n} edge problems "
@@ -1999,6 +2064,52 @@ def graph3d_phase(gen, card) -> dict:
                 tick=tick)
 
 
+def se3_while_run(cfg, world, B, macros, update, gen) -> dict:
+    """[se3]'s 3D-edge run with icp.loop "while" on a fresh fleet of the
+    same seed: ms/tick, the graph ticks' ms and host syncs (gate: at most
+    edge_icp_max_iter + 1 a graph tick, all in icp3d_fit), median ATE
+    (gate SE3_ATE_LIMIT)."""
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    dev = torch.device("cuda")
+    state = slam3d.init_state_3d(cfg, B, world, device=dev,
+                                 generator=gen.manual_seed(18),
+                                 with_graph=True)
+    gm = slam3d.init_ground_map(cfg, B, dev)
+    syncs, events = [], []
+
+    def counted(s, c):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out, sy = count_syncs(lambda: update(s, c))
+        ev[1].record()
+        syncs.extend(sy)
+        events.append(ev)
+        return out
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    slam3d.graph_update_delta = counted
+    try:
+        e0.record()
+        state, gm, (est, true) = slam3d.rollout_3d_with_graph(
+            state, world, gm, cfg, macros, gen, GRAPH_EVERY)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        slam3d.graph_update_delta = update
+    graph_ms = [a.elapsed_time(b) for a, b in events]
+    med = float(slam2d.ate(est[:, 8:], true[:, 8:]).median())
+    if not med < SE3_ATE_LIMIT:
+        raise RuntimeError(f"[se3] icp.loop while: median ATE {med} m (limit "
+                           f"{SE3_ATE_LIMIT})")
+    most = while_sync_gate("[se3] (3d edges)", syncs, macros,
+                           cfg.graph.edge_icp_max_iter, "icp3d.py")
+    return dict(ms=e0.elapsed_time(e1) / (macros * GRAPH_EVERY),
+                graph_ms=sum(graph_ms) / len(graph_ms),
+                graph_max=max(graph_ms), syncs=syncs, most=most, med=med)
+
+
 def se3_phase(gen, card) -> dict:
     """[se3]: config 4 in 3D with the 6-DoF chain at sim3d_se3_config
     (engine "se3", 3D ICP edges, 6 x 6 LUM information) for SE3_FLEET
@@ -2006,7 +2117,10 @@ def se3_phase(gen, card) -> dict:
     on another fleet; then SE3_2D_MACROS macros of engine "se3" over
     planar edges. Gates: K1 every tick, node_rp finite, slam_tpu's own
     test bounds (median ATE, the SE3_NODE_QUANTILE robot's nodes near the
-    true path, mean |z error|), no host sync in one graph tick; K1 on the
+    true path, mean |z error|), no host sync in one graph tick with
+    icp.loop "scan" (the runs' form); the 3D-edge run again with "while"
+    (se3_while_run: at most edge_icp_max_iter + 1 host reads a graph
+    tick, all in icp3d_fit; planar edges run no loop fit: none); K1 on the
     3D-edge run's last tick, K2 on the planar-edge run's edge problems of
     the graph tick with the most points against their plain versions
     (near_tie_agreement), K4 on that tick's edge information equal to its
@@ -2027,8 +2141,9 @@ def se3_phase(gen, card) -> dict:
     out = {"launches": {"K1": 0, "K2": 0, "K4": 0}}
     lines = []
     for edges, macros in (("3d", SE3_MACROS), ("2d", SE3_2D_MACROS)):
-        c = cfg.replace(graph=dataclasses.replace(cfg.graph,
-                                                  edge_registration=edges))
+        forms = loop_forms(cfg.replace(graph=dataclasses.replace(
+            cfg.graph, edge_registration=edges)))
+        c = forms["scan"]
         warm = slam3d.init_state_3d(c, B, world, device=dev,
                                     generator=gen.manual_seed(17),
                                     with_graph=True)
@@ -2139,10 +2254,27 @@ def se3_phase(gen, card) -> dict:
                          f"equal to plain")
             del nn_calls
         out["k1_err" if edges == "3d" else "k2_err"] = held["err"]
-        line = (f"{edges} edges, {macros} macros: {ms:.3f} ms/tick, "
-                f"{B * 1000.0 / ms:.1f} robot-steps/s, graph tick mean "
-                f"{sum(graph_ms) / len(graph_ms):.3f} ms (max "
-                f"{max(graph_ms):.3f}), host syncs 0, median ATE {med:.4f} m"
+        w = se3_while_run(forms["while"], world, B, macros, update, gen) \
+            if edges == "3d" else None
+        if w is None:       # planar edges: no loop fit in the graph tick
+            _, w_syncs = count_syncs(lambda s=state, cc=forms["while"]:
+                                     update(s, cc))
+            while_sync_gate(f"[se3] ({edges} edges)", w_syncs, 0, 0,
+                            "icp3d.py")
+            w_text = "host syncs 0 with while too"
+        else:
+            w_text = (f"icp.loop while (a fresh fleet, the same seed): "
+                      f"{w['ms']:.3f} ms/tick, graph tick mean "
+                      f"{w['graph_ms']:.3f} ms (max {w['graph_max']:.3f}), "
+                      f"host syncs {len(w['syncs'])} in {macros} graph ticks "
+                      f"(bound {w['most']}; "
+                      f"{sync_sites(w['syncs']) or 'none'}), median ATE "
+                      f"{w['med']:.4f} m")
+        line = (f"{edges} edges, {macros} macros, icp.loop scan: {ms:.3f} "
+                f"ms/tick, {B * 1000.0 / ms:.1f} robot-steps/s, graph tick "
+                f"mean {sum(graph_ms) / len(graph_ms):.3f} ms (max "
+                f"{max(graph_ms):.3f}), host syncs 0; {w_text}; "
+                f"median ATE {med:.4f} m"
                 f" (ticks>=8, {float(ate.max()):.4f} max), mean |z error| "
                 f"{z_err:.4f} m, nodes off the true path: median robot "
                 f"{float(node_off.median()):.4f} m, {SE3_NODE_QUANTILE} "
@@ -2234,16 +2366,21 @@ def refgrid_phase(gen, card) -> None:
     source "grid") for FLEET_REF robots, TICKS_REF ticks after a warm-up
     macro. Gates (tests/test_scale_rollout.py's): median ATE, mean |z
     error|, every robot registered on its last tick; no K1, K3 or K4
-    launch; no host sync in one macro (its field build, shifts and 4
-    ticks); the last macro's field on the card against the CPU path's
-    (field_agreement), and icp_fit_grid on the last tick's scenes against
-    the CPU run (pose within POSE_TOL, ok equal)."""
+    launch; with icp.loop "scan" no host sync in one macro (its field
+    build, shifts and 4 ticks); the last macro's field on the card against
+    the CPU path's (field_agreement), and icp_fit_grid on the last tick's
+    scenes against the CPU run (pose within POSE_TOL, ok equal). Then the
+    same run with icp.loop "while" (slam_tpu's default): ms/tick, the ATE
+    and z gates, and at most max_iterations + 1 host reads a fit, all in
+    icp_fit_grid, in one macro."""
     from slam_tpu_torch.config import ref_scale_config
     from slam_tpu_torch.ops import grid_icp, icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.sim import world3d
     cfg = ref_scale_config()
-    cfg = cfg.replace(icp=dataclasses.replace(cfg.icp, matcher="grid"))
+    forms = loop_forms(cfg.replace(icp=dataclasses.replace(cfg.icp,
+                                                           matcher="grid")))
+    cfg = forms["scan"]
     dev = torch.device("cuda")
     B, ticks = FLEET_REF, TICKS_REF
     world = world3d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
@@ -2319,9 +2456,35 @@ def refgrid_phase(gen, card) -> None:
     if syncs:
         raise RuntimeError(f"[refgrid] host syncs in one macro: "
                            f"{sync_sites(syncs)}")
+    del state, gm
+
+    # icp.loop "while": the same run, early exits read on the host
+    wcfg = forms["while"]
+    ws = slam3d.init_state_3d(wcfg, B, world, device=dev,
+                              generator=gen.manual_seed(0))
+    wgm = slam3d.init_ground_map(wcfg, B, dev)
+    ws, wgm, _ = slam3d.rollout_3d(ws, world, wgm, wcfg, 4, gen)
+    torch.cuda.synchronize()
+    e0.record()
+    ws, wgm, (west, wtrue, _) = slam3d.rollout_3d(ws, world, wgm, wcfg,
+                                                  ticks, gen)
+    e1.record()
+    torch.cuda.synchronize()
+    w_ms = e0.elapsed_time(e1) / ticks
+    w_med = float(slam2d.ate(west[:, 4:], wtrue[:, 4:]).median())
+    w_z = float((west[:, 4:, 3] - wtrue[:, 4:, 3]).abs().mean())
+    if not w_med < ATE_REF_LIMIT or not w_z < Z_REF_LIMIT:
+        raise RuntimeError(f"[refgrid] icp.loop while: median ATE {w_med} m "
+                           f"(limit {ATE_REF_LIMIT}), mean |z error| {w_z} m "
+                           f"(limit {Z_REF_LIMIT})")
+    _, w_syncs = count_syncs(lambda: slam3d.rollout_3d(ws, world, wgm, wcfg,
+                                                       4, gen))
+    w_most = while_sync_gate("[refgrid]", w_syncs, 4,
+                             wcfg.icp.max_iterations, "grid_icp.py")
     print(f"[refgrid] config 2 at ref_scale_config with matcher grid "
           f"(bench.py's bench_ref_scale) B={B} {ticks} ticks after a warm-up "
-          f"macro: {ms:.3f} ms/tick, {B * 1000.0 / ms:.1f} robot-steps/s, "
+          f"macro, icp.loop scan: {ms:.3f} ms/tick, "
+          f"{B * 1000.0 / ms:.1f} robot-steps/s, "
           f"device ops a tick {ops_text(tick_ops)} and a field build "
           f"{ops_text(field_ops)} (one "
           f"a macro of 4 ticks), median ATE {med:.4f} m raw, {med_al:.4f} m "
@@ -2330,7 +2493,10 @@ def refgrid_phase(gen, card) -> None:
           f"every robot registered on the last tick, host syncs in one "
           f"macro 0, launches {launches}; {field_text(fa)}; icp_fit_grid on "
           f"the last tick's scenes vs the CPU: max pose err {fit_err:.3g} "
-          f"(bound {POSE_TOL}), ok mismatches 0 | {card}", flush=True)
+          f"(bound {POSE_TOL}), ok mismatches 0; icp.loop while: "
+          f"{w_ms:.3f} ms/tick, median ATE {w_med:.4f} m, mean |z error| "
+          f"{w_z:.4f} m, host syncs in one macro {len(w_syncs)} (bound "
+          f"{w_most}; {sync_sites(w_syncs) or 'none'}) | {card}", flush=True)
 
 
 def centroid_sets(sx, sy, ga, keep) -> list:
@@ -2366,9 +2532,11 @@ def same_centroids(label, a, b) -> int:
 def grid2d_phase(world, gen, card) -> None:
     """[grid2d]: config 1 with matcher "grid" (examples/run_fleet.py
     --matcher grid): slam2d.rollout at sim2d_config for FLEET robots,
-    TICKS ticks after a warm-up macro. Gates: median ATE below
-    GRID_ATE_LIMIT (tests/test_grid_icp.py's), no K1 or K4 launch, no host
-    sync in one macro. Then build_scene_planes on the card: the fleet's
+    TICKS ticks after a warm-up macro, in both icp.loop forms. Gates:
+    median ATE below GRID_ATE_LIMIT (tests/test_grid_icp.py's), no K1 or
+    K4 launch; in one macro no host sync with "scan", and with "while" at
+    most max_iterations + 1 a fit, all in icp_fit_grid. Then
+    build_scene_planes on the card: the fleet's
     last scans through the "incidence" and "grid" builders, and
     WIDE_ROBOTS robots' WIDE_BEAMS-beam scans that "auto" routes to the
     grid builder against "incidence" (compacted into WIDE_CAPACITY slots,
@@ -2379,39 +2547,58 @@ def grid2d_phase(world, gen, card) -> None:
     from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.sim import world2d
-    cfg = sim2d_config()
-    cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp,
-                                                           matcher="grid"))
+    forms = loop_forms(dataclasses.replace(
+        sim2d_config(), icp=dataclasses.replace(sim2d_config().icp,
+                                                matcher="grid")))
     dev = torch.device("cuda")
-    state = slam2d.init_state(cfg, FLEET, device=dev,
-                              generator=gen.manual_seed(6))
-    state, _ = slam2d.rollout(state, world, cfg, 4, gen)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
-    e0.record()
-    state, (est, true) = slam2d.rollout(state, world, cfg, TICKS, gen)
-    e1.record()
-    torch.cuda.synchronize()
-    launches = {"K1": icp_fused.launches, "K4": nn.launches}
-    ms = e0.elapsed_time(e1) / TICKS
-    if est.shape != (FLEET, TICKS, 3) or not bool(
-            torch.isfinite(est).all()):
-        raise RuntimeError(f"[grid2d] trajectory {tuple(est.shape)}, or "
-                           f"not finite")
-    ate = slam2d.ate(est[:, 10:], true[:, 10:])
-    med = float(ate.median())
-    ok_share = float(state.scan_reg_ok.float().mean())
-    if any(launches.values()):
-        raise RuntimeError(f"[grid2d] the grid path launched {launches}")
-    if not med < GRID_ATE_LIMIT:
-        raise RuntimeError(f"[grid2d] median ATE {med} m not below "
-                           f"{GRID_ATE_LIMIT} m")
-    _, syncs = count_syncs(lambda: slam2d.rollout(state, world, cfg, 4, gen))
-    if syncs:
-        raise RuntimeError(f"[grid2d] host syncs in one macro: "
-                           f"{sync_sites(syncs)}")
+    runs = {}
+    for loop, cfg in forms.items():
+        state = slam2d.init_state(cfg, FLEET, device=dev,
+                                  generator=gen.manual_seed(6))
+        state, _ = slam2d.rollout(state, world, cfg, 4, gen)
+        torch.cuda.synchronize()
+        reset_counts(icp_fused, nn, particle)
+        e0.record()
+        state, (est, true) = slam2d.rollout(state, world, cfg, TICKS, gen)
+        e1.record()
+        torch.cuda.synchronize()
+        launches = {"K1": icp_fused.launches, "K4": nn.launches}
+        ms = e0.elapsed_time(e1) / TICKS
+        if est.shape != (FLEET, TICKS, 3) or not bool(
+                torch.isfinite(est).all()):
+            raise RuntimeError(f"[grid2d] trajectory {tuple(est.shape)}, or "
+                               f"not finite")
+        ate = slam2d.ate(est[:, 10:], true[:, 10:])
+        med = float(ate.median())
+        if any(launches.values()):
+            raise RuntimeError(f"[grid2d] the grid path launched {launches}")
+        if not med < GRID_ATE_LIMIT:
+            raise RuntimeError(f"[grid2d] icp.loop {loop}: median ATE {med} "
+                               f"m not below {GRID_ATE_LIMIT} m")
+        _, syncs = count_syncs(lambda: slam2d.rollout(state, world, cfg, 4,
+                                                      gen))
+        if loop == "scan" and syncs:
+            raise RuntimeError(f"[grid2d] host syncs in one macro: "
+                               f"{sync_sites(syncs)}")
+        most = while_sync_gate("[grid2d]", syncs, 4, cfg.icp.max_iterations,
+                               "grid_icp.py") if loop == "while" else 0
+        runs[loop] = dict(ms=ms, med=med, ate_max=float(ate.max()),
+                          ok_share=float(state.scan_reg_ok.float().mean()),
+                          syncs=syncs, most=most)
+        if loop == "scan":
+            del state
+    form_text = "; ".join(
+        f"icp.loop {loop}: {r['ms']:.3f} ms/tick, "
+        f"{FLEET * 1000.0 / r['ms']:.1f} robot-steps/s, median ATE "
+        f"{r['med']:.4f} m (ticks>=10, {r['ate_max']:.4f} max), ok share on "
+        f"the last tick {r['ok_share']:.4f}, host syncs in one macro "
+        f"{len(r['syncs'])}" + (f" (bound {r['most']}; "
+                                f"{sync_sites(r['syncs']) or 'none'})"
+                                if loop == "while" else "")
+        for loop, r in runs.items())
+    cfg = forms["scan"]
 
     # the scene builders on the card
     G = cfg.icp.ga_num_bins
@@ -2445,11 +2632,8 @@ def grid2d_phase(world, gen, card) -> None:
         "[grid2d] wide scans", centroid_sets(*auto), centroid_sets(
             *slam2d.build_scene_planes(x, y, h, wide_inc)))
     print(f"[grid2d] config 1 with matcher grid (examples/run_fleet.py "
-          f"--matcher grid) B={FLEET} {TICKS} ticks after a warm-up macro: "
-          f"{ms:.3f} ms/tick, {FLEET * 1000.0 / ms:.1f} robot-steps/s, "
-          f"median ATE {med:.4f} m (ticks>=10, {float(ate.max()):.4f} max), "
-          f"ok share on the last tick {ok_share:.4f}, host syncs in one "
-          f"macro 0, launches {launches}; build_scene_planes on the card, "
+          f"--matcher grid) B={FLEET} {TICKS} ticks after a warm-up macro, "
+          f"{form_text}, launches {launches}; build_scene_planes on the card, "
           f"incidence vs grid on {G} x {G} cells: the fleet's last scans "
           f"({FLEET} robots, {sum(map(len, fleet_a))} centroids) and "
           f"{WIDE_ROBOTS} robots' {WIDE_BEAMS}-beam scans (auto -> grid vs "
@@ -2457,6 +2641,334 @@ def grid2d_phase(world, gen, card) -> None:
           f"cells) give the same centroid sets and GA flags (rounded to 4 "
           f"decimals; {fleet_straddles} + {wide_straddles} centroids "
           f"straddle a rounding step) | {card}", flush=True)
+
+
+def need_launches(label, got, *kernels) -> None:
+    """Raise unless each of `kernels` launched in `got` (kernel: count)."""
+    for k in kernels:
+        if not got.get(k):
+            raise RuntimeError(f"[entry] {label}: {k} never launched ({got})")
+
+
+def entry_phase(card) -> dict:
+    """[entry]: the user entry points (python3 -m slam_tpu_torch.<name>)
+    through their run() on the card at full width, each world and state
+    from generators seeded 42 and 0 as their main() makes them:
+    run_fleet at B = FLEET, ENTRY_STEPS steps (run twice, the second
+    timed) with "fused" (K1), "points" (K4) and "grid", then --shared-map
+    with "fused" and with "particle" (config 5, K5); run_sim2d with and
+    without --graph (K1; K2 and K4 on the edges); run_sim3d at sim3d (K1)
+    and --ref-scale ("grid"); run_reloc --graph --save-pcd (K1, K2, K4 in
+    the polish), then --prior-pcd on the saved map; eviction_study at
+    --max-nodes 16 and 64; make_replay's file, equal bit for bit to
+    synth_frames', replayed by the native loader into live.consume.
+    Gates (PERF.md section 2): the fleet's median ATE over ticks >= 10 of
+    the mission (both runs) below 0.1 m ("fused", "points", shared
+    "fused"), 0.3 m ("grid"), 0.5 m ("particle"), every robot registered
+    at the end of both shared-map runs (the printed median xy error at
+    the end is reported); ATE below ATE_LIMIT for run_sim2d (config 1's),
+    GRAPH_ATE_LIMIT with --graph (config 4's); xy ATE and mean |z error|
+    below 0.5 / 0.4 m at sim3d and 0.2 / 0.4 m at the reference scale
+    (its 16-tick z bound, 0.1 m, fails over 60 steps on this world in
+    slam_tpu too: tests/test_torch_ref_height.py);
+    the relocalized belief within RELOC_LIMIT, the edge injected with
+    --graph; the replay's frames consumed, median position error below
+    LIVE_ERR_LIMIT; each kernel of a run launched. K1 on the "fused"
+    fleet's last tick, K2 on run_sim2d --graph's edges (its graph tick
+    with the most points) and K5 on the particle fleet's last scoring are
+    held to their plain versions, K4 equal on the "points" fleet's and the
+    polish's last calls, each call's arguments cloned at the call.
+    Every count is set to 0 just before each run and read after it;
+    returns the sums and the kernels' errors."""
+    from slam_tpu_torch import (eviction_study, live, make_replay, run_fleet,
+                                run_reloc, run_sim2d, run_sim3d)
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.graph import pose_graph as pg
+    from slam_tpu_torch.ops import icp as icp_mod
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.runtime import native
+    from slam_tpu_torch.sim import replay, world2d, world3d
+    dev = torch.device("cuda")
+    total = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K5 table"), 0)
+    out = {"k1_err": 0.0, "k2_err": 0.0}
+
+    def say(text):
+        print(f"[entry] {text} | {card}", flush=True)
+
+    def seeded():
+        return (torch.Generator(dev).manual_seed(42),
+                torch.Generator(dev).manual_seed(0))
+
+    def counted(fn):
+        """fn() between a reset of every count and their reading."""
+        torch.cuda.synchronize()
+        reset_counts(icp_fused, nn, particle)
+        r = fn()
+        torch.cuda.synchronize()
+        got = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
+               "K3": icp_fused.tiled_launches, "K4": nn.launches,
+               "K5": particle.launches, "K5 table": particle.pack_launches}
+        for k, v in got.items():
+            total[k] += v
+        return r, {k: v for k, v in got.items() if v}
+
+    # run_fleet, B = FLEET
+    base = sim2d_config()
+    for matcher, shared, limit in (("fused", False, ATE_LIMIT),
+                                   ("points", False, ATE_LIMIT),
+                                   ("grid", False, GRID_ATE_LIMIT),
+                                   ("fused", True, ATE_LIMIT),
+                                   ("particle", True, PF_ATE_LIMIT)):
+        cfg = dataclasses.replace(base, icp=dataclasses.replace(
+            base.icp, matcher=matcher))
+        g42, g0 = seeded()
+        world = world2d.make_world(g42, cfg.sim, device=dev)
+        states = slam2d.init_state(cfg, FLEET, device=dev, generator=g0)
+        label = f"run_fleet --matcher {matcher}" + (
+            " --shared-map" if shared else "")
+        calls, patched = [], None
+        if matcher == "fused" and not shared:
+            patched = (icp_fused, "icp_fused_planes")
+        elif matcher == "points":
+            patched = (icp_mod, "nearest_neighbor")
+        elif matcher == "particle":
+            patched = (particle, "_score_kernel")
+        if patched:
+            fn = getattr(*patched)
+            setattr(*patched, kept(fn, calls, copy=True, last=True))
+        try:
+            r, got = counted(lambda: run_fleet.run(
+                cfg, world, states, ENTRY_STEPS, g0, shared_map=shared))
+        finally:
+            if patched:
+                setattr(*patched, fn)
+        del states
+        # PERF.md section 2's bound: the median per-robot ATE over ticks
+        # >= 10 of the mission (both runs)
+        med = float(slam2d.ate(r["est"][:, 10:], r["true"][:, 10:]).median())
+        if not med < limit or (shared and r["icp_ok"] != FLEET):
+            raise RuntimeError(f"[entry] {label}: median ATE {med} m (limit "
+                               f"{limit}), icp ok {r['icp_ok']}/{FLEET}, "
+                               f"fleet median xy error at the end "
+                               f"{r['median_err']} m")
+        need_launches(label, got, *{
+            "fused": ("K1",), "points": ("K4",), "grid": (),
+            "particle": ("K5", "K5 table")}[matcher])
+        if matcher == "grid" and got:
+            raise RuntimeError(f"[entry] {label} launched {got}")
+        held = ""
+        if matcher == "fused" and not shared:
+            args = calls[0][0]
+            a = near_tie_agreement(
+                "K1 on [entry]'s fused fleet", icp_fused.icp_fused_planes(
+                    *args), icp_fused.icp_fused_planes_reference(*args),
+                args[:6], args[6], args[7], max(1, FLEET // 20), 1)
+            out["k1_err"] = a["err"]
+            held = f"; K1 on its last tick vs plain: {agreement_text(a)}"
+        elif matcher == "points":
+            nn_equal("[entry]'s points fleet", calls[0])
+            held = "; K4 on its last call equal to plain"
+        elif matcher == "particle":
+            bits, grid, scan_xy, valid, parts, res = calls[0][0]
+            frac = particle._score_kernel(bits, grid, scan_xy, valid, parts,
+                                          res)
+            ref = particle.score_particles_reference(grid, scan_xy, valid,
+                                                     parts, res)
+            torch.cuda.synchronize()
+            if not same_bits(frac, ref) or not torch.equal(
+                    bits, particle.occupancy_bits_reference(grid.count)):
+                raise RuntimeError("[entry] K5 on the particle fleet's last "
+                                   "scoring disagrees with its plain version")
+            held = "; K5 and its bit table on its last scoring equal to plain"
+        del calls
+        say(f"{label}: {r['rate']:,.0f} robot-steps/s, median ATE "
+            f"{med:.4f} m (ticks>=10 of {r['est'].shape[1]}, limit "
+            f"{limit}), fleet median xy error at the end "
+            f"{r['median_err']:.4f} m, icp ok {r['icp_ok']}/{FLEET}"
+            f", launches {got}{held}")
+        del r
+
+    # run_sim2d, one robot
+    for graph in (False, True):
+        cfg = sim2d_config()
+        g42, g0 = seeded()
+        world = world2d.make_world(g42, cfg.sim, device=dev)
+        state = slam2d.init_state(cfg, 1, device=dev, generator=g0,
+                                  with_graph=graph)
+        calls, k2 = [], pg.icp_fused
+        pg.icp_fused = kept(k2, calls, copy=True)
+        try:
+            r, got = counted(lambda: run_sim2d.run(
+                cfg, world, state, ENTRY_SIM2D_STEPS, g0, graph=graph))
+        finally:
+            pg.icp_fused = k2
+        label = "run_sim2d" + (" --graph" if graph else "")
+        # config 1's bound, and config 4's with the pose graph
+        limit = GRAPH_ATE_LIMIT if graph else ATE_LIMIT
+        if not r["ate"] < limit:
+            raise RuntimeError(f"[entry] {label}: ATE {r['ate']} m (limit "
+                               f"{limit})")
+        need_launches(label, got, "K1", *(("K2", "K4") if graph else ()))
+        held, extra = "", ""
+        if graph:
+            if r["edges"] < 1:
+                raise RuntimeError(f"[entry] {label}: no edge in "
+                                   f"{r['keyframes']} keyframes")
+            args = max(calls, key=lambda c: int(
+                c[0][1].sum() + c[0][4].sum()))[0]
+            a = near_tie_agreement(
+                "K2 on [entry]'s run_sim2d --graph edges",
+                icp_fused.icp_fused(*args), icp_fused.icp_fused_reference(
+                    *args), icp_fused.packed_planes(*args[:6]), args[6],
+                args[7], max(1, args[0].shape[0] // 20), 1)
+            out["k2_err"] = a["err"]
+            extra = f", keyframes {r['keyframes']}, edges {r['edges']}"
+            held = (f"; K2 on the {args[0].shape[0]} edge problems of its "
+                    f"graph tick with the most points vs plain: "
+                    f"{agreement_text(a)}")
+        say(f"{label} --steps {ENTRY_SIM2D_STEPS}: ATE "
+            f"{r['ate']:.4f} m (limit {limit}), map points "
+            f"{r['map_points']}{extra}"
+            f", launches {got}{held}")
+        del calls
+
+    # run_sim3d, one robot. At the reference scale its z is held to
+    # sim3d's bound: on this world both packages read the wheel-contact
+    # height a sensor height low on some ticks (tests/test_torch_ref_height
+    # .py), past Z_REF_LIMIT's 16-tick bound over 60 steps
+    for ref_scale, xy_limit, z_limit in ((False, ATE_3D_LIMIT, Z_3D_LIMIT),
+                                         (True, ATE_REF_LIMIT, Z_3D_LIMIT)):
+        cfg = run_sim3d.config(ref_scale)
+        g42, g0 = seeded()
+        world = world3d.make_world(g42, cfg.sim, device=dev)
+        st = slam3d.init_state_3d(cfg, 1, world, device=dev, generator=g0)
+        gm = slam3d.init_ground_map(cfg, 1, dev)
+        r, got = counted(lambda: run_sim3d.run(cfg, world, st, gm,
+                                               ENTRY_SIM3D_STEPS, g0))
+        label = "run_sim3d" + (" --ref-scale" if ref_scale else "")
+        if not r["xy_ate"] < xy_limit or not r["z_err"] < z_limit:
+            raise RuntimeError(f"[entry] {label}: xy ATE {r['xy_ate']} m "
+                               f"(limit {xy_limit}), mean |z error| "
+                               f"{r['z_err']} m (limit {z_limit})")
+        if ref_scale and got:
+            raise RuntimeError(f"[entry] {label} (grid) launched {got}")
+        if not ref_scale:
+            need_launches(label, got, "K1")
+        say(f"{label} --steps {ENTRY_SIM3D_STEPS}: xy ATE "
+            f"{r['xy_ate']:.4f} m (limit {xy_limit}), mean |z "
+            f"error| {r['z_err']:.4f} m (limit {z_limit}), icp ok "
+            f"{r['icp_ok']}, launches {got}")
+
+    # run_reloc: --graph --save-pcd, then --prior-pcd on that map
+    native.build()
+    pcd = native.BUILD_DIR / "entry_map.pcd"
+    reloc = []
+    for graph, save, prior in ((True, str(pcd), None),
+                               (False, None, str(pcd))):
+        cfg = run_reloc.config()
+        g42, g0 = seeded()
+        world = world2d.make_world(g42, cfg.sim, device=dev)
+        st = slam2d.init_state(cfg, 1, device=dev, generator=g0,
+                               with_graph=graph)
+        calls, nn_fn = [], icp_mod.nearest_neighbor
+        icp_mod.nearest_neighbor = kept(nn_fn, calls, copy=True, last=True)
+        try:
+            r, got = counted(lambda: run_reloc.run(
+                cfg, world, st, ENTRY_RELOC_STEPS, g0, graph=graph,
+                save_pcd=save, prior_pcd=prior))
+        finally:
+            icp_mod.nearest_neighbor = nn_fn
+        label = "run_reloc" + (" --graph --save-pcd" if graph else
+                               " --prior-pcd")
+        if not r["ok"] or not r["err1"] < RELOC_LIMIT or (
+                graph and not r["injected"]):
+            raise RuntimeError(f"[entry] {label}: match ok {r['ok']} (score "
+                               f"{r['score']}), belief {r.get('err1')} m from "
+                               f"the truth (limit {RELOC_LIMIT}), edge "
+                               f"injected {r.get('injected')}")
+        need_launches(label, got, "K1", "K4", *(("K2",) if graph else ()))
+        nn_equal(f"[entry]'s {label} polish", calls[0])
+        reloc.append(r)
+        say(
+            f"{label}: mapped {ENTRY_RELOC_STEPS} steps, ATE "
+            f"{r['map_ate']:.4f} m, " + (
+                f"{r['saved_points']} map points saved, " if graph else
+                f"{r['prior_points']} prior points, ") +
+            f"kidnapped {r['err0']:.3f} m -> {r['err1']:.4f} m, score "
+            f"{r['score']:.3f}" + (f", edge injected ({r['edges_after']} "
+                                   f"edges)" if graph else "") +
+            f", launches {got}; K4 on the polish's last call equal to plain")
+    if reloc[1]["prior_points"] != reloc[0]["saved_points"]:
+        raise RuntimeError(f"[entry] run_reloc's pcd round trip: "
+                           f"{reloc[0]['saved_points']} points saved, "
+                           f"{reloc[1]['prior_points']} read back")
+
+    # eviction_study, one robot
+    for nodes in ENTRY_EVICT_NODES:
+        cfg = eviction_study.config(nodes)
+        g42, g0 = seeded()
+        world = world2d.make_world(g42, cfg.sim, device=dev)
+        st = slam2d.init_state(cfg, 1, device=dev, generator=g0,
+                               with_graph=True)
+        r, got = counted(lambda: eviction_study.run(
+            cfg, world, st, ENTRY_EVICT_MACROS, g0))
+        label = f"eviction_study --max-nodes {nodes}"
+        if not np.isfinite(r["overall"]) or r["nodes"] < 2:
+            raise RuntimeError(f"[entry] {label}: overall ATE "
+                               f"{r['overall']}, {r['nodes']} nodes")
+        need_launches(label, got, "K1", "K2", "K4")
+        say(
+            f"{label} --macros {ENTRY_EVICT_MACROS}: nodes {r['nodes']}, "
+            f"edges {r['edges']}, edges_dropped {r['edges_dropped']}, full "
+            f"{r['full']}, ATE by quarter [cm] " + " ".join(
+                f"{q * 100:.2f}" for q in r["quarters"]) +
+            f", overall {r['overall'] * 100:.2f}, launches {got}")
+
+    # make_replay's file through the native loader into live.consume
+    cfg = sim2d_config()
+    g42, _ = seeded()
+    world = world2d.make_world(g42, cfg.sim, device=dev)
+    n = ENTRY_FRAMES
+    path = native.BUILD_DIR / "entry_scans.bin"
+    r = make_replay.run(cfg, world, n, str(path), seed=0)
+    frames = replay.synth_frames(world, cfg.sim, n, seed=0)
+    if path.read_bytes() != frames.tobytes() or r["nbytes"] != frames.nbytes:
+        raise RuntimeError("[entry] make_replay's file differs from "
+                           "synth_frames' frames")
+    floats = replay.frame_floats(cfg.sim)
+
+    def consume_file():
+        ring = native.FrameRing(n + 8, (floats,))
+        loader = native.ScanLoader(ring, path=str(path), rate_hz=0.0,
+                                   loop=False)
+        step = live.EagerStep(live.init_carry(cfg, dev), cfg)
+        loader.start()
+        try:
+            poses, done = live.drain(ring, step, n, native.Profiler(),
+                                     live.Staging(floats, dev),
+                                     feed_alive=lambda: loader.produced < n)
+        finally:
+            loader.stop()
+        return poses, done, ring.dropped, loader.error
+    (poses, done, dropped, error), got = counted(consume_file)
+    _, truth = replay.drive_poses(n, cfg.sim.dt, dev)
+    med = float((poses[10:, :2] - truth[10:done, :2]).norm(dim=-1).median()) \
+        if done == n else float("nan")
+    if done != n or dropped or error or not med < LIVE_ERR_LIMIT:
+        raise RuntimeError(f"[entry] make_replay -> live.consume: {done} of "
+                           f"{n} frames, {dropped} dropped, loader error "
+                           f"{error}, median position error {med} m")
+    need_launches("live.consume", got, "K4")
+    say(f"make_replay --frames {n}: {r['nbytes']} bytes, equal to "
+        f"synth_frames' bit for bit, replayed by the native loader "
+        f"into live.consume: {done} frames, median position error "
+        f"{med:.4f} m (frames>=10), launches {got}")
+    if total["K3"]:
+        raise RuntimeError(f"[entry] K3 launched {total['K3']} times")
+    say(f"launches in all {total}")
+    out["launches"] = total
+    return out
 
 
 def live_phase(card) -> dict:
@@ -2604,7 +3116,8 @@ def live_phase(card) -> dict:
           f"{fps:.1f} frames/s, {unpaced['ms']:.3f} ms/frame (device_step), "
           f"dropped {unpaced['dropped']}; consume without graphs "
           f"{eager_ms:.3f} ms/frame, {ops_text(eager_ops, 4)} device ops "
-          f"a frame (frames 16-19); host syncs a frame "
+          f"a frame (frames 16-19); host syncs a frame (GraphedStep's fit "
+          f"loop, icp_fit's while form) "
           f"{len(syncs) / k:.2f} ({sync_sites(syncs)}) | {card}", flush=True)
     return dict(launches=launches, ms=paced["ms"], fps=fps)
 
@@ -2990,6 +3503,9 @@ def main() -> int:
     del state, pstate
     fcfg, launches["K5"], launches["K5 table"] = shared_fleet_phase(
         world, cfg, gen, card)
+    # [time]'s required device-op counts, before any large profiler
+    # session can leave torch.profiler blind (device_ops)
+    ops_a_call = call_ops(pf, fcfg.pf)
     launches["K1 (config 2)"] = rollout_3d_phase(
         cfg_mod.sim3d_config(), FLEET_3D, TICKS_3D, gen, card, "3d", "K1",
         10, ATE_3D_LIMIT, 15, Z_3D_LIMIT)
@@ -3046,7 +3562,6 @@ def main() -> int:
     pack = dict(alone=kernel_ms(pack_alone),
                 plain=cuda_ms(lambda: particle.occupancy_bits_reference(
                     count5)), bound=bound(nbytes(count5, bits5), 0.0))
-    ops_a_call = call_ops(pf, fcfg.pf)
     nn_ops = ops_a_call["nearest_neighbor"]["n"]
     k5_ops = ops_a_call["score_particles"]["n"]
     if nn_ops != 1 or k5_ops != 2 or ops_a_call["pf_match"]["K5"] != 3:
@@ -3127,6 +3642,12 @@ def main() -> int:
               f"C={C} {a:.4f} / {b:.4f}" for C, a, b in crossover) +
           f" | {card}", flush=True)
 
+    # the entry points after every device-op count: torch.profiler missed
+    # [time]'s required K4 canaries when they ran before it
+    entry = entry_phase(card)
+    launches["K1 (entry)"] = entry["launches"]["K1"]
+    for k in ("K2", "K4", "K5", "K5 table"):
+        launches[k] += entry["launches"][k]
     fiducial_phase(card)
 
     leaked = sorted(m for m in sys.modules
@@ -3147,12 +3668,12 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("icp_fused_planes (K1)", "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:59", "K1, every path",
-               max(k1["pose_err"], se3["k1_err"]), k1_ms,
+               max(k1["pose_err"], se3["k1_err"], entry["k1_err"]), k1_ms,
                k1_plain_ms, k1_bound),
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:39", "K2",
-               max(graph["k2_err"], se3["k2_err"]),
+               max(graph["k2_err"], se3["k2_err"], entry["k2_err"]),
                graph["k2_ms"], graph["k2_plain_ms"], graph["k2_bound"]),
         record("icp_fused_planes_tiled (K3)",
                "slam_tpu_torch/csrc/icp_tiled.cu",

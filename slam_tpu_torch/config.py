@@ -71,8 +71,12 @@ class IcpConfig:
     # nearest-centroid field of the point-map grid, ops/grid_icp.py),
     # "particle" (particle filter on the point-map grid, kernel K5; cfg.pf)
     matcher: str = "fused"
-    loop: str = "while"                  # grid-matcher loop form ("scan"
-                                         # or "while": the same result)
+    # fit loop form of icp_fit, icp_fit_grid and icp3d_fit: "while" stops
+    # once every robot of the batch has converged (a host read of the
+    # converged flags each iteration); "scan" runs max_iterations steps
+    # with no host read. Converged robots are frozen either way, so both
+    # give the same result.
+    loop: str = "while"
     min_delta: float = 1e-6              # convergence gate
     inlier_dist: float = 5.0
     crop_dist: float = 75.0              # target crop half-extent [m]

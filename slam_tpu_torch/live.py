@@ -142,8 +142,10 @@ class GraphedStep:
     icp_advance, icp_result): each iteration reads the converged flags
     (icp_fit's host sync), replays the placing of the scene, calls
     nearest_neighbor eagerly (K4, through its wrapper) and replays the
-    update. The same kernels on the same values as consume (but for the
-    order of the map fold's float atomics)."""
+    update. That is icp_fit's "while" form whatever cfg.icp.loop says:
+    the loop is this class's own, and its early exit is what keeps a
+    frame short. The same kernels on the same values as consume (but for
+    the order of the map fold's float atomics)."""
 
     def __init__(self, carry, cfg, frame: torch.Tensor):
         self.cfg = cfg

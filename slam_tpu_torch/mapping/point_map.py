@@ -71,6 +71,15 @@ def offset_point_map_z(grid: PointMapGrid, dz: torch.Tensor) -> PointMapGrid:
     return grid.replace(sum_z=grid.sum_z + dz[:, None, None] * grid.count)
 
 
+def update_point_map(grid: PointMapGrid, xyz_world: torch.Tensor,
+                     valid: torch.Tensor,
+                     resolution: float | None = None) -> PointMapGrid:
+    """Fold world-frame points (B, N, 3) into the grid, z included: the
+    cloud form of update_point_map_xy."""
+    return update_point_map_xy(grid, xyz_world[..., 0], xyz_world[..., 1],
+                               xyz_world[..., 2], valid, resolution)
+
+
 def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
                         qy: torch.Tensor, qz, valid: torch.Tensor,
                         resolution: float | None = None) -> PointMapGrid:

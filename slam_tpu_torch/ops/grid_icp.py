@@ -10,10 +10,12 @@ resolved from the query's cell centre, so a correspondence can differ
 from the exact nearest near the boundary between two centroids.
 
 slam_tpu reaches no Pallas kernel here: the flood is rolls and selects,
-the fit a gather and the 2D Procrustes, all plain PyTorch. The fit runs
-exactly cfg.max_iterations iterations with converged robots frozen, which
-is the result slam_tpu's "scan" and "while" loops both give, and never
-reads a value back to the host.
+the fit a gather and the 2D Procrustes, all plain PyTorch. The fit
+freezes converged robots and follows cfg.loop as slam_tpu does: "scan"
+runs exactly cfg.max_iterations iterations and never reads a value back
+to the host; "while" stops once every robot has converged, at the cost
+of one host read of the converged flags an iteration. Both give the
+same result.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from slam_tpu_torch import true_div
 from slam_tpu_torch.geometry import angle_wrap, rot2
-from slam_tpu_torch.ops.icp import IcpResult, procrustes_2d
+from slam_tpu_torch.ops.icp import IcpResult, _eye, procrustes_2d
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.types import Replaceable
 
@@ -143,15 +145,46 @@ def lookup(field: NearestField, q: torch.Tensor, q_ga: torch.Tensor):
                           field.resolution, q, q_ga.to(torch.int64) * G * G)
 
 
+def fit_step_grid(table, G: int, field: NearestField, scene_xyz,
+                  participate, class_row, pose, inlier_dist: float):
+    """One "grid" ICP step of scenes (B, S, 2) from poses (B, 3) against a
+    pack_field table: (new_pose, delta, num_corr, mean_res), the pose kept
+    and delta -1 where no correspondence was found."""
+    dt = pose.dtype
+    R = rot2(pose[:, 2])
+    q = torch.einsum("bij,bnj->bni", R, scene_xyz) + pose[:, None, :2]
+    m_pt, m_ok = _lookup_packed(table, G, field.center, field.resolution,
+                                q, class_row)
+    d2 = ((q - m_pt) ** 2).sum(-1)
+    inlier = participate & m_ok & (d2 < inlier_dist)
+    w = inlier.to(dt)
+    dyaw, dtr, wsum = procrustes_2d(q, m_pt, w)
+    R_ = rot2(dyaw)
+    new_pose = torch.cat([
+        torch.einsum("bij,bj->bi", R_, pose[:, :2]) + dtr,
+        angle_wrap(pose[:, 2] + dyaw)[:, None]], -1)
+    eye = _eye(2, dt, pose.device)
+    frob = torch.sqrt(((R_ - eye) ** 2).sum((-2, -1)))
+    d = torch.maximum(frob, torch.sqrt((dtr ** 2).sum(-1)))
+    nc = inlier.sum(-1).to(torch.int32)
+    mr = (w * d2).sum(-1) / torch.clamp(wsum, min=1e-12)
+    has_corr = nc > 0
+    new_pose = torch.where(has_corr[:, None], new_pose, pose)
+    d = torch.where(has_corr, d, -1.0)
+    return new_pose, d, nc, mr
+
+
 def icp_fit_grid(scene_xyz, scene_valid, scene_ga, field: NearestField,
                  init_pose, cfg) -> IcpResult:
     """ICP of scenes (B, S, 2) against the nearest-centroid field from
-    init_pose (B, 3): cfg.max_iterations iterations, a robot frozen from
-    the iteration after its step falls below cfg.min_delta or finds no
-    correspondence (that iteration's pose is still applied); a class takes
-    part only with more than 3 model cells; correspondences farther than
-    cfg.inlier_dist (squared) are outliers. ok needs cfg.min_scene_points
-    scene points, 5 model cells and a correspondence at the end."""
+    init_pose (B, 3): up to cfg.max_iterations iterations, a robot frozen
+    from the iteration after its step falls below cfg.min_delta or finds
+    no correspondence (that iteration's pose is still applied); a class
+    takes part only with more than 3 model cells; correspondences farther
+    than cfg.inlier_dist (squared) are outliers. ok needs
+    cfg.min_scene_points scene points, 5 model cells and a correspondence
+    at the end. cfg.loop "while" stops once every robot is frozen (a host
+    read an iteration), "scan" runs every iteration without one."""
     ok = (scene_valid.sum(-1) >= cfg.min_scene_points) & \
         (field.n_class.sum(-1) >= 5)
     ga = scene_ga.to(torch.int64)
@@ -162,32 +195,18 @@ def icp_fit_grid(scene_xyz, scene_valid, scene_ga, field: NearestField,
 
     B = init_pose.shape[0]
     dev, dt = init_pose.device, init_pose.dtype
-    eye = torch.eye(2, dtype=dt, device=dev)
     pose = init_pose
     converged = ~ok
     num_corr = torch.zeros(B, dtype=torch.int32, device=dev)
     mean_res = torch.zeros(B, dtype=dt, device=dev)
     delta = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    early_exit = cfg.loop == "while"
     for _ in range(cfg.max_iterations):
-        R = rot2(pose[:, 2])
-        q = torch.einsum("bij,bnj->bni", R, scene_xyz) + pose[:, None, :2]
-        m_pt, m_ok = _lookup_packed(table, G, field.center, field.resolution,
-                                    q, class_row)
-        d2 = ((q - m_pt) ** 2).sum(-1)
-        inlier = participate & m_ok & (d2 < cfg.inlier_dist)
-        w = inlier.to(dt)
-        dyaw, dtr, wsum = procrustes_2d(q, m_pt, w)
-        R_ = rot2(dyaw)
-        new_pose = torch.cat([
-            torch.einsum("bij,bj->bi", R_, pose[:, :2]) + dtr,
-            angle_wrap(pose[:, 2] + dyaw)[:, None]], -1)
-        frob = torch.sqrt(((R_ - eye) ** 2).sum((-2, -1)))
-        d = torch.maximum(frob, torch.sqrt((dtr ** 2).sum(-1)))
-        nc = inlier.sum(-1).to(torch.int32)
-        mr = (w * d2).sum(-1) / torch.clamp(wsum, min=1e-12)
-        has_corr = nc > 0
-        new_pose = torch.where(has_corr[:, None], new_pose, pose)
-        d = torch.where(has_corr, d, -1.0)
+        if early_exit and bool(converged.all()):
+            break
+        new_pose, d, nc, mr = fit_step_grid(table, G, field, scene_xyz,
+                                            participate, class_row, pose,
+                                            cfg.inlier_dist)
         stop = converged | (d < cfg.min_delta) | (d < 0)
         pose = torch.where(converged[:, None], pose, new_pose)
         num_corr = torch.where(converged, num_corr, nc)

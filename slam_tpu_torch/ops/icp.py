@@ -156,13 +156,15 @@ def icp_result(ok, loop: IcpLoop, init_pose) -> IcpResult:
 def icp_fit(scene_xyz, scene_valid, scene_ga, model_xyz, model_valid,
             model_ga, init_pose, cfg) -> IcpResult:
     """Full ICP fit (<= cfg.max_iterations steps, min_delta convergence).
-    Robots that converge are frozen; the loop stops once all have, which
-    gives the same result as always running max_iterations (reading that
-    flag is a host sync an iteration)."""
+    Robots that converge are frozen. cfg.loop "while" stops once all have
+    (reading that flag is a host sync an iteration); "scan" runs exactly
+    cfg.max_iterations steps and never waits for the card. Both give the
+    same result."""
     ok, participate, loop = icp_start(scene_valid, scene_ga, model_valid,
                                       model_ga, init_pose, cfg)
+    early_exit = cfg.loop == "while"
     for _ in range(cfg.max_iterations):
-        if bool(loop.converged.all()):
+        if early_exit and bool(loop.converged.all()):
             break
         q = transform(scene_xyz, loop.pose)
         idx, d2 = nearest_neighbor(q, model_xyz, model_valid, q_class=scene_ga,

@@ -7,10 +7,11 @@ nearest model point of its own class (ops/nn.nearest_neighbor, plain
 PyTorch in 3D: no TPU kernel stands behind it), gates inliers by squared
 distance, solves a weighted 3D Kabsch on the obstacle inliers
 (ops/align.rigid_transform_3d, with no host read) and then a z-only
-plane fit (z, roll, pitch) on the ground inliers. The loop runs all
-max_iterations steps for every problem and freezes each one once it has
-converged, which gives slam_tpu's results (its batch early exit stops
-only when every problem has), and never waits for the card.
+plane fit (z, roll, pitch) on the ground inliers. The loop freezes each
+problem once it has converged and follows cfg.loop as slam_tpu does:
+"scan" runs all max_iterations steps and never waits for the card;
+"while" stops once every problem has converged, at one host read of the
+converged flags a step. Both give the same result.
 """
 
 from __future__ import annotations
@@ -120,7 +121,8 @@ def icp3d_fit(scene_xyz, scene_valid, scene_class, model_xyz, model_valid,
     obstacle, 2 ground), init_t (n, 3), init_R (n, 3, 3) the relative
     odometry. ok needs >= cfg.min_scene_points scene and >= 5 model
     points and a correspondence at the last step; a problem that is not
-    ok keeps its initial pose."""
+    ok keeps its initial pose. cfg.loop "while" stops once every problem
+    has converged (a host read a step), "scan" runs every step."""
     iters = cfg.max_iterations if max_iterations is None else max_iterations
     ok = (scene_valid.sum(-1) >= cfg.min_scene_points) & \
         (model_valid.sum(-1) >= 5)
@@ -131,7 +133,10 @@ def icp3d_fit(scene_xyz, scene_valid, scene_class, model_xyz, model_valid,
     num_corr = torch.zeros(n, dtype=torch.int32, device=dev)
     mean_res = torch.zeros(n, dtype=dt, device=dev)
     delta = torch.full((n,), float("inf"), dtype=dt, device=dev)
+    early_exit = cfg.loop == "while"
     for _ in range(iters):
+        if early_exit and bool(converged.all()):
+            break
         nt, nR, d, nc, mr = fit_step_3d(
             scene_xyz, scene_valid, scene_class, model_xyz, model_valid,
             model_class, t, R, cfg.inlier_dist)

@@ -38,6 +38,18 @@ launches = 0
 pack_launches = 0
 
 
+class PFConfig(NamedTuple):
+    """pf_match's parameters, slam_tpu's ops-level form (config.PfConfig is
+    the same fields in the SlamConfig tree; pf_match reads either)."""
+    num_particles: int = 128
+    pos_sigma: float = 0.3       # proposal spread around the prediction [m]
+    yaw_sigma: float = 0.05      # [rad]
+    temperature: float = 0.1     # softmax temperature on hit fractions
+    min_score: float = 0.2       # acceptance gate (hit fraction)
+    score_stride: int = 1        # score every k-th scan point
+    scorer: str = "auto"         # KERNEL_SCORERS or PLAIN_SCORERS
+
+
 class PFResult(NamedTuple):
     pose: torch.Tensor       # (B, 3) weighted-mean pose
     score: torch.Tensor      # (B,) hit fraction of the returned pose
@@ -214,7 +226,8 @@ def _sigma(cfg, dev) -> torch.Tensor:
 
 
 def pf_match(grid: PointMapGrid, scan, pred_pose: torch.Tensor,
-             resolution: float, cfg, generator: torch.Generator | None = None,
+             resolution: float, cfg: PFConfig = PFConfig(),
+             generator: torch.Generator | None = None,
              noise: torch.Tensor | None = None,
              u: torch.Tensor | None = None) -> PFResult:
     """One particle-filter measurement step for the fleet. scan: a batched

@@ -1,5 +1,6 @@
 """Batched 2D grid scatter-add and cell gather — counterpart of
-slam_tpu/ops/scatter2d.py (`scatter_add_2d_multi`, `gather_cells_2d`).
+slam_tpu/ops/scatter2d.py (`scatter_add_2d_multi`, `gather_cells_2d`,
+`scatter_max_2d`).
 
 The JAX package writes these as one-hot matmuls because TPU scatters and
 gathers serialize; here they are `index_add_` and indexing. Counts are exact
@@ -48,3 +49,23 @@ def gather_cells_2d(grids: tuple, ci: torch.Tensor,
     B, H, W = grids[0].shape
     flat = (ci.clamp(0, H - 1) * W + cj.clamp(0, W - 1)).long()
     return tuple(torch.gather(g.reshape(B, H * W), 1, flat) for g in grids)
+
+
+def scatter_max_2d(cx: torch.Tensor, cy: torch.Tensor, values: torch.Tensor,
+                   valid: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """(..., H, W) max of per-point scalars (..., N) at cells (cx, cy);
+    cells no valid in-grid point touches read 0.0 (for "touched" flags pass
+    values of 1.0 and compare > 0). One `scatter_reduce_` "amax" into a
+    grid of float32's lowest value, with include_self, so a cell's first
+    point competes with that floor as slam_tpu's `.at[].max` does."""
+    H, W = shape
+    lead = cx.shape[:-1]
+    inb = valid & (cx >= 0) & (cy >= 0) & (cx < H) & (cy < W)
+    flat = torch.where(inb, cx * W + cy, H * W).to(torch.int64)
+    neg = torch.finfo(torch.float32).min
+    vv = torch.where(inb, values.to(torch.float32), neg)
+    acc = torch.full(lead + (H * W + 1,), neg, dtype=torch.float32,
+                     device=cx.device)
+    acc.scatter_reduce_(-1, flat, vv, "amax", include_self=True)
+    out = acc[..., :H * W].reshape(lead + (H, W))
+    return torch.where(out == neg, 0.0, out)

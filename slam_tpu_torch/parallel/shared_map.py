@@ -19,6 +19,7 @@ from slam_tpu_torch.geometry import se2_apply_xy
 from slam_tpu_torch.mapping.point_map import (PointMapGrid,
                                               update_point_map_xy)
 from slam_tpu_torch.pipeline import slam2d
+from slam_tpu_torch.utils import metrics
 
 
 def _alignment_guard(grids: PointMapGrid) -> torch.Tensor:
@@ -65,7 +66,8 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
     Random draws come from `generator`; without one, a fresh generator on
     the card (the states must then lie there). Returns (final_states,
     shared, (est, true)) with trajectories (B, num_macro * ticks_per_macro,
-    3)."""
+    3). Under metrics.nan_debug the states and the shared grid are checked
+    finite after every tick."""
     if generator is None:
         generator = torch.Generator(device=default_device())
     dev = states.pose.device
@@ -84,6 +86,7 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
                                       incremental_map=False,
                                       refresh_map=False, shift_maps=False,
                                       pf_target=shared)
+            metrics.check_finite(len(est), state=states, shared=shared)
             sc = states.prev_scene
             mp = torch.where(states.scan_reg_ok[:, None],
                              states.scan_reg_pose[:, :3], states.pose[:, :3])

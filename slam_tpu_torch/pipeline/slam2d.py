@@ -409,7 +409,8 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
     itself: neither exports) and re-centres both rolling grids once (the
     robot moves about a cell per macro); its ticks then register against
     that target and skip the shifts. Returns (final_state, (est, true)),
-    trajectories (B, num_steps, 3)."""
+    trajectories (B, num_steps, 3). Under metrics.nan_debug the state is
+    checked finite after every tick."""
     num_macro = -(-num_steps // field_every)
     est, true = [], []
     s = state
@@ -431,6 +432,7 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
             s = slam_step(s, world, cfg, generator, field=field,
                           refresh_map=False, shift_maps=False,
                           target_planes=planes)
+            metrics.check_finite(len(est), state=s)
             est.append(s.pose[:, :3])
             true.append(s.true_pose[:, :3])
     return s, (torch.stack(est, 1)[:, :num_steps],
@@ -520,7 +522,8 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
     occupancy grid, graph_every ticks registering against the graph's
     regenerated target (incremental_map=False: the robots keep no map
     grid), then a graph tick. Returns (final_state, (est, true)),
-    trajectories (B, num_macro * graph_every, 3)."""
+    trajectories (B, num_macro * graph_every, 3). Under metrics.nan_debug
+    the state is checked finite after every tick and graph tick."""
     est, true = [], []
     s = state
     for _ in range(num_macro):
@@ -529,9 +532,11 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
         for _ in range(graph_every):
             s = slam_step(s, world, cfg, generator, incremental_map=False,
                           shift_maps=False)
+            metrics.check_finite(len(est), state=s)
             est.append(s.pose[:, :3])
             true.append(s.true_pose[:, :3])
         s = graph_update(s, cfg)
+        metrics.check_finite(len(est) - 1, state=s)
     return s, (torch.stack(est, 1), torch.stack(true, 1))
 
 

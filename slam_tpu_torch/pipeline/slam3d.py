@@ -27,6 +27,9 @@ On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points". Graph mode registers "grid" as "points", as
 slam_tpu does: the field reads the obstacle grid, which graph mode does
 not keep.
+
+`GroundMap` (types.py) is importable from here, as slam_tpu defines it
+here; `build_scene_3d` is the cloud-out form of `build_scene_3d_planes`.
 """
 
 from __future__ import annotations
@@ -128,6 +131,22 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
     (ox, oy, oz), okeep, (oga, odrv) = voxel_downsample_pairwise_planes(
         ox, oy, oz, ovalid, (oga.to(x.dtype), odrv), cfg.icp.voxel_leaf_obs)
     return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
+
+
+def build_scene_3d(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
+    """build_scene_3d_planes with clouds out: (obstacle scene, ground
+    cloud), the ground compacted to cfg.cloud.ground_capacity slots."""
+    (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
+        build_scene_3d_planes(scan_xyz, hit, cfg)
+    obs = _planes_to_cloud_3d(ox, oy, oz, oga, odrv, ovalid)
+    (gx, gy, gz), gvalid = compact_planes((gx, gy, gz), gvalid,
+                                          cfg.cloud.ground_capacity)
+    gnd = PointCloud(
+        xyz=torch.where(gvalid[..., None], torch.stack([gx, gy, gz], -1),
+                        0.0),
+        valid=gvalid,
+        flags=torch.where(gvalid, PointCloud.FLAG_GROUND, 0).to(torch.int32))
+    return obs, gnd
 
 
 def _reclassified_target_planes(map_cloud: PointCloud, pred, cfg):
@@ -361,7 +380,8 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
     register against that target and skip the shifts. Returns (final
     state, final ground map, (est, true, reg_ok)): trajectories (B,
     num_steps, 4) [x, y, yaw, z] and each tick's registration flag (B,
-    num_steps) (slam_tpu returns the first two)."""
+    num_steps) (slam_tpu returns the first two). Under metrics.nan_debug
+    the state and ground map are checked finite after every tick."""
     num_macro = -(-num_steps // field_every)
     s, gm = state, ground_map
     est, true, reg_ok = [], [], []
@@ -386,6 +406,7 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
             s, gm = slam_step_3d(s, world, gm, cfg, generator,
                                  refresh_map=False, shift_maps=False,
                                  target_planes=planes, field=field)
+            metrics.check_finite(len(est), state=s, ground_map=gm)
             est.append(s.pose)
             true.append(s.true_pose)
             reg_ok.append(s.scan_reg_ok)

@@ -24,9 +24,11 @@ class World2D:
     extent: torch.Tensor   # () half-extent of the square arena
 
 
-def make_world(generator: torch.Generator, cfg, device=None) -> World2D:
-    """Random circular obstacles, pushed out of an 8 m spawn disk; on the
-    card unless `device` says otherwise (`generator` must live there too)."""
+def place_obstacles(generator: torch.Generator, cfg, device=None):
+    """Random obstacle centres (M, 2) and radii (M,), the centres pushed
+    out of the robot's 8 m spawn disk: the placement both worlds share
+    (world3d adds heights). Centres are drawn first, then radii, from
+    `generator` (which must live on `device`)."""
     device = default_device(device)
     M = cfg.num_obstacles
     e = cfg.world_extent * 0.9
@@ -36,6 +38,14 @@ def make_world(generator: torch.Generator, cfg, device=None) -> World2D:
     radii = cfg.obstacle_radius_min + torch.rand(
         M, generator=generator, device=device) * (
         cfg.obstacle_radius_max - cfg.obstacle_radius_min)
+    return pos, radii
+
+
+def make_world(generator: torch.Generator, cfg, device=None) -> World2D:
+    """Random circular obstacles, pushed out of an 8 m spawn disk; on the
+    card unless `device` says otherwise (`generator` must live there too)."""
+    device = default_device(device)
+    pos, radii = place_obstacles(generator, cfg, device)
     return World2D(centers=pos, radii=radii,
                    extent=torch.tensor(cfg.world_extent, device=device))
 

@@ -18,7 +18,7 @@ import torch
 
 from slam_tpu_torch import default_device
 from slam_tpu_torch.geometry import rot3_from_rpy
-from slam_tpu_torch.sim.world2d import make_world as make_world_2d
+from slam_tpu_torch.sim.world2d import place_obstacles
 
 
 @dataclasses.dataclass
@@ -43,16 +43,16 @@ def make_world(generator: torch.Generator, cfg, terrain_amp: float = 0.6,
     heights, on a terrain of `num_waves` random sines; on the card unless
     `device` says otherwise (`generator` must live there too)."""
     device = default_device(device)
-    w2 = make_world_2d(generator, cfg, device=device)
+    pos, radii = place_obstacles(generator, cfg, device)
     M = cfg.num_obstacles
     heights = 0.5 + 2.5 * torch.rand(M, generator=generator, device=device)
     freq = 0.02 + 0.06 * torch.rand(num_waves, 2, generator=generator,
                                     device=device)
     phase = torch.linspace(0.0, 3.0, num_waves, device=device)[:, None]
     amp = torch.full((num_waves, 1), terrain_amp / num_waves, device=device)
-    return World3D(centers=w2.centers, radii=w2.radii, heights=heights,
+    return World3D(centers=pos, radii=radii, heights=heights,
                    terrain=torch.cat([freq, phase, amp], -1),
-                   extent=w2.extent)
+                   extent=torch.tensor(cfg.world_extent, device=device))
 
 
 def ray_directions(cfg, yaw: torch.Tensor) -> torch.Tensor:

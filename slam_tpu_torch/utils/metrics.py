@@ -13,6 +13,9 @@ Two channels, as in slam_tpu:
   indexed write at count % capacity with no host sync; `drain_ring` reads
   the rows back once a block of ticks has run.
 
+`nan_debug(True)` turns on a finite check of the state after every tick
+of the rollouts, the counterpart of slam_tpu's jax_debug_nans.
+
 Usage:
     from slam_tpu_torch.utils import metrics
     metrics.enable()
@@ -23,6 +26,7 @@ Usage:
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Callable
 
@@ -35,6 +39,7 @@ _lock = threading.Lock()
 _enabled = False
 _records: list[dict] = []
 _user_cb: Callable[[dict], None] | None = None
+_nan_debug = False
 
 
 def enabled() -> bool:
@@ -176,3 +181,51 @@ def drain_ring(ring) -> list[dict]:
                     in enumerate(zip(RING_CHANNELS, r)) if mask & (1 << c)})
         out.append(rec)
     return out
+
+
+# ---------- NaN debugging ----------
+
+def nan_debug(enable: bool = True) -> None:
+    """Opt-in NaN debugging (slam_tpu sets jax_debug_nans, which raises at
+    the primitive that made a NaN; torch has no such trap for forward
+    ops). When on, the rollouts (slam2d.rollout, rollout_with_graph,
+    slam3d.rollout_3d, shared_map.fleet_rollout_shared) check after every
+    tick that each float field of their state is finite, and raise
+    FloatingPointError at the first tick and field that is not. Off by
+    default; on, it costs one host read a tick (a sync with the card)."""
+    global _nan_debug
+    _nan_debug = bool(enable)
+
+
+def _float_fields(tree, path: str):
+    """(path, tensor) of every float tensor in a state tree of dataclasses
+    and tuples. The metrics ring is skipped: its unwritten rows are NaN by
+    design."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_floating_point():
+            yield path, tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            if f.name != "metrics_ring":
+                yield from _float_fields(getattr(tree, f.name),
+                                         f"{path}.{f.name}")
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _float_fields(t, f"{path}[{i}]")
+
+
+def check_finite(tick: int, **trees) -> None:
+    """Under nan_debug, raise FloatingPointError naming the tick and the
+    first field of `trees` (name=state tree) holding a NaN or an infinity;
+    otherwise return at once, reading nothing."""
+    if not _nan_debug:
+        return
+    fields = [f for name, tree in trees.items()
+              for f in _float_fields(tree, name)]
+    if not fields or bool(torch.stack(
+            [torch.isfinite(t).all() for _, t in fields]).all()):
+        return
+    for name, t in fields:
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(
+                f"nan_debug: tick {tick}: {name} is not finite")

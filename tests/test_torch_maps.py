@@ -61,6 +61,28 @@ def test_point_map_update_and_shift_match_jax():
     assert_close(tg.center, jg.center, atol=0)
 
 
+def test_update_point_map_cloud_form_matches_jax():
+    """update_point_map folds (B, N, 3) world points, z included, as
+    slam_tpu's does on (N, 3); it is update_point_map_xy with the z
+    plane."""
+    qx, qy, valid = _points(B=2, seed=7)
+    qz = np.random.default_rng(8).normal(0, 1, qx.shape).astype(np.float32)
+    xyz = np.stack([qx, qy, qz], -1)
+    jg = jax.vmap(lambda p, v: jpm.update_point_map(
+        jpm.init_point_map(G, RES), p, v, RES))(xyz, valid)
+    tg = tpm.update_point_map(tpm.init_point_map(2, G, RES, device="cpu"),
+                              to_torch(xyz), to_torch(valid), RES)
+    assert_equal(tg.count, jg.count)
+    assert_close(tg.sum_x, jg.sum_x, atol=1e-5)
+    assert_close(tg.sum_y, jg.sum_y, atol=1e-5)
+    assert_close(tg.sum_z, jg.sum_z, atol=1e-5)
+    xy = tpm.update_point_map_xy(tpm.init_point_map(2, G, RES, device="cpu"),
+                                 to_torch(qx), to_torch(qy), to_torch(qz),
+                                 to_torch(valid), RES)
+    for f in ("count", "sum_x", "sum_y", "sum_z"):
+        assert_equal(getattr(tg, f), getattr(xy, f))
+
+
 @pytest.mark.parametrize("recall", [1.0, 0.8])
 def test_export_overflow_tie_order_matches_jax(recall):
     jg, tg = _both_maps(steps=4, seed=7)

@@ -1,6 +1,7 @@
 """The port stands alone: slam_tpu_torch imports and runs a tick (and
 imports its pose graph, MLS, FFT-match, relocalization, metrics, live,
-fiducial, calibration, sample-map and utility modules, and builds and
+fiducial, calibration, sample-map and utility modules and its entry
+points, and builds and
 drives its native runtime in build/slam_tpu_torch/) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
 slam_tpu package or builds a path into slam_tpu/, and chip_smoke.py
@@ -52,6 +53,13 @@ import slam_tpu_torch.utils.pcd
 import slam_tpu_torch.utils.profiling
 import slam_tpu_torch.utils.trajectory
 import slam_tpu_torch.utils.viz
+# the entry points users run
+import slam_tpu_torch.eviction_study
+import slam_tpu_torch.make_replay
+import slam_tpu_torch.run_fleet
+import slam_tpu_torch.run_reloc
+import slam_tpu_torch.run_sim2d
+import slam_tpu_torch.run_sim3d
 from slam_tpu_torch.runtime import native
 lib = native.build()
 assert str(lib.parent) == os.path.join(ROOT, "build", "slam_tpu_torch"), lib

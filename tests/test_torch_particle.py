@@ -189,6 +189,29 @@ def test_pf_match_matches_jax_draws():
     np.testing.assert_array_equal(gp[clear], wp[clear])
 
 
+def test_pf_config_is_jaxs_and_drives_pf_match():
+    """ops/particle.PFConfig has slam_tpu's fields and defaults, and
+    pf_match reads it as it reads config.PfConfig (its default)."""
+    assert tpart.PFConfig._fields == jpart.PFConfig._fields
+    assert tpart.PFConfig() == tuple(jpart.PFConfig())
+    assert tpart.PFConfig._fields == tuple(
+        f.name for f in dataclasses.fields(PfConfig))
+    jgrids, scans, valid, parts = _problem(B=2, N=120, seed=6)
+    cloud = PointCloud(xyz=to_torch(_cloud(scans, valid)[0]),
+                       valid=to_torch(valid),
+                       flags=torch.zeros(valid.shape, dtype=torch.int32))
+    pred = to_torch(parts[:, 0])
+    P = tpart.PFConfig().num_particles
+    noise = torch.randn(2, P, 3, generator=torch.Generator().manual_seed(1))
+    u = torch.rand(2, generator=torch.Generator().manual_seed(2))
+    a = tpart.pf_match(_port_grid(jgrids), cloud, pred, RES, noise=noise,
+                       u=u)
+    b = tpart.pf_match(_port_grid(jgrids), cloud, pred, RES, PfConfig(),
+                       noise=noise, u=u)
+    for x, y in zip(a, b):
+        assert_equal(x, y)
+
+
 def test_pf_match_needs_draws():
     jgrids, scans, valid, parts = _problem(B=2, seed=4)
     cloud = PointCloud(xyz=to_torch(_cloud(scans, valid)[0]),

@@ -66,6 +66,29 @@ def test_gather_cells_2d_matches_jax():
     assert_close(torch.stack(got, -1), want, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["test_grid_icp", "batched"])
+def test_scatter_max_2d_matches_jax(case):
+    """tests/test_grid_icp.py's cases (a real max, negative values, a
+    masked lane, untouched cells at 0) and random batched cells with
+    out-of-grid and NaN-carrying masked lanes: exact."""
+    if case == "test_grid_icp":
+        cx, cy = np.array([[1, 1, 2, 5]]), np.array([[1, 1, 3, 5]])
+        v = np.array([[3.0, 5.0, -2.0, 7.0]], np.float32)
+        valid = np.array([[True, True, True, False]])
+        shape = (8, 8)
+    else:
+        cx, cy, v, valid = _cells(seed=3)
+        shape = (24, 20)
+    got = tsc.scatter_max_2d(to_torch(cx), to_torch(cy), to_torch(v),
+                             to_torch(valid), shape)
+    want = jax.vmap(lambda a, b, c, d: jsc.scatter_max_2d(a, b, c, d, shape))(
+        cx, cy, v, valid)
+    assert_equal(got, want)
+    if case == "test_grid_icp":
+        assert float(got[0, 1, 1]) == 5.0 and float(got[0, 2, 3]) == -2.0
+        assert float(got[0, 5, 5]) == 0.0 and float(got[0, 0, 0]) == 0.0
+
+
 @pytest.mark.parametrize("raster", ["indicator", "float"])
 def test_neighbor_sum_2d_matches_jax(raster):
     rng = np.random.default_rng(2)

@@ -92,3 +92,43 @@ def test_scan_drive_kinematics_match_jax():
                  jax.vmap(lambda p, c: jw.unicycle_step(p, c, CFG.sim.dt))(
                      jnp.asarray(pose), jnp.asarray(cmd.numpy())),
                  atol=1e-5)
+
+
+def test_place_obstacles_is_make_worlds_placement():
+    """place_obstacles draws the centres, then the radii, as make_world
+    did before it was split out (the seed-0 and seed-42 worlds are
+    unchanged), world3d places its cylinders with it, and its placement
+    follows slam_tpu's rule: centres within 0.9 of the extent, pushed out
+    of the 8 m spawn disk, radii within the configured range."""
+    from slam_tpu_torch.config import sim3d_config as tsim3d_config
+    from slam_tpu_torch.sim import world3d as tw3
+    for seed in (0, 42):
+        pos, radii = tw.place_obstacles(torch.Generator().manual_seed(seed),
+                                        CFG.sim, "cpu")
+        w = tw.make_world(torch.Generator().manual_seed(seed), CFG.sim,
+                          device="cpu")
+        assert_equal(pos, w.centers)
+        assert_equal(radii, w.radii)
+        c3 = tsim3d_config().sim
+        w3 = tw3.make_world(torch.Generator().manual_seed(seed), c3,
+                            device="cpu")
+        p3, r3 = tw.place_obstacles(torch.Generator().manual_seed(seed), c3,
+                                    "cpu")
+        assert_equal(p3, w3.centers)
+        assert_equal(r3, w3.radii)
+    g = torch.Generator().manual_seed(42)
+    e = torch.rand(CFG.sim.num_obstacles, 2, generator=g) * (
+        2 * CFG.sim.world_extent * 0.9) - CFG.sim.world_extent * 0.9
+    r = e.norm(dim=-1, keepdim=True)
+    assert_close(tw.place_obstacles(torch.Generator().manual_seed(42),
+                                    CFG.sim, "cpu")[0],
+                 torch.where(r < 8.0, e * (8.0 / (r + 1e-6)), e), atol=0)
+    jpos, jrad = jw.place_obstacles(*jax.random.split(
+        jax.random.PRNGKey(42)), CFG.sim)
+    for p, rad in ((np.asarray(jpos), np.asarray(jrad)),
+                   (pos.numpy(), radii.numpy())):
+        assert (np.linalg.norm(p, axis=-1) >= 8.0 - 1e-4).all()
+        assert (np.abs(p) <= CFG.sim.world_extent * 0.9 + 1e-3).all()
+        assert (rad >= CFG.sim.obstacle_radius_min).all()
+        assert (rad <= CFG.sim.obstacle_radius_max).all()
+

@@ -218,6 +218,27 @@ def test_ground_sim3d_matches_jax(world):
     assert_equal(non_drv[0], jn)
 
 
+def test_build_scene_3d_matches_jax(world):
+    """The cloud-out scene build (GP cut to 2 sweeps of 16 slots): the
+    obstacle scene's slots and flags exact, its voxel centroids 1e-5; the
+    ground cloud compacted to ground_capacity, slots exact, points equal
+    to the scan's (compaction moves them unchanged)."""
+    cfg = _cut_gp(CFG, capacity=16)
+    pts, hit = _upright_scans(world, cfg.sim, _poses())
+    wobs, wgnd = jv(lambda p, h: jslam3d.build_scene_3d(p, h, cfg))(pts, hit)
+    obs, gnd = tslam3d.build_scene_3d(to_torch(pts), to_torch(hit), cfg)
+    assert_equal(obs.valid, wobs.valid)
+    assert_equal(obs.flags, wobs.flags)
+    assert_close(obs.xyz, wobs.xyz, atol=1e-5)
+    assert gnd.valid.shape[-1] == cfg.cloud.ground_capacity
+    assert_equal(gnd.valid, wgnd.valid)
+    assert_equal(gnd.flags, wgnd.flags)
+    assert_close(gnd.xyz, wgnd.xyz, atol=0)
+    assert int(gnd.valid.sum()) > 100 and int(obs.valid.sum()) > 20
+    assert tslam3d.GroundMap is tslam3d.init_ground_map(
+        cfg, 1, device="cpu").__class__
+
+
 def test_ground_ref_scale_matches_jax_sort_engine(world):
     """ref_scale_config's 72 x 200 grid and 64-slot signal against slam_tpu's
     stable 2-key sort engine (the reference-scale one), GP sweeps cut to 1

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --mesh-cards 4    # [mesh] alone, a card a rank
 
 Phases, each printing one line; any failure raises and the script exits
 non-zero:
@@ -217,12 +218,34 @@ non-zero:
              every ground point but those of the tags all four runs may
              miss, and none farther; peak device memory, host syncs a
              frame
+25. mesh   — the multi-device layer (parallel/mesh.py, multihost.py,
+             make_shared_map_merger, mesh_scaling), its ranks spawned
+             children meeting through a file store (the kernels built
+             before): NCCL with two ranks on the one card is refused on
+             both; two ranks share the card through gloo (NCCL needs a
+             card a rank): config 1 ("fused", K1) and config 5
+             ("particle", K5, P=128, the shared grid merged by one dp
+             all-reduce a macro) at B=1024, 512 robots a rank, each rank
+             drawing from its own generator seeded from (seed, rank), 40
+             ticks and 10 macros of 4 after a warm-up macro, certified
+             against this process running the two shards in turn (poses
+             within 1e-3 m, config 5's counts equal), the shared grid
+             bit-identical on both ranks, ATE gates of [main] and [pf], K1
+             and K5 on rank 0's recorded calls equal to their plain
+             versions; ms/tick, robot-steps/s, launches a rank, each
+             macro's all-reduce ms; one rank on NCCL (world 1): the same
+             fleets whole on one rank, config 5's all-reduce through NCCL,
+             beside [main] and [pf], and make_shared_map_merger on 1,024
+             grids, equal in bits to merge_maps, NaN counts for a moved
+             grid; mesh_scaling at B = 16, 32, 64 on world 1 (NCCL) and
+             world 2 (gloo, one card: sharing, not scaling): finite poses
+             and each world-2 rank's peak memory below world 1's (no
+             throughput gate)
 Every kernel launch count is set to 0 just before a main path (8-19,
-22, 23)
-runs and read just after it; the JSON record's launches add up every
-path's. The last two lines are the kernels' JSON record
-and the device JSON. Imports torch and the port only: no jax, no slam_tpu
-package.
+22, 23, and in each rank of 25) runs and read just after it; the JSON
+record's launches add up every path's. The last two lines are the
+kernels' JSON record and the device JSON. Imports torch and the port
+only: no jax, no slam_tpu package.
 """
 
 from __future__ import annotations
@@ -351,6 +374,17 @@ FID_BLOB = (2.0, 0.3) # a detection's evidence, added 3 times (as
 # frame: three image rows, two columns, every pair >= 1 m apart
 FID_SLOTS = ((8.0, 0.9), (8.0, -0.9), (5.6, 0.6), (5.6, -0.6), (4.0, 0.47),
              (4.0, -0.53))
+MESH_FLEET = 1024     # [mesh]: robots of configs 1 and 5, split over the ranks
+MESH_WORLD = 2        # [mesh]: ranks sharing the one card (gloo)
+MESH_TICKS = 40       # [mesh] config 1: timed ticks after a warm-up macro
+MESH_PF_MACROS = 10   # [mesh] config 5: timed macros of 4 ticks
+MESH_MERGE_GRIDS = 1024   # [mesh]: grids make_shared_map_merger folds (NCCL)
+MESH_BATCHES = (16, 32, 64)   # [mesh]: mesh_scaling's batches, world 1 and 2
+MESH_SEED = 0         # [mesh]: rank r draws from rank_generator(seed, r)
+MESH_POSE_TOL = 1e-3  # m: a rank's poses against one process that runs the
+                      # same shards in turn (the card's atomic scatters add in
+                      # another order on each run)
+MESH_LIMIT_S = 300    # s: a group of ranks that has not ended by then fails
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -1083,6 +1117,13 @@ def scan_to_scan_phase(state, world, cfg, gen):
     return dict(pose_err=err, args=args), launches
 
 
+def particle_config(cfg):
+    """Config 5: the particle matcher, scoring every 4th scan point."""
+    return dataclasses.replace(
+        cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
+        pf=dataclasses.replace(cfg.pf, score_stride=4))
+
+
 def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
                        macros=PF_MACROS):
     """[pf]: config 5, fleet_rollout_shared with the particle matcher (K5)
@@ -1093,9 +1134,7 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     from slam_tpu_torch.parallel.shared_map import fleet_rollout_shared
     from slam_tpu_torch.pipeline import slam2d
     dev = world.centers.device
-    fcfg = dataclasses.replace(
-        cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
-        pf=dataclasses.replace(cfg.pf, score_stride=4))
+    fcfg = particle_config(cfg)
     res = fcfg.icp.voxel_leaf_obs[0]
     warm = slam2d.init_state(fcfg, fleet_size, device=dev,
                              generator=gen.manual_seed(3))
@@ -3344,7 +3383,437 @@ def fiducial_phase(card) -> None:
           f"{FID_CHAIN_LIMIT}) | {card}", flush=True)
 
 
-def main() -> int:
+def mesh_k1_check(icp_fused, calls) -> dict:
+    """K1 on a rank's recorded last call against its plain version (the
+    near-tie rule of [graph])."""
+    args = calls[0][0]
+    return near_tie_agreement(
+        "K1 on a [mesh] rank's last tick", icp_fused.icp_fused_planes(*args),
+        icp_fused.icp_fused_planes_reference(*args), args[:6], args[6],
+        args[7], max(1, args[0].shape[0] // 20), 1)
+
+
+def mesh_k5_check(particle, calls) -> None:
+    """K5 and its bit table on a rank's recorded last scoring against their
+    plain versions: fractions and bits equal."""
+    bits, grid, scan_xy, valid, parts, res = calls[0][0]
+    frac = particle._score_kernel(bits, grid, scan_xy, valid, parts, res)
+    ref = particle.score_particles_reference(grid, scan_xy, valid, parts, res)
+    torch.cuda.synchronize()
+    if not same_bits(frac, ref) or not torch.equal(
+            bits, particle.occupancy_bits_reference(grid.count)):
+        raise RuntimeError("K5 on a [mesh] rank's last scoring disagrees "
+                           "with its plain version")
+
+
+def mesh_worlds(dev):
+    """Config 1's and config 5's configs and the seed-42 world, on `dev`."""
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.sim import world2d
+    cfg = sim2d_config()
+    return cfg, particle_config(cfg), world2d.make_world(
+        torch.Generator(dev).manual_seed(42), cfg.sim, device=dev)
+
+
+def mesh_shared_grid(fcfg, dev):
+    from slam_tpu_torch.mapping.point_map import init_point_map
+    return init_point_map(1, fcfg.mls.size_x, fcfg.icp.voxel_leaf_obs[0],
+                          device=dev)
+
+
+def mesh_fleets(me) -> dict:
+    """[mesh], one rank of its group (by default MESH_WORLD ranks sharing
+    the one card through gloo): mesh_scaling's batches; config 1 ("fused",
+    K1) and config 5 ("particle", K5, its shared grid merged by the dp
+    all-reduce) on this rank's share of
+    MESH_FLEET robots, each after a warm-up macro on another fleet, drawn
+    from rank_generator(MESH_SEED (+2 for config 5), rank); the launches
+    of the timed runs; on rank 0 K1 and K5 held to their plain versions on
+    one more macro's recorded calls (arguments cloned)."""
+    import torch.distributed as dist
+    from slam_tpu_torch import mesh_scaling
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.parallel import multihost
+    from slam_tpu_torch.parallel.mesh import gather_fleet
+    from slam_tpu_torch.parallel.shared_map import fleet_rollout_shared
+    from slam_tpu_torch.pipeline import slam2d
+    dev = multihost.rank_device()
+    out = {"scaling": mesh_scaling.run(MESH_BATCHES)}
+    mesh = multihost.make_fleet_mesh()
+    local = multihost.host_local_batch(MESH_FLEET)
+    cfg, fcfg, world = mesh_worlds(dev)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts(icp_fused, nn, particle)
+        e0.record()
+        r = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return r, e0.elapsed_time(e1)
+
+    # config 1
+    warm = multihost.rank_generator(MESH_SEED + 1, dev)
+    slam2d.rollout(slam2d.init_state(cfg, local, device=dev, generator=warm),
+                   world, cfg, 4, warm)
+    gen = multihost.rank_generator(MESH_SEED, dev)
+    state = slam2d.init_state(cfg, local, device=dev, generator=gen)
+    (state, (est, true)), ms = timed(
+        lambda: slam2d.rollout(state, world, cfg, MESH_TICKS, gen))
+    out["config1"] = dict(
+        ms_tick=ms / MESH_TICKS, k1=icp_fused.launches,
+        est=est.cpu(), true=true.cpu(),
+        gathered=gather_fleet(mesh, est).cpu() if me == 0 else None)
+    if me == 0:
+        calls, k1 = [], icp_fused.icp_fused_planes
+        icp_fused.icp_fused_planes = kept(k1, calls, copy=True, last=True)
+        try:
+            slam2d.rollout(state, world, cfg, 4, gen)
+        finally:
+            icp_fused.icp_fused_planes = k1
+        out["config1"]["k1_check"] = mesh_k1_check(icp_fused, calls)
+    else:
+        gather_fleet(mesh, est)
+    del state
+
+    # config 5, every macro's all-reduce timed
+    warm = multihost.rank_generator(MESH_SEED + 3, dev)
+    fleet_rollout_shared(
+        slam2d.init_state(fcfg, local, device=dev, generator=warm),
+        mesh_shared_grid(fcfg, dev), world, fcfg, 1, generator=warm,
+        mesh=mesh)
+    gen = multihost.rank_generator(MESH_SEED + 2, dev)
+    fleet = slam2d.init_state(fcfg, local, device=dev, generator=gen)
+    events, all_reduce = [], dist.all_reduce
+    dist.all_reduce = event_timed(all_reduce, events)
+    try:
+        (fleet, shared, (est, true)), ms = timed(lambda: fleet_rollout_shared(
+            fleet, mesh_shared_grid(fcfg, dev), world, fcfg, MESH_PF_MACROS,
+            generator=gen, mesh=mesh))
+    finally:
+        dist.all_reduce = all_reduce
+    out["config5"] = dict(
+        ms_tick=ms / (4 * MESH_PF_MACROS), k5=particle.launches,
+        packs=particle.pack_launches, est=est.cpu(), true=true.cpu(),
+        ok=fleet.scan_reg_ok.cpu(),
+        shared={n: getattr(shared, n).cpu()
+                for n in ("count", "sum_x", "sum_y", "sum_z", "center")},
+        all_reduce_ms=sum(a.elapsed_time(b) for a, b in events) / len(events),
+        gathered=gather_fleet(mesh, est).cpu() if me == 0 else None)
+    if me == 0:
+        calls, k5 = [], particle._score_kernel
+        particle._score_kernel = kept(k5, calls, copy=True, last=True)
+        try:       # one more macro on this rank alone, for its calls
+            fleet_rollout_shared(fleet, shared, world, fcfg, 1, generator=gen)
+        finally:
+            particle._score_kernel = k5
+        mesh_k5_check(particle, calls)
+    else:
+        gather_fleet(mesh, est)
+    return out
+
+
+def mesh_nccl() -> dict:
+    """[mesh], one rank on NCCL, the production backend: mesh_fleets at
+    world 1 (the whole fleet on this rank, config 5's all-reduce through
+    NCCL); make_shared_map_merger on MESH_MERGE_GRIDS grids against
+    merge_maps, and with one grid moved."""
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.mapping.point_map import PointMapGrid
+    from slam_tpu_torch.parallel import multihost
+    from slam_tpu_torch.parallel.shared_map import (make_shared_map_merger,
+                                                    merge_maps)
+    out = mesh_fleets(0)
+    dev = multihost.rank_device()
+    G = sim2d_config().mls.size_x
+    g = torch.Generator(dev).manual_seed(5)
+    shape = (MESH_MERGE_GRIDS, G, G)
+    grids = PointMapGrid(
+        count=torch.randint(0, 4, shape, generator=g, device=dev).float(),
+        sum_x=0.1 * torch.randn(shape, generator=g, device=dev),
+        sum_y=0.1 * torch.randn(shape, generator=g, device=dev),
+        sum_z=0.1 * torch.randn(shape, generator=g, device=dev),
+        center=torch.tensor([1.5, -2.0], device=dev).repeat(
+            MESH_MERGE_GRIDS, 1), resolution=0.5)
+    merge = make_shared_map_merger(multihost.make_fleet_mesh())
+    merged = merge(grids)
+    out["merge_ms"] = cuda_ms(lambda: merge(grids))
+    plain = merge_maps(grids)
+    out["merge_equal"] = all(
+        same_bits(getattr(merged, n), getattr(plain, n))
+        for n in ("count", "sum_x", "sum_y", "sum_z", "center"))
+    center = grids.center.clone()
+    center[7] += 0.5
+    out["moved_nan"] = bool(torch.isnan(merge(grids.replace(
+        center=center)).count).all())
+    return out
+
+
+def mesh_rank(task, me, world, backend, work) -> None:
+    """[mesh]'s child process: rank `me` of `world` joins through a file
+    store in `work` and runs `task` ("refuse": NCCL on a card that another
+    rank holds, which must raise naming gloo; "fleets": mesh_fleets;
+    "nccl": mesh_nccl), writing its result to work/rank<me>.pt."""
+    import os
+    import torch.distributed as dist
+    from slam_tpu_torch.parallel import multihost
+    store = "file://" + os.path.join(work, "store")
+    path = os.path.join(work, f"rank{me}.pt")
+    if task == "refuse":
+        try:
+            multihost.init_distributed(store, world, me, backend="nccl")
+        except ValueError as e:
+            if 'backend="gloo"' not in str(e):
+                raise
+            torch.save({"refused": str(e)}, path)
+            return
+        raise RuntimeError("two NCCL ranks on one card were not refused")
+    multihost.init_distributed(store, world, me, backend=backend)
+    try:
+        torch.save(mesh_fleets(me) if task == "fleets" else mesh_nccl(),
+                   path)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(task, world, backend, work) -> list:
+    """Run mesh_rank's `task` on `world` spawned ranks (fork would inherit
+    this process's CUDA context); fail when any rank fails or the group
+    outlives MESH_LIMIT_S, stopping every rank. Returns each rank's
+    result."""
+    import multiprocessing
+    import os
+    ctx = multiprocessing.get_context("spawn")
+    work = os.path.join(work, task)
+    os.makedirs(work)
+    procs = [ctx.Process(target=mesh_rank, args=(task, r, world, backend,
+                                                 work)) for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        end = time.monotonic() + MESH_LIMIT_S
+        while time.monotonic() < end and any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    if codes != [0] * world:
+        raise RuntimeError(f"[mesh] {task} ranks ended with {codes} (None: "
+                           f"still running after {MESH_LIMIT_S} s)")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def mesh_phase(card, world=MESH_WORLD, backend="gloo") -> dict:
+    """[mesh]: the multi-device layer. Ranks are spawned children meeting
+    through a file store in a temporary directory; the kernels are built
+    already, so no two ranks race the build. (1) With gloo, NCCL with two
+    ranks on the one card is refused on both. (2) `world` ranks, by
+    default two sharing the card through gloo (NCCL needs a card a rank;
+    with backend "nccl" a card a rank): mesh_fleets' config 1 and config
+    5 at MESH_FLEET robots, certified against this process running the
+    same shards in turn from the same generators (poses within
+    MESH_POSE_TOL; config 5's macros fold the shards' deltas into the
+    shared grid as the all-reduce does, and its counts must equal the
+    ranks'), the shared grid bit-identical on every rank, the ATE gates of
+    [main] and [pf]. (3) One rank on NCCL: mesh_nccl, the same fleets
+    with the whole fleet on one rank (beside [main] and [pf]) and the
+    merger on MESH_MERGE_GRIDS grids. (4) mesh_scaling at
+    MESH_BATCHES on world 1 (NCCL) and on `world` ranks (on the shared
+    card: sharing, not scaling; gated on finite poses and on each rank's
+    peak memory below world 1's at the same B, never on throughput).
+    Returns the ranks' launches and K1's error."""
+    import tempfile
+    from slam_tpu_torch.parallel import multihost
+    from slam_tpu_torch.parallel.shared_map import add_grids, shared_macro
+    from slam_tpu_torch.pipeline import slam2d
+    from slam_tpu_torch.mesh_scaling import line
+
+    def say(text):
+        print(f"[mesh] {text} | {card}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        if backend == "gloo":
+            refused = spawn_ranks("refuse", MESH_WORLD, "nccl", work)
+            say(f"NCCL with {MESH_WORLD} ranks on the one card refused on "
+                f"every rank: {refused[0]['refused'][:96]}...")
+        ranks = spawn_ranks("fleets", world, backend, work)
+        nccl = spawn_ranks("nccl", 1, "nccl", work)[0]
+    secs = time.perf_counter() - t0
+    shards = ("gloo, the ranks on one card" if backend == "gloo" else
+              f"{backend}, a card a rank")
+
+    # this process runs the ranks' shards in turn, from the same generators
+    dev = torch.device("cuda")
+    local = MESH_FLEET // world
+    cfg, fcfg, world2 = mesh_worlds(dev)
+    ref1, ref5, fleets, gens = [], [], [], []
+    for r in range(world):
+        gen = multihost.rank_generator(MESH_SEED, dev, r)
+        st = slam2d.init_state(cfg, local, device=dev, generator=gen)
+        ref1.append(slam2d.rollout(st, world2, cfg, MESH_TICKS, gen)[1][0])
+        gens.append(multihost.rank_generator(MESH_SEED + 2, dev, r))
+        fleets.append(slam2d.init_state(fcfg, local, device=dev,
+                                        generator=gens[-1]).replace(
+            map_grid=None))
+        ref5.append([])
+    shared = mesh_shared_grid(fcfg, dev)
+    for m in range(MESH_PF_MACROS):
+        delta = None
+        for r in range(world):
+            fleets[r], d, (e, _) = shared_macro(fleets[r], shared, world2,
+                                                fcfg, 4, gens[r], 4 * m)
+            delta = d if delta is None else add_grids(delta, d)
+            ref5[r].append(e)
+        shared = add_grids(shared, delta)
+    del fleets
+    ref1 = torch.cat(ref1).cpu()
+    ref5 = torch.cat([torch.cat(e, 1) for e in ref5]).cpu()
+
+    out = {"K1": 0, "K5": 0, "K5 table": 0, "k1_err": 0.0}
+    refs = {"config1": ref1, "config5": ref5}
+    for w, group, how in ((world, ranks, shards), (1, [nccl], "NCCL")):
+        for key, limit, skip, label in (
+                ("config1", ATE_LIMIT, 10, 'config 1 ("fused", K1)'),
+                ("config5", PF_ATE_LIMIT, 8,
+                 'config 5 ("particle", K5, P=128)')):
+            runs = [rk[key] for rk in group]
+            est = torch.cat([x["est"] for x in runs])
+            true = torch.cat([x["true"] for x in runs])
+            if not torch.equal(runs[0]["gathered"], est):
+                raise RuntimeError(f"[mesh] world {w} {key}: gather_fleet "
+                                   "differs from the ranks' trajectories")
+            if not bool(torch.isfinite(est).all()):
+                raise RuntimeError(f"[mesh] world {w} {key}: non-finite "
+                                   "poses")
+            med = float(slam2d.ate(est[:, skip:], true[:, skip:]).median())
+            if not med < limit:
+                raise RuntimeError(f"[mesh] world {w} {key}: median ATE "
+                                   f"{med} m (limit {limit})")
+            if key == "config1":
+                got = {"K1": [x["k1"] for x in runs]}
+                need = {"K1": MESH_TICKS}
+                out["k1_err"] = max(out["k1_err"],
+                                    runs[0]["k1_check"]["err"])
+                held = (f"K1 on rank 0's last tick vs plain: "
+                        f"{agreement_text(runs[0]['k1_check'])}")
+            else:
+                ticks = 4 * MESH_PF_MACROS
+                got = {"K5": [x["k5"] for x in runs],
+                       "K5 table": [x["packs"] for x in runs]}
+                need = {"K5": 2 * ticks, "K5 table": ticks}
+                held = ("all-reduce a macro " + ", ".join(
+                    f"{x['all_reduce_ms']:.4f}" for x in runs) + " ms a rank "
+                    "(events around the call); K5 and its bit table on rank "
+                    "0's last scoring equal to plain")
+            for k, v in got.items():
+                out[k] += sum(v)
+                if min(v) < need[k]:
+                    raise RuntimeError(f"[mesh] world {w} {key}: {k} "
+                                       f"launches a rank {v}, want at least "
+                                       f"{need[k]}")
+            if w > 1:
+                # against this process running the shards in turn
+                err = float((est - refs[key]).abs().max())
+                if err > MESH_POSE_TOL:
+                    n_off = int(((est - refs[key]).abs().amax((1, 2)) >
+                                 MESH_POSE_TOL).sum())
+                    raise RuntimeError(
+                        f"[mesh] {key}: max pose err {err} m against one "
+                        f"process running the shards in turn (bound "
+                        f"{MESH_POSE_TOL}; {n_off} robots off)")
+                held = (f"max pose err {err:.3g} m against one process "
+                        f"running the shards in turn; " + held)
+            if w > 1 and key == "config5":
+                grids = [x["shared"] for x in runs]
+                same = all(same_bits(grids[0][n], g[n]) for g in grids[1:]
+                           for n in grids[0])
+                off = int((grids[0]["count"] != shared.count.cpu()).sum())
+                if not same or off:
+                    raise RuntimeError(
+                        f"[mesh] config 5's shared grid: bit-identical on "
+                        f"the ranks {same}, {off} cells' counts differ from "
+                        f"one process's")
+                held = (f"shared grid bit-identical on the {w} ranks, counts "
+                        f"equal to one process's ("
+                        f"{int((shared.count > 0).sum())} cells, "
+                        f"{float(shared.count.sum()):.0f} points); " + held)
+            ms = max(x["ms_tick"] for x in runs)
+            say(f"world {w} ({how}) {label}, B={MESH_FLEET} "
+                f"({MESH_FLEET // w} a rank): " + ", ".join(
+                    f"{x['ms_tick']:.3f}" for x in runs) + " ms/tick a rank, "
+                f"{MESH_FLEET * 1000.0 / ms:.1f} robot-steps/s aggregate, "
+                f"median ATE {med:.4f} m (ticks>={skip}); launches a rank "
+                f"{got}; {held}")
+    if not (nccl["merge_equal"] and nccl["moved_nan"]):
+        raise RuntimeError(f"[mesh] make_shared_map_merger on NCCL: equal "
+                           f"to merge_maps {nccl['merge_equal']}, a moved "
+                           f"grid NaN {nccl['moved_nan']}")
+    say(f"world 1 (NCCL): make_shared_map_merger on {MESH_MERGE_GRIDS} grids "
+        f"{nccl['merge_ms']:.3f} ms, equal to merge_maps in bits, a moved "
+        f"grid gives NaN counts")
+
+    one = nccl["scaling"]
+    two = ranks[0]["scaling"]
+    for w, rows, how in ((1, one, "NCCL"), (world, two, shards)):
+        for row in rows:
+            say("mesh_scaling " + line(row, f"world {w}, {how}"))
+    for a, b in zip(one, two):
+        if not (a["finite"] and b["finite"]) or not max(b["peak_mb"]) < \
+                a["peak_mb"][0]:
+            raise RuntimeError(f"[mesh] mesh_scaling at B={a['batch']}: "
+                               f"finite {a['finite']} / {b['finite']}, peak "
+                               f"MB world 1 {a['peak_mb']}, world "
+                               f"{world} {b['peak_mb']}")
+    say(f"mesh_scaling: every world-{world} rank's peak memory below world "
+        f"1's at each B; aggregate robot-steps/s world {world} / world 1 " +
+        ", ".join(f"B={a['batch']} {b['rate'] / a['rate']:.3f}"
+                  for a, b in zip(one, two)) +
+        (f" ({world} ranks on one card measure its sharing, not scaling; "
+         "no throughput gate)" if backend == "gloo" else
+         " (no throughput gate)") + f"; [mesh]'s ranks ran {secs:.1f} s")
+    return out
+
+
+def device_json(name) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}})
+
+
+def mesh_cards(card, name, n) -> int:
+    """--mesh-cards N: the kernels' build and [mesh] alone, its ranks a
+    card each through NCCL (the four-card measurement of the dp split,
+    against one rank on NCCL and one process running the shards in
+    turn)."""
+    from slam_tpu_torch import cuda_build
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"--mesh-cards {n}: {torch.cuda.device_count()} "
+                           "cards visible")
+    cuda_build.build()
+    mesh_phase(card, n, "nccl")
+    print(device_json(name))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on the card.")
+    ap.add_argument("--mesh-cards", type=int, default=0, metavar="N",
+                    help="run only the kernels' build and [mesh], its "
+                         "ranks on N cards through NCCL")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
     card = card_line()
@@ -3352,6 +3821,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"[device] {name} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    if args.mesh_cards:
+        return mesh_cards(card, name, args.mesh_cards)
 
     from slam_tpu_torch import config as cfg_mod
     from slam_tpu_torch import cuda_build
@@ -3649,6 +4120,10 @@ def main() -> int:
     for k in ("K2", "K4", "K5", "K5 table"):
         launches[k] += entry["launches"][k]
     fiducial_phase(card)
+    mesh = mesh_phase(card)
+    launches["K1 (mesh ranks)"] = mesh["K1"]
+    launches["K5"] += mesh["K5"]
+    launches["K5 table"] += mesh["K5 table"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"
@@ -3668,7 +4143,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("icp_fused_planes (K1)", "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:59", "K1, every path",
-               max(k1["pose_err"], se3["k1_err"], entry["k1_err"]), k1_ms,
+               max(k1["pose_err"], se3["k1_err"], entry["k1_err"],
+                   mesh["k1_err"]), k1_ms,
                k1_plain_ms, k1_bound),
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",
@@ -3691,9 +4167,7 @@ def main() -> int:
                "slam_tpu/ops/particle.py:160", "K5 table", k5["bits_err"],
                pack["alone"], pack["plain"], pack["bound"]),
     ]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+    print(device_json(name))
     return 0
 
 

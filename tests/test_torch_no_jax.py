@@ -1,11 +1,12 @@
 """The port stands alone: slam_tpu_torch imports and runs a tick (and
 imports its pose graph, MLS, FFT-match, relocalization, metrics, live,
-fiducial, calibration, sample-map and utility modules and its entry
-points, and builds and
+fiducial, calibration, sample-map and utility modules, its entry
+points and its multi-device layer, and builds and
 drives its native runtime in build/slam_tpu_torch/) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
-slam_tpu package or builds a path into slam_tpu/, and chip_smoke.py
-refuses to report without a GPU."""
+slam_tpu package or builds a path into slam_tpu/ (nor does
+tests/torch_dist_worker.py, the distributed tests' rank process), and
+chip_smoke.py refuses to report without a GPU."""
 
 import ast
 import os
@@ -60,6 +61,11 @@ import slam_tpu_torch.run_fleet
 import slam_tpu_torch.run_reloc
 import slam_tpu_torch.run_sim2d
 import slam_tpu_torch.run_sim3d
+# the multi-device layer
+import slam_tpu_torch.mesh_scaling
+import slam_tpu_torch.parallel.mesh
+import slam_tpu_torch.parallel.multihost
+import slam_tpu_torch.parallel.shared_map
 from slam_tpu_torch.runtime import native
 lib = native.build()
 assert str(lib.parent) == os.path.join(ROOT, "build", "slam_tpu_torch"), lib
@@ -94,7 +100,7 @@ def test_tick_runs_with_jax_unimportable():
 def test_no_jax_imports_in_port_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|slam_tpu)(\.|\s|$)", re.M)
     files = sorted((ROOT / "slam_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -240,7 +240,21 @@ non-zero:
              grid; mesh_scaling at B = 16, 32, 64 on world 1 (NCCL) and
              world 2 (gloo, one card: sharing, not scaling): finite poses
              and each world-2 rank's peak memory below world 1's (no
-             throughput gate)
+             throughput gate); the sp axis: dp1 x sp2 on the one card
+             (gloo; --mesh-cards 4: dp2 x sp2 and dp1 x sp4 on NCCL),
+             configs 1 and 5 at B=1024 with every robot's grids split by
+             rows (the fleet placed from the host by shard_fleet), each
+             rank against one process running its dp shard on whole grids
+             from the same draws (poses within 1e-3 m, grid counts and
+             flags equal, sums within 1e-4; gather_grids equal), the
+             replicated state's print equal in each sp group after every
+             macro and its final bits equal, the shared grid
+             bit-identical on every rank, ATE gates, resident grid bytes
+             a rank 1/sp of whole, host syncs of a macro (config 1) and a
+             tick (config 5) no more than whole grids' (gloo's staging
+             copies aside); ms/tick a rank, robot-steps/s, the
+             exchanges' ms a macro, peak memory a rank; K1 and K5 held to
+             plain on rank 0's last calls
 Every kernel launch count is set to 0 just before a main path (8-19,
 22, 23, and in each rank of 25) runs and read just after it; the JSON
 record's launches add up every path's. The last two lines are the
@@ -385,6 +399,11 @@ MESH_POSE_TOL = 1e-3  # m: a rank's poses against one process that runs the
                       # same shards in turn (the card's atomic scatters add in
                       # another order on each run)
 MESH_LIMIT_S = 300    # s: a group of ranks that has not ended by then fails
+MESH_SP = ((1, 2),)   # [mesh]: (dp, sp) layouts whose grids split by rows,
+                      # gloo ranks on the one card
+MESH_SP_CARDS = ((2, 2), (1, 4))   # --mesh-cards 4: the layouts on NCCL
+MESH_SUM_TOL = 1e-4   # the sp ranks' grid sums against one process on
+                      # whole grids
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -3552,11 +3571,428 @@ def mesh_nccl() -> dict:
     return out
 
 
+def sp_fleet(cfg, dp, seed):
+    """MESH_FLEET robots' state on the host, grids whole, dp shard i drawn
+    from a host generator seeded from (seed, i): what the sp ranks place
+    with shard_fleet (no card holds a whole robot grid of the sp run) and
+    what the whole-grid reference runs."""
+    from slam_tpu_torch.parallel.mesh import tree_map
+    from slam_tpu_torch.pipeline import slam2d
+    parts = [slam2d.init_state(
+        cfg, MESH_FLEET // dp, device="cpu",
+        generator=torch.Generator().manual_seed(seed * 65536 + i))
+        for i in range(dp)]
+    return tree_map(lambda *ts: torch.cat(ts), *parts)
+
+
+def replicated(state) -> tuple:
+    """The per-robot state outside the grids, which the ranks of an sp
+    group must hold bit for bit alike."""
+    return (state.pose, state.ekf.mu, state.ekf.sigma, state.scan_reg_pose,
+            state.map_cloud.xyz, state.map_cloud.valid,
+            state.map_cloud.flags, state.prev_scene.xyz)
+
+
+def as_words(tensors) -> torch.Tensor:
+    """The tensors' bits as one int32 vector (floats bitcast)."""
+    return torch.cat([(t.contiguous().view(torch.int32)
+                       if t.dtype == torch.float32 else t.to(torch.int32))
+                      .reshape(-1) for t in tensors])
+
+
+def fingerprint(tensors) -> torch.Tensor:
+    """A 0-dim int64 of the tensors' bits, on the card, no host read: each
+    word times an odd weight of its position, summed with wrap-around.
+    Equal bits give equal prints; a differing bit changes the print."""
+    w = as_words(tensors).to(torch.int64)
+    k = torch.arange(w.numel(), device=w.device, dtype=torch.int64)
+    return (w * (k * 2654435762 + 1)).sum()
+
+
+def grid_bytes(*grids) -> int:
+    """Bytes of the grid containers' (B, H, W, ...) leaves."""
+    return sum(t.nbytes for g in grids for f in dataclasses.fields(g)
+               for t in [getattr(g, f.name)]
+               if isinstance(t, torch.Tensor) and t.dim() >= 3)
+
+
+class scenes_deterministic:
+    """Whole-grid runs build their scenes with the deterministic scatter,
+    as robots whose grids are split by rows do (slam2d.process_frame_planes):
+    the reference the sp ranks are held to."""
+
+    def __enter__(self):
+        from slam_tpu_torch.pipeline import slam2d
+        self.build = build = slam2d.build_scene_planes
+        slam2d.build_scene_planes = lambda *a, **k: build(
+            *a, **{**k, "deterministic": True})
+
+    def __exit__(self, *exc):
+        from slam_tpu_torch.pipeline import slam2d
+        slam2d.build_scene_planes = self.build
+
+
+def sp_replicas(comm, prints, state, extra=()) -> bool:
+    """Every macro's print and the final bits of `state`'s replicated
+    tensors (and `extra`) equal on every rank of the sp group."""
+    got = comm.all_gather(torch.stack(prints))
+    fin = comm.all_gather(as_words(replicated(state) + tuple(extra)))
+    return all(torch.equal(g, got[0]) for g in got) and all(
+        torch.equal(f, fin[0]) for f in fin)
+
+
+def sp_grids(slab, whole, j, channels, sums) -> dict:
+    """A rank's slab of grids against rows j*h:(j+1)*h of the whole-grid
+    reference's: cells whose `channels` differ (exact) and the largest
+    difference of `sums`."""
+    h = getattr(slab, channels[0]).shape[1]
+    rows = slice(j * h, (j + 1) * h)
+    off = sum(int((getattr(slab, n) != getattr(whole, n)[:, rows]).sum())
+              for n in channels)
+    err = max([0.0] + [float((getattr(slab, n) - getattr(whole, n)[:, rows])
+                             .abs().max()) for n in sums])
+    return {"cells_off": off, "sum_err": err}
+
+
+def sp_config1(me, mesh, dev, cfg, world) -> dict:
+    """[mesh] sp, config 1 on this rank: warm-up macro, MESH_TICKS ticks
+    macro by macro with the replicated state's print after each, timed;
+    one more macro counting host syncs (rank 0 keeps K1's last call); then
+    this rank's dp shard on whole grids from the same generator (the
+    reference), and the comparisons."""
+    import torch.distributed as dist
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.parallel.mesh import (gather_grids, shard_fleet,
+                                              tree_map)
+    from slam_tpu_torch.pipeline import slam2d
+    i, j = mesh.coords()
+    dp = mesh.ranks.shape[0]
+    local = MESH_FLEET // dp
+    macros = MESH_TICKS // 4
+    fleet = sp_fleet(cfg, dp, MESH_SEED)
+    slam2d.rollout(shard_fleet(mesh, fleet, device=dev), world, cfg, 4,
+                   torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = shard_fleet(mesh, fleet, device=dev)
+    resident = grid_bytes(state.local_map, state.map_grid)
+    whole_bytes = grid_bytes(fleet.local_map, fleet.map_grid) // dp
+    comm = state.local_map.rows.comm
+    events, ring, gather = [], comm.ring, comm.all_gather
+    comm.ring = event_timed(ring, events)
+    comm.all_gather = event_timed(gather, events)
+    gen = torch.Generator(dev).manual_seed(MESH_SEED * 65536 + i)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    prints, est, true = [], [], []
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts(icp_fused, nn, particle)
+    copies = comm.host_copies
+    e0.record()
+    for _ in range(macros):
+        state, (e, t) = slam2d.rollout(state, world, cfg, 4, gen)
+        prints.append(fingerprint(replicated(state)))
+        est.append(e)
+        true.append(t)
+    e1.record()
+    torch.cuda.synchronize()
+    out = dict(ms_tick=e0.elapsed_time(e1) / MESH_TICKS,
+               k1=icp_fused.launches,
+               exchange_ms=sum(a.elapsed_time(b) for a, b in events) / macros,
+               exchanges=len(events) // macros,
+               copies=(comm.host_copies - copies) // macros,
+               peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
+               resident=resident, whole_bytes=whole_bytes,
+               est=torch.cat(est, 1).cpu(), true=torch.cat(true, 1).cpu())
+    comm.ring, comm.all_gather = ring, gather
+    out["replicas"] = sp_replicas(comm, prints, state)
+    calls, k1_fn = [], icp_fused.icp_fused_planes
+    if me == 0:
+        icp_fused.icp_fused_planes = kept(k1_fn, calls, copy=True, last=True)
+    copies = comm.host_copies
+    try:
+        (state, _), syncs = count_syncs(
+            lambda: slam2d.rollout(state, world, cfg, 4, gen))
+    finally:
+        icp_fused.icp_fused_planes = k1_fn
+    out["syncs"] = (len(syncs), comm.host_copies - copies, sync_sites(syncs))
+    if me == 0:
+        out["k1_check"] = mesh_k1_check(icp_fused, calls)
+    k = min(8, local)       # robots of each dp row gather_grids joins
+    first = gather_grids(mesh, state.local_map.replace(**{
+        n: getattr(state.local_map, n)[:k] for n in
+        ("counts", "drivable", "origin", "center")}))
+
+    # the reference: this dp shard on whole grids, the same draws
+    ref = tree_map(lambda t: t[i * local:(i + 1) * local].to(dev), fleet)
+    gen = torch.Generator(dev).manual_seed(MESH_SEED * 65536 + i)
+    rest = []
+    with scenes_deterministic():
+        for _ in range(macros):
+            ref, (e, _) = slam2d.rollout(ref, world, cfg, 4, gen)
+            rest.append(e)
+        (ref, _), ref_syncs = count_syncs(
+            lambda: slam2d.rollout(ref, world, cfg, 4, gen))
+    out["ref_syncs"] = (len(ref_syncs), sync_sites(ref_syncs))
+    out["pose_err"] = float((out["est"] - torch.cat(rest, 1).cpu()).abs()
+                            .max())
+    out["grids"] = [
+        sp_grids(state.local_map, ref.local_map, j, ("counts", "drivable"),
+                 ()),
+        sp_grids(state.map_grid, ref.map_grid, j, ("count",),
+                 ("sum_x", "sum_y", "sum_z"))]
+    out["gathered_equal"] = bool(
+        torch.equal(first.counts[k * i:k * (i + 1)], ref.local_map.counts[:k])
+        and torch.equal(first.drivable[k * i:k * (i + 1)],
+                        ref.local_map.drivable[:k]))
+    return out
+
+
+def sp_config5(me, mesh, dev, fcfg, world) -> dict:
+    """[mesh] sp, config 5 on this rank: fleet_rollout_shared macro by
+    macro (the robots' local_map split, the shared grid whole), the
+    all-reduce timed; one tick's host syncs; rank 0 holds K5 to its plain
+    version on one more macro alone; then every dp shard on whole grids in
+    turn (the reference), and the comparisons."""
+    import torch.distributed as dist
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.parallel.mesh import shard_fleet, tree_map
+    from slam_tpu_torch.parallel.shared_map import (add_grids,
+                                                    fleet_rollout_shared,
+                                                    shared_macro)
+    from slam_tpu_torch.pipeline import slam2d
+    i, j = mesh.coords()
+    dp = mesh.ranks.shape[0]
+    local = MESH_FLEET // dp
+    fleet = sp_fleet(fcfg, dp, MESH_SEED + 2).replace(map_grid=None)
+    fleet_rollout_shared(shard_fleet(mesh, fleet, device=dev),
+                         mesh_shared_grid(fcfg, dev), world, fcfg, 1,
+                         generator=torch.Generator(dev).manual_seed(3),
+                         mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = shard_fleet(mesh, fleet, device=dev)
+    shared = mesh_shared_grid(fcfg, dev)
+    comm = state.local_map.rows.comm
+    gen = torch.Generator(dev).manual_seed((MESH_SEED + 2) * 65536 + i)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    events, all_reduce = [], dist.all_reduce
+    prints, est, true = [], [], []
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts(icp_fused, nn, particle)
+    dist.all_reduce = event_timed(all_reduce, events)
+    try:
+        e0.record()
+        for _ in range(MESH_PF_MACROS):
+            state, shared, (e, t) = fleet_rollout_shared(
+                state, shared, world, fcfg, 1, generator=gen, mesh=mesh)
+            prints.append(fingerprint(replicated(state)))
+            est.append(e)
+            true.append(t)
+        e1.record()
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+    ticks = 4 * MESH_PF_MACROS
+    out = dict(ms_tick=e0.elapsed_time(e1) / ticks, k5=particle.launches,
+               packs=particle.pack_launches,
+               all_reduce_ms=sum(a.elapsed_time(b) for a, b in events)
+               / len(events),
+               peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
+               est=torch.cat(est, 1).cpu(), true=torch.cat(true, 1).cpu(),
+               shared_print=int(fingerprint(
+                   [getattr(shared, n) for n in ("count", "sum_x", "sum_y",
+                                                 "sum_z")])))
+    out["replicas"] = sp_replicas(comm, prints, state)
+    _, syncs = count_syncs(lambda: slam2d.slam_step(
+        state, world, fcfg, torch.Generator(dev).manual_seed(9),
+        incremental_map=False, refresh_map=False, shift_maps=False,
+        pf_target=shared))
+    out["syncs"] = (len(syncs), 0, sync_sites(syncs))
+
+    # the reference: every dp shard on whole grids in turn, the same draws,
+    # the macro's deltas summed as the all-reduce sums them
+    fleets = [tree_map(lambda t: t[k * local:(k + 1) * local].to(dev),
+                       fleet) for k in range(dp)]
+    gens = [torch.Generator(dev).manual_seed((MESH_SEED + 2) * 65536 + k)
+            for k in range(dp)]
+    ref_shared = mesh_shared_grid(fcfg, dev)
+    rest = []
+    with scenes_deterministic():
+        for m in range(MESH_PF_MACROS):
+            delta = None
+            for k in range(dp):
+                fleets[k], d, (e, _) = shared_macro(
+                    fleets[k], ref_shared, world, fcfg, 4, gens[k], 4 * m)
+                delta = d if delta is None else add_grids(delta, d)
+                if k == i:
+                    rest.append(e)
+            ref_shared = add_grids(ref_shared, delta)
+        _, ref_syncs = count_syncs(lambda: slam2d.slam_step(
+            fleets[i], world, fcfg, torch.Generator(dev).manual_seed(9),
+            incremental_map=False, refresh_map=False, shift_maps=False,
+            pf_target=ref_shared))
+    out["ref_syncs"] = (len(ref_syncs), sync_sites(ref_syncs))
+    out["pose_err"] = float((out["est"] - torch.cat(rest, 1).cpu()).abs()
+                            .max())
+    out["grids"] = [sp_grids(state.local_map, fleets[i].local_map, j,
+                             ("counts", "drivable"), ())]
+    # the shared grid is whole: its counts equal, its sums (one scatter of
+    # the fleet's 1.5M points a macro, in the order of the card's atomic
+    # adds on each side) reported
+    out["shared_vs_whole"] = sp_grids(shared, ref_shared, 0, ("count",),
+                                      ("sum_x", "sum_y", "sum_z"))
+    out["shared_cells"] = int((shared.count > 0).sum())
+    if me == 0:
+        calls, k5 = [], particle._score_kernel
+        particle._score_kernel = kept(k5, calls, copy=True, last=True)
+        try:       # one more macro on this rank alone, for its calls
+            fleet_rollout_shared(state, shared, world, fcfg, 1,
+                                 generator=gen)
+        finally:
+            particle._score_kernel = k5
+        mesh_k5_check(particle, calls)
+    return out
+
+
+def mesh_sp(me, layouts) -> dict:
+    """[mesh]'s sp ranks: config 1 and config 5 on each (dp, sp) layout of
+    this world, every robot's grids split by rows over the sp ranks of its
+    dp row."""
+    from slam_tpu_torch.parallel import multihost
+    dev = multihost.rank_device()
+    cfg, fcfg, world = mesh_worlds(dev)
+    out = {}
+    for dp, sp in layouts:
+        mesh = multihost.make_fleet_mesh(sp)
+        out[(dp, sp)] = dict(coords=mesh.coords(),
+                             config1=sp_config1(me, mesh, dev, cfg, world),
+                             config5=sp_config5(me, mesh, dev, fcfg, world))
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_layouts(world, backend) -> tuple:
+    """The (dp, sp) layouts [mesh] runs on `world` ranks: on the one card
+    (gloo) MESH_SP, a card a rank MESH_SP_CARDS."""
+    return tuple(x for x in (MESH_SP if backend == "gloo" else MESH_SP_CARDS)
+                 if x[0] * x[1] == world)
+
+
+def sp_report(say, results, how) -> dict:
+    """Gate and print [mesh]'s sp runs (each rank's mesh_sp result);
+    returns their launches."""
+    from slam_tpu_torch.pipeline import slam2d
+    got = {"K1": 0, "K5": 0, "K5 table": 0, "k1_err": 0.0}
+    for (dp, sp) in results[0]:
+        ranks = [r[(dp, sp)] for r in results]
+        where = f"dp{dp} x sp{sp} ({how})"
+        for key, limit, skip, label in (
+                ("config1", ATE_LIMIT, 10, 'config 1 ("fused", K1)'),
+                ("config5", PF_ATE_LIMIT, 8,
+                 'config 5 ("particle", K5, P=128)')):
+            runs = [r[key] for r in ranks]
+            firsts = sorted((r["coords"], r[key]) for r in ranks
+                            if r["coords"][1] == 0)
+            est = torch.cat([x["est"] for _, x in firsts])
+            true = torch.cat([x["true"] for _, x in firsts])
+            fail = []
+            if not bool(torch.isfinite(est).all()):
+                fail.append("non-finite poses")
+            med = float(slam2d.ate(est[:, skip:], true[:, skip:]).median())
+            if not med < limit:
+                fail.append(f"median ATE {med} m (limit {limit})")
+            err = max(x["pose_err"] for x in runs)
+            if err > MESH_POSE_TOL:
+                fail.append(f"max pose err {err} m against whole grids")
+            grids = [g for x in runs for g in x["grids"]]
+            off = sum(g["cells_off"] for g in grids)
+            serr = max(g["sum_err"] for g in grids)
+            if off or serr > MESH_SUM_TOL:
+                fail.append(f"{off} grid cells differ from whole grids, sums "
+                            f"within {serr}")
+            if not all(x["replicas"] for x in runs):
+                fail.append("replicated state differs within an sp group")
+            over = [x["syncs"][0] - x["syncs"][1] - x["ref_syncs"][0]
+                    for x in runs]
+            if max(over) > 0:
+                fail.append(f"host syncs beyond whole grids' {over}: " +
+                            "; ".join(f"{x['syncs'][2]} vs "
+                                      f"{x['ref_syncs'][1]}" for x in runs))
+            if key == "config1":
+                need = {"K1": MESH_TICKS}
+                have = {"K1": [x["k1"] for x in runs]}
+                if not all(x["gathered_equal"] for x in runs):
+                    fail.append("gather_grids differs from whole grids")
+                bad = [(x["resident"], x["whole_bytes"]) for x in runs
+                       if x["resident"] * sp != x["whole_bytes"]]
+                if bad:
+                    fail.append(f"resident grid bytes not 1/{sp} of whole: "
+                                f"{bad}")
+                got["k1_err"] = max(got["k1_err"],
+                                    runs[0]["k1_check"]["err"])
+            else:
+                need = {"K5": 8 * MESH_PF_MACROS,
+                        "K5 table": 4 * MESH_PF_MACROS}
+                have = {"K5": [x["k5"] for x in runs],
+                        "K5 table": [x["packs"] for x in runs]}
+                if len({x["shared_print"] for x in runs}) != 1:
+                    fail.append("the shared grid differs between ranks")
+                if any(x["shared_vs_whole"]["cells_off"] for x in runs):
+                    fail.append("the shared grid's counts differ from one "
+                                "process's")
+            for k, v in have.items():
+                got[k] += sum(v)
+                if min(v) < need[k]:
+                    fail.append(f"{k} launches a rank {v}, want {need[k]}")
+            if fail:
+                raise RuntimeError(f"[mesh] {where} {key}: " +
+                                   "; ".join(fail))
+            ms = max(x["ms_tick"] for x in runs)
+            if key == "config1":
+                moved = (
+                    "exchanges " + ", ".join(
+                        f"{x['exchange_ms']:.3f}" for x in runs) +
+                    f" ms a macro a rank ({runs[0]['exchanges']} calls, "
+                    f"{runs[0]['copies']} host copies a macro); resident "
+                    f"grid bytes a rank {runs[0]['resident']} = 1/{sp} of "
+                    f"{runs[0]['whole_bytes']}; gather_grids equal")
+            else:
+                moved = ("all-reduce " + ", ".join(
+                    f"{x['all_reduce_ms']:.4f}" for x in runs) +
+                    f" ms a macro a rank; shared grid bit-identical on the "
+                    f"{len(runs)} ranks ({runs[0]['shared_cells']} cells), "
+                    f"its counts equal to one process's, sums within "
+                    f"{max(x['shared_vs_whole']['sum_err'] for x in runs):.3g}"
+                    f" (atomic order); "
+                    "K5 and its bit table on rank 0's last scoring equal "
+                    "to plain")
+            say(f"sp {where} {label}, B={MESH_FLEET} ({MESH_FLEET // dp} "
+                f"robots a dp row, 1/{sp} of their rows a rank): " +
+                ", ".join(f"{x['ms_tick']:.3f}" for x in runs) +
+                f" ms/tick a rank, {MESH_FLEET * 1000.0 / ms:.1f} "
+                f"robot-steps/s aggregate, median ATE {med:.4f} m "
+                f"(ticks>={skip}); max pose err {err:.3g} m against one "
+                f"process on whole grids, 0 grid cells differ, sums within "
+                f"{serr:.3g}; replicated state bit-identical in each sp "
+                f"group at every macro; launches a rank {have}; {moved}; "
+                f"peak " + ", ".join(f"{x['peak_mb']:.1f}" for x in runs) +
+                " MB a rank; host syncs (sp - staging copies / whole) " +
+                ", ".join(f"{x['syncs'][0] - x['syncs'][1]}/"
+                          f"{x['ref_syncs'][0]}" for x in runs) +
+                (f"; K1 on rank 0's last tick vs plain: "
+                 f"{agreement_text(runs[0]['k1_check'])}"
+                 if key == "config1" else ""))
+    return got
 def mesh_rank(task, me, world, backend, work) -> None:
     """[mesh]'s child process: rank `me` of `world` joins through a file
     store in `work` and runs `task` ("refuse": NCCL on a card that another
     rank holds, which must raise naming gloo; "fleets": mesh_fleets;
-    "nccl": mesh_nccl), writing its result to work/rank<me>.pt."""
+    "nccl": mesh_nccl; "sp": mesh_sp on this world's sp_layouts), writing
+    its result to work/rank<me>.pt."""
     import os
     import torch.distributed as dist
     from slam_tpu_torch.parallel import multihost
@@ -3573,8 +4009,9 @@ def mesh_rank(task, me, world, backend, work) -> None:
         raise RuntimeError("two NCCL ranks on one card were not refused")
     multihost.init_distributed(store, world, me, backend=backend)
     try:
-        torch.save(mesh_fleets(me) if task == "fleets" else mesh_nccl(),
-                   path)
+        torch.save(mesh_fleets(me) if task == "fleets" else
+                   mesh_sp(me, sp_layouts(world, backend)) if task == "sp"
+                   else mesh_nccl(), path)
     finally:
         dist.destroy_process_group()
 
@@ -3629,8 +4066,12 @@ def mesh_phase(card, world=MESH_WORLD, backend="gloo") -> dict:
     merger on MESH_MERGE_GRIDS grids. (4) mesh_scaling at
     MESH_BATCHES on world 1 (NCCL) and on `world` ranks (on the shared
     card: sharing, not scaling; gated on finite poses and on each rank's
-    peak memory below world 1's at the same B, never on throughput).
-    Returns the ranks' launches and K1's error."""
+    peak memory below world 1's at the same B, never on throughput). (5)
+    The sp axis: `world` ranks on each of sp_layouts(world, backend)
+    (dp1 x sp2 on the one card through gloo; dp2 x sp2 and dp1 x sp4 a
+    card a rank through NCCL), every robot's grids split by rows over the
+    sp ranks of its dp row: mesh_sp's config 1 and config 5, gated by
+    sp_report. Returns the ranks' launches and K1's error."""
     import tempfile
     from slam_tpu_torch.parallel import multihost
     from slam_tpu_torch.parallel.shared_map import add_grids, shared_macro
@@ -3650,6 +4091,8 @@ def mesh_phase(card, world=MESH_WORLD, backend="gloo") -> dict:
                 f"every rank: {refused[0]['refused'][:96]}...")
         ranks = spawn_ranks("fleets", world, backend, work)
         nccl = spawn_ranks("nccl", 1, "nccl", work)[0]
+        split = spawn_ranks("sp", world, backend, work) \
+            if sp_layouts(world, backend) else []
     secs = time.perf_counter() - t0
     shards = ("gloo, the ranks on one card" if backend == "gloo" else
               f"{backend}, a card a rank")
@@ -3776,6 +4219,11 @@ def mesh_phase(card, world=MESH_WORLD, backend="gloo") -> dict:
                                f"finite {a['finite']} / {b['finite']}, peak "
                                f"MB world 1 {a['peak_mb']}, world "
                                f"{world} {b['peak_mb']}")
+    if split:
+        sp = sp_report(say, split, shards)
+        for k in ("K1", "K5", "K5 table"):
+            out[k] += sp[k]
+        out["k1_err"] = max(out["k1_err"], sp["k1_err"])
     say(f"mesh_scaling: every world-{world} rank's peak memory below world "
         f"1's at each B; aggregate robot-steps/s world {world} / world 1 " +
         ", ".join(f"B={a['batch']} {b['rate'] / a['rate']:.3f}"

@@ -18,6 +18,13 @@ the bank's sort as an einsum permutation, because per-cell indexing
 serializes on a TPU. Here the slots are argmax / gather and the sort
 scatters each slot to its stable rank, which select the same slots and
 values exactly; phase B is one `index_add_` of five channels.
+
+On a grid split by rows (`grid.rows`, parallel/rows.py) the shift rolls
+every bank through one ring over the sp group, a scan's fold keeps the
+points of the slab's rows (every phase is per cell), the drivability
+stencil takes a one-row halo (+inf beyond the grid's edges, as its
+padding), and get_segmented_clouds merges each slab's top clusters over
+the group.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
+from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
+from slam_tpu_torch.parallel.rows import halo, merge_top, whole_rows
 from slam_tpu_torch.types import MlsGrid, PointCloud
 
 
@@ -50,16 +58,17 @@ def shift_origin_mls(grid: MlsGrid, new_center_xy: torch.Tensor,
     means move by -d * resolution; cells entering the window are cleared."""
     d, center = shift_step(grid.center, new_center_xy, cfg.resolution)
     H, W = grid.drivable.shape[1:]
-    fresh = fresh_mask(d, H, W)
-    mean = roll_2d(grid.mean, d)
+    fresh = fresh_mask(d, H, W, rows=grid.rows)
+    mean, var_z, num, drv = roll_cells(
+        (grid.mean, grid.var_z, grid.num_pts, grid.drivable), d, grid.rows)
     off = torch.stack([-d[:, 0].to(mean.dtype) * cfg.resolution,
                        -d[:, 1].to(mean.dtype) * cfg.resolution,
                        torch.zeros_like(center[:, 0])], -1)
     mean = torch.where(fresh[..., None, None], 0.0,
                        mean + off[:, None, None, None, :])
-    var_z = torch.where(fresh[..., None], 0.0, roll_2d(grid.var_z, d))
-    num = torch.where(fresh[..., None], 0.0, roll_2d(grid.num_pts, d))
-    drv = torch.where(fresh, -1, roll_2d(grid.drivable, d))
+    var_z = torch.where(fresh[..., None], 0.0, var_z)
+    num = torch.where(fresh[..., None], 0.0, num)
+    drv = torch.where(fresh, -1, drv)
     return grid.replace(mean=mean, var_z=var_z, num_pts=num, drivable=drv,
                         center=center)
 
@@ -129,13 +138,16 @@ def _associate(grid: MlsGrid, cell: torch.Tensor, z: torch.Tensor,
 def add_to_mls(grid: MlsGrid, cloud: PointCloud, cfg) -> MlsGrid:
     """Fold clouds (B, N), robot-centred (or world-frame for a grid centred
     on the origin), into the cluster grids and refresh the drivability of
-    the cells they touch."""
+    the cells they touch. Split by rows, the points of the slab's rows."""
     B, H, W, K = grid.num_pts.shape
     xyz = cloud.xyz
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     N = x.shape[1]
-    cx = torch.floor(true_div(x, cfg.resolution)).to(torch.int32) + H // 2
+    cx = torch.floor(true_div(x, cfg.resolution)).to(torch.int32) + \
+        whole_rows(grid.rows, H) // 2
     cy = torch.floor(true_div(y, cfg.resolution)).to(torch.int32) + W // 2
+    if grid.rows is not None:
+        cx = cx - grid.rows.r0
     rng = torch.sqrt(x * x + y * y)
     inb = cloud.valid & (cx >= 0) & (cy >= 0) & (cx < H) & (cy < W) & \
         (rng <= cfg.max_range)
@@ -259,8 +271,13 @@ def _drivability(grid: MlsGrid, touched: torch.Tensor,
     # initialized slot 0
     z0 = mean_z[..., 0]
     H, W = z0.shape[1:]
-    pz = F.pad(torch.where(num[..., 0] >= cfg.min_cluster_points, z0,
-                           float("inf")), (1, 1, 1, 1), value=float("inf"))
+    z0_init = torch.where(num[..., 0] >= cfg.min_cluster_points, z0,
+                          float("inf"))
+    if grid.rows is None:
+        pz = F.pad(z0_init, (1, 1, 1, 1), value=float("inf"))
+    else:
+        pz = F.pad(halo(z0_init, 1, float("inf"), grid.rows), (1, 1, 0, 0),
+                   value=float("inf"))
     max_diff = None
     for di in (-1, 0, 1):
         for dj in (-1, 0, 1):
@@ -291,7 +308,9 @@ def get_segmented_clouds(grid: MlsGrid, cfg, capacity: int):
     the ground cluster of a drivable cell is ground, every other initialized
     cluster an obstacle; each cloud takes the most populated clusters, ties
     to the lower (cell, slot) index (a stable descending sort: the order
-    jax.lax.top_k gives), in the frame the grid's clouds were given in."""
+    jax.lax.top_k gives), in the frame the grid's clouds were given in.
+    Split by rows, the whole grid's clusters on every rank of the sp
+    group."""
     B, H, W, K = grid.num_pts.shape
     num = grid.num_pts
     initialized = num >= cfg.min_cluster_points
@@ -305,8 +324,10 @@ def get_segmented_clouds(grid: MlsGrid, cfg, capacity: int):
         score = torch.where(mask, num, -1.0).reshape(B, -1)
         v, idx = torch.sort(score, dim=-1, descending=True, stable=True)
         v, idx = v[:, :capacity], idx[:, :capacity]
+        pts = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
+        if grid.rows is not None:
+            v, (pts,) = merge_top(v, [pts], capacity, grid.rows)
         sel = v > 0
-        pts = torch.gather(xyz, 1, idx[..., None].expand(B, capacity, 3))
         return PointCloud(xyz=torch.where(sel[..., None], pts, 0.0),
                           valid=sel,
                           flags=torch.zeros(B, capacity, dtype=torch.int32,

@@ -1,15 +1,22 @@
 """Rolling occupancy / drivability grid — counterpart of
 slam_tpu/mapping/occupancy.py (`init_occupancy`, `shift_origin`,
 `add_to_occupancy`, `add_to_occupancy_xy`, `add_to_occupancy_xy2`,
-`occupancy_cloud`), batched over robots."""
+`occupancy_cloud`), batched over robots.
+
+On a grid split by rows (`grid.rows`, parallel/rows.py) the shift rolls
+through a ring over the sp group, the updates scatter the points of the
+slab's rows (counts and flags are per cell, so each slab's are exactly the
+whole grid's), and occupancy_cloud merges each slab's top cells over the
+group."""
 
 from __future__ import annotations
 
 import torch
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
+from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
 from slam_tpu_torch.ops.scatter2d import scatter_add_2d_multi
+from slam_tpu_torch.parallel.rows import merge_top, whole_rows
 from slam_tpu_torch.types import OccupancyGrid, PointCloud
 
 
@@ -31,9 +38,10 @@ def shift_origin(grid: OccupancyGrid, new_center_xy: torch.Tensor,
     """Re-centre each robot's grid on new_center_xy (B, 2) by whole cells
     and clear the cells that enter the window."""
     d, center = shift_step(grid.center, new_center_xy, cfg.resolution)
-    fresh = fresh_mask(d, *grid.counts.shape[1:])
-    counts = torch.where(fresh, 0.0, roll_2d(grid.counts, d))
-    drivable = torch.where(fresh, -1, roll_2d(grid.drivable, d))
+    fresh = fresh_mask(d, *grid.counts.shape[1:], rows=grid.rows)
+    counts, drivable = roll_cells((grid.counts, grid.drivable), d, grid.rows)
+    counts = torch.where(fresh, 0.0, counts)
+    drivable = torch.where(fresh, -1, drivable)
     return grid.replace(counts=counts, drivable=drivable, center=center)
 
 
@@ -68,7 +76,8 @@ def add_to_occupancy_xy(grid: OccupancyGrid, lx: torch.Tensor,
     H, W = grid.counts.shape[1:]
     x, y = cells_of(lx, ly, cfg)
     keep = valid & (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
-    (touch,) = scatter_add_2d_multi(x, y, (None,), keep, (H, W))
+    (touch,) = scatter_add_2d_multi(x, y, (None,), keep, (H, W),
+                                    rows=grid.rows)
     return _apply_counts_drivability(grid, touch * cfg.occupancy_increment,
                                      touch, cfg)
 
@@ -89,7 +98,8 @@ def add_to_occupancy_xy2(grid: OccupancyGrid, ox, oy, ovalid, gx, gy, gvalid,
     x, y = cells_of(lx, ly, cfg)
     keep = torch.cat([ovalid, gvalid], -1) & \
         (lx * lx + ly * ly <= cfg.max_range * cfg.max_range)
-    delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep, (H, W))
+    delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep, (H, W),
+                                        rows=grid.rows)
     return _apply_counts_drivability(grid, delta, touch, cfg)
 
 
@@ -110,7 +120,8 @@ def add_to_occupancy(grid: OccupancyGrid, obstacle: PointCloud,
         torch.full(ground.valid.shape, -cfg.occupancy_decrement,
                    dtype=grid.counts.dtype, device=xy.device)], 1)
     delta, touch = scatter_add_2d_multi(x, y, (sign, None), keep,
-                                        grid.counts.shape[1:])
+                                        grid.counts.shape[1:],
+                                        rows=grid.rows)
     return _apply_counts_drivability(grid, delta, touch, cfg)
 
 
@@ -118,11 +129,16 @@ def occupancy_cloud(grid: OccupancyGrid, cfg, capacity: int) -> PointCloud:
     """Occupied-cell centres as a world-frame obstacle cloud (B, capacity):
     the `capacity` highest-count occupied cells, equal counts in flat cell
     order (a stable descending sort: jax.lax.top_k's order, and counts are
-    integer-valued, so ties are common)."""
-    B, H, W = grid.counts.shape
+    integer-valued, so ties are common). Split by rows, the whole grid's
+    cells on every rank of the sp group."""
+    B, h, W = grid.counts.shape
+    H = whole_rows(grid.rows, h)
     score = torch.where(grid.drivable == 0, grid.counts, -1.0).reshape(B, -1)
     top, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     top, idx = top[:, :capacity], idx[:, :capacity]
+    if grid.rows is not None:
+        top, (idx,) = merge_top(top, [idx + grid.rows.r0 * W], capacity,
+                                grid.rows)
     sel = top > 0
     x = (idx // W - H // 2 + 0.5) * cfg.resolution + grid.center[:, 0:1]
     y = (idx % W - W // 2 + 0.5) * cfg.resolution + grid.center[:, 1:2]

@@ -4,6 +4,13 @@ slam_tpu/mapping/point_map.py.
 Per-cell accumulators (count and cell-relative x / y offset sums, absolute
 z sum) on a world-aligned rolling grid per robot. Export turns the most
 observed occupied cells into centroid points with ground-adjacency flags.
+
+On a grid split by rows (`rows`, parallel/rows.py) each rank holds a slab
+of every robot's rows: the shift rolls through a ring over the sp group,
+the update scatters the points of the slab's rows, and the export takes
+each slab's top `capacity` cells (with a one-row halo for the GA stencil)
+and merges the candidates over the group, which gives the whole grid's
+export exactly.
 """
 
 from __future__ import annotations
@@ -13,16 +20,19 @@ import dataclasses
 import torch
 
 from slam_tpu_torch import default_device, true_div
-from slam_tpu_torch.ops.roll import fresh_mask, roll_2d, shift_step
+from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
+from slam_tpu_torch.parallel.rows import merge_top, row_index, whole_rows
 from slam_tpu_torch.types import PointCloud, Replaceable
 
 
 @dataclasses.dataclass
 class PointMapGrid(Replaceable):
     """sum_x / sum_y hold offsets from each point's cell centre (bounded by
-    +-resolution / 2, unchanged by rolling shifts); sum_z is absolute."""
+    +-resolution / 2, unchanged by rolling shifts); sum_z is absolute.
+    `rows` (static) is the split of the rows over an sp group, the
+    channels then (B, G / sp, G); None when whole."""
 
     count: torch.Tensor   # (B, G, G)
     sum_x: torch.Tensor   # (B, G, G)
@@ -30,6 +40,7 @@ class PointMapGrid(Replaceable):
     sum_z: torch.Tensor
     center: torch.Tensor  # (B, 2) world xy of the grid centre
     resolution: float = 0.5
+    rows: object = None
 
 
 def init_point_map(batch: int, grid_size: int, resolution: float = 0.5,
@@ -53,14 +64,10 @@ def shift_point_map(grid: PointMapGrid, new_center_xy: torch.Tensor,
     that wraps in."""
     d, center = shift_step(grid.center, new_center_xy,
                            resolution or grid.resolution)
-    G = grid.count.shape[-1]
-    fresh = fresh_mask(d, G, G)
-
-    def move(a):
-        return torch.where(fresh, 0.0, roll_2d(a, d))
-
-    return grid.replace(count=move(grid.count), sum_x=move(grid.sum_x),
-                        sum_y=move(grid.sum_y), sum_z=move(grid.sum_z),
+    fresh = fresh_mask(d, *grid.count.shape[1:], rows=grid.rows)
+    count, sx, sy, sz = (torch.where(fresh, 0.0, a) for a in roll_cells(
+        (grid.count, grid.sum_x, grid.sum_y, grid.sum_z), d, grid.rows))
+    return grid.replace(count=count, sum_x=sx, sum_y=sy, sum_z=sz,
                         center=center)
 
 
@@ -94,7 +101,8 @@ def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
     ox = rx - (cx.to(rx.dtype) - G // 2 + 0.5) * res
     oy = ry - (cy.to(ry.dtype) - G // 2 + 0.5) * res
     chans = (None, ox, oy) + (() if qz is None else (qz,))
-    acc = scatter_add_2d_multi(cx, cy, chans, valid, (G, G))
+    acc = scatter_add_2d_multi(cx, cy, chans, valid, grid.count.shape[1:],
+                               rows=grid.rows)
     return grid.replace(
         count=grid.count + acc[0], sum_x=grid.sum_x + acc[1],
         sum_y=grid.sum_y + acc[2],
@@ -109,24 +117,31 @@ def export_point_planes(grid: PointMapGrid, capacity: int,
     Overflow keeps the `capacity` most observed cells; equal counts go to
     the lower flat cell index, which is jax.lax.top_k's order (and what
     slam_tpu's approx_max_k export gives off the TPU). A stable descending
-    sort fixes that order; torch.topk leaves it undefined."""
-    G = grid.count.shape[-1]
-    B = grid.count.shape[0]
+    sort fixes that order; torch.topk leaves it undefined. A grid split by
+    rows exports the whole grid's cells on every rank of its sp group."""
+    rows = grid.rows
+    B, h, G = grid.count.shape
+    H = whole_rows(rows, h)
     occ = grid.count >= min_count
-    box = neighbor_sum_2d((~occ).to(torch.float32))
-    ii = torch.arange(G, device=occ.device)
-    inner = (ii > 0) & (ii < G - 1)
-    ga = occ & (inner[:, None] & inner[None, :]) & (box >= ga_threshold)
+    box = neighbor_sum_2d((~occ).to(torch.float32), rows=rows)
+    ii = row_index(rows, h, occ.device)
+    jj = torch.arange(G, device=occ.device)
+    inner = ((ii > 0) & (ii < H - 1))[:, None] & ((jj > 0) & (jj < G - 1))
+    ga = occ & inner & (box >= ga_threshold)
 
     score = torch.where(occ, grid.count, 0.0).reshape(B, -1)
     v, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     v, idx = v[:, :capacity], idx[:, :capacity]
+    cells = gather_cells_2d(
+        (grid.count, grid.sum_x, grid.sum_y, grid.sum_z,
+         ga.to(torch.float32)), idx // G, idx % G)
+    if rows is not None:
+        v, (idx, *cells) = merge_top(v, [idx + rows.r0 * G, *cells],
+                                     capacity, rows)
+    n, ox, oy, oz, g = cells
     sel = v >= min_count
     ci = idx // G
     cj = idx % G
-    n, ox, oy, oz, g = gather_cells_2d(
-        (grid.count, grid.sum_x, grid.sum_y, grid.sum_z,
-         ga.to(torch.float32)), ci, cj)
     cnt = torch.clamp(n, min=1.0)
     res = grid.resolution
     ctr_x = (ci - G // 2 + 0.5) * res + grid.center[:, 0:1]

@@ -22,9 +22,10 @@ rank), runs `steps` ticks to warm up, then `steps` timed ticks, and rank
 
 One rank a card (NCCL, the default on the card). Ranks sharing one card
 (backend gloo) measure the card's sharing, not scaling. Alone, without
-torchrun, it runs one rank. --sp > 1 raises: the sp axis is layout only
-(parallel/mesh.py). On the card unless given --device cpu, where peak
-memory is not measured; it raises without a card.
+torchrun, it runs one rank. --sp > 1 raises NotImplementedError: the sp
+axis splits the 2D grids (parallel/rows.py), and the 3D path's grids are
+ROADMAP queue 1's next sp item. On the card unless given --device cpu,
+where peak memory is not measured; it raises without a card.
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def main(argv=None) -> list:
     ap.add_argument("--batches", default="16,32,64")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--sp", type=int, default=1,
-                    help="spatial shards a robot grid (layout only: > 1 "
-                         "raises)")
+                    help="spatial shards a robot grid (> 1 raises: the 3D "
+                         "path is not split by rows yet)")
     ap.add_argument("--backend", default=None,
                     help="nccl (one rank a card; default on the card) or "
                          "gloo (ranks may share a card)")

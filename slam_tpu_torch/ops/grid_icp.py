@@ -28,6 +28,7 @@ from slam_tpu_torch import true_div
 from slam_tpu_torch.geometry import angle_wrap, rot2
 from slam_tpu_torch.ops.icp import IcpResult, _eye, procrustes_2d
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
+from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.types import Replaceable
 
 BIG = 1e30
@@ -65,7 +66,10 @@ def nearest_point_field(grid, resolution: float, ga_threshold: int = 2,
     (di, then dj, each in -s, 0, s) and takes a candidate only when it is
     strictly nearer the cell centre, so that order decides ties. A
     candidate rolled in across the grid's edge is dropped. `resolution`
-    must equal the grid's own."""
+    must equal the grid's own. Not ported to grids split by rows (a jump
+    flood over split rows): those raise NotImplementedError."""
+    refuse(grid, 'the "grid" matcher\'s nearest-centroid field',
+           "the \"grid\" field")
     if abs(resolution - grid.resolution) > 1e-9:
         raise ValueError(
             f"nearest_point_field resolution {resolution} != the map "

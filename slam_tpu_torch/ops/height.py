@@ -17,6 +17,7 @@ import torch
 
 from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d
+from slam_tpu_torch.parallel.rows import refuse
 
 
 def _plane_normal(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -97,7 +98,10 @@ def height_interpolate_planes(gx, gy, gz, gvalid, pose_xyyawz: torch.Tensor,
 def height_interpolate_grid(grid, pose_xyyawz: torch.Tensor,
                             cfg) -> torch.Tensor:
     """height_interpolate straight off the ground centroid grid: the
-    occupied cells of the window that any accepted match must lie in."""
+    occupied cells of the window that any accepted match must lie in.
+    Not ported to grids split by rows: raises NotImplementedError there."""
+    refuse(grid, "height_interpolate_grid's cell reads",
+           "3D, with mesh_scaling --sp")
     G = grid.count.shape[-1]
     res = float(grid.resolution)
     reach = math.hypot(cfg.x_wheel_dist, cfg.y_wheel_dist)

@@ -15,6 +15,12 @@ every engine gives the same scores. On the card K5 packs the grid into a
 bit table (`occupancy_bits`, one launch) and scores from it (one launch,
 reading the scan, mask, particles and centre as they lie); `pf_match`
 packs once and scores twice.
+
+On a grid split by rows (`grid.rows`, parallel/rows.py) each rank packs
+the words of its slab (cell (ix, iy) is bit ix*G + iy, so a slab of rows
+is a contiguous run of words when its cells are a multiple of 32) and the
+sp group all-gathers them: K5 then scores, unchanged, against the whole
+table, G^2 / 8 bytes a robot.
 """
 
 from __future__ import annotations
@@ -66,11 +72,13 @@ def occupancy_flat(grid: PointMapGrid) -> torch.Tensor:
 def occupancy_bits_reference(count: torch.Tensor) -> torch.Tensor:
     """Plain version of K5's table packing: (Bg, G, G) counts -> (Bg, W)
     int32 words, W = ceil(G*G / 32); cell (ix, iy) is bit (ix*G + iy) % 32
-    of word (ix*G + iy) // 32, set where count > 0."""
-    Bg, G, _ = count.shape
-    W = (G * G + 31) // 32
+    of word (ix*G + iy) // 32, set where count > 0. A slab of rows (Bg, h,
+    G) packs the same way into its own ceil(h*G / 32) words."""
+    Bg = count.shape[0]
+    n = count[0].numel()
+    W = (n + 31) // 32
     occ = count.reshape(Bg, -1) > 0
-    occ = torch.nn.functional.pad(occ, (0, W * 32 - G * G))
+    occ = torch.nn.functional.pad(occ, (0, W * 32 - n))
     shifts = torch.arange(32, device=count.device, dtype=torch.int64)
     words = (occ.reshape(Bg, W, 32).to(torch.int64) << shifts).sum(-1)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
@@ -92,11 +100,12 @@ def score_layout(scan_xy, valid, particles, center) -> list[int]:
             *center.stride()]
 
 
-def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution):
+def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution,
+                    bits=None):
     """Hit counts (B, P) of scan planes (B, N) under particles given as
-    (B, P) planes, with c, s the cosine and sine of their yaws."""
+    (B, P) planes, with c, s the cosine and sine of their yaws; the cells
+    read from the grid, or from its bit table `bits` (Bg, G*G / 32)."""
     G = grid.count.shape[-1]
-    occ = occupancy_flat(grid)                                   # (Bg, G*G)
     wx = c[..., None] * sx[:, None] - s[..., None] * sy[:, None] + \
         px[..., None]                                            # (B, P, N)
     wy = s[..., None] * sx[:, None] + c[..., None] * sy[:, None] + \
@@ -108,29 +117,65 @@ def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution):
     inb = valid[:, None] & (cx >= 0) & (cy >= 0) & (cx < G) & (cy < G)
     flat = (cx.clamp(0, G - 1) * G + cy.clamp(0, G - 1)).long()
     B, P, N = flat.shape
-    hit = torch.gather(occ.expand(B, -1), 1, flat.reshape(B, P * N))
+    flat = flat.reshape(B, P * N)
+    if bits is None:
+        hit = torch.gather(occupancy_flat(grid).expand(B, -1), 1, flat)
+    else:
+        word = torch.gather(bits.expand(B, -1), 1, flat >> 5)
+        hit = ((word >> (flat & 31)) & 1) != 0
     return (inb & hit.reshape(B, P, N)).sum(-1).to(torch.float32)
+
+
+def _pack_kernel(count: torch.Tensor, G: int, strides) -> torch.Tensor:
+    """One launch of K5's table packing over (Bg, G, G) cells read at
+    element `strides` -> (Bg, ceil(G*G / 32)) words."""
+    global pack_launches
+    Bg = count.shape[0]
+    bits = torch.empty((Bg, (G * G + 31) // 32), dtype=torch.int32,
+                       device=count.device)
+    err = cuda_build.library().slam_pf_pack(
+        count.data_ptr(), *strides, Bg, G, bits.data_ptr(),
+        torch.cuda.current_stream(count.device).cuda_stream)
+    cuda_build.check(err, "slam_pf_pack")
+    pack_launches += 1
+    return bits
+
+
+def _slab_words(count: torch.Tensor) -> torch.Tensor:
+    """A slab's words (Bg, h*G / 32) of the whole grid's bit table. On the
+    card one K5 pack launch reads the slab's cells in flat order as
+    squares of 8 x 8 (two words each, so a square's words are the slab's
+    own): it needs h*G a multiple of 64."""
+    Bg, h, G = count.shape
+    n = h * G
+    if n % 32:
+        raise ValueError(f"a slab of {h} x {G} cells is not word-aligned: "
+                         "K5's table splits by rows into whole 32-bit words "
+                         "only")
+    if count.device.type == "cpu":
+        return occupancy_bits_reference(count)
+    if count.dtype != torch.float32 or n % 64:
+        raise ValueError(f"K5 packs a slab of f32 counts in squares of 64 "
+                         f"cells, got {count.dtype} {h} x {G}")
+    squares = count.contiguous().view(Bg * n // 64, 8, 8)
+    return _pack_kernel(squares, 8, squares.stride()).view(Bg, n // 32)
 
 
 def occupancy_bits(grid: PointMapGrid) -> torch.Tensor:
     """K5's bit table of the grid: packed on the card by one launch, by
-    occupancy_bits_reference for a grid on the CPU."""
-    global pack_launches
+    occupancy_bits_reference for a grid on the CPU. Split by rows, each
+    slab's words all-gathered over the sp group: the whole table on every
+    rank."""
     count = grid.count
+    if grid.rows is not None:
+        return torch.cat(grid.rows.comm.all_gather(_slab_words(count)), 1)
     if count.device.type == "cpu":
         return occupancy_bits_reference(count)
     Bg, G, G2 = count.shape
     if count.dtype != torch.float32 or G != G2:
         raise ValueError(f"K5 packs an f32 (Bg, G, G) count grid, got "
                          f"{count.dtype} {tuple(count.shape)}")
-    bits = torch.empty((Bg, (G * G + 31) // 32), dtype=torch.int32,
-                       device=count.device)
-    err = cuda_build.library().slam_pf_pack(
-        count.data_ptr(), *count.stride(), Bg, G, bits.data_ptr(),
-        torch.cuda.current_stream(count.device).cuda_stream)
-    cuda_build.check(err, "slam_pf_pack")
-    pack_launches += 1
-    return bits
+    return _pack_kernel(count, G, count.stride())
 
 
 def _score_kernel(bits, grid, scan_xy, valid, particles, resolution):
@@ -139,7 +184,7 @@ def _score_kernel(bits, grid, scan_xy, valid, particles, resolution):
     global launches
     B, N = valid.shape
     P = particles.shape[1]
-    Bg, G, _ = grid.count.shape
+    Bg, G = grid.count.shape[0], grid.count.shape[-1]
     if Bg not in (1, B):
         raise ValueError(f"K5 takes a grid of batch 1 or {B}, not {Bg}")
     W = (G * G + 31) // 32
@@ -182,13 +227,17 @@ def _uses_kernel(engine: str, dev: torch.device) -> bool:
 
 def score_particles_reference(grid: PointMapGrid, scan_xy: torch.Tensor,
                               valid: torch.Tensor, particles: torch.Tensor,
-                              resolution: float) -> torch.Tensor:
+                              resolution: float, bits=None) -> torch.Tensor:
     """Plain PyTorch version of K5, on any device: (B, P) hit fractions of
-    scans (B, N, 2) with masks (B, N) under particles (B, P, 3)."""
+    scans (B, N, 2) with masks (B, N) under particles (B, P, 3). A grid
+    split by rows is read through its bit table (`bits`, else gathered by
+    occupancy_bits)."""
+    if grid.rows is not None and bits is None:
+        bits = occupancy_bits(grid)
     yaw = particles[..., 2]
     hits = _hits_reference(grid, scan_xy[..., 0], scan_xy[..., 1], valid,
                            particles[..., 0], particles[..., 1],
-                           torch.cos(yaw), torch.sin(yaw), resolution)
+                           torch.cos(yaw), torch.sin(yaw), resolution, bits)
     return _fractions(hits, valid)
 
 
@@ -259,9 +308,11 @@ def pf_match(grid: PointMapGrid, scan, pred_pose: torch.Tensor,
         def score(p):
             return _score_kernel(bits, grid, scan_xy, valid, p, resolution)
     else:
+        bits = None if grid.rows is None else occupancy_bits(grid)
+
         def score(p):
             return score_particles_reference(grid, scan_xy, valid, p,
-                                             resolution)
+                                             resolution, bits)
     scores = score(particles)                                     # (B, P)
 
     w = torch.softmax(scores / cfg.temperature, -1)

@@ -21,12 +21,14 @@ from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 
 def build_scene_grid_planes(px, py, pz, valid, drv, capacity: int,
                             resolution: float, grid_bins: int,
-                            ga_threshold: int, min_count: float = 1.0):
+                            ga_threshold: int, min_count: float = 1.0,
+                            deterministic: bool = False):
     """Voxelize robot-frame scans (B, N) into scene planes (B, capacity).
 
     pz: z plane or None (2D); drv: drivable-over plane (f32 0/1) or None.
     Returns (sx, sy, sz, ga, drv_out, keep); sz / drv_out are None when
-    their input is. Points beyond the grid's half-extent are dropped."""
+    their input is. Points beyond the grid's half-extent are dropped.
+    `deterministic`: the sums the same on every run (scatter_add_2d_multi)."""
     G = grid_bins
     ci = torch.floor(true_div(px, resolution)).to(torch.int32) + G // 2
     cj = torch.floor(true_div(py, resolution)).to(torch.int32) + G // 2
@@ -36,7 +38,8 @@ def build_scene_grid_planes(px, py, pz, valid, drv, capacity: int,
     ox = px - (cci.to(px.dtype) - G // 2 + 0.5) * resolution
     oy = py - (ccj.to(py.dtype) - G // 2 + 0.5) * resolution
     chans = [None, ox, oy] + [c for c in (pz, drv) if c is not None]
-    accs = list(scatter_add_2d_multi(cci, ccj, tuple(chans), inb, (G, G)))
+    accs = list(scatter_add_2d_multi(cci, ccj, tuple(chans), inb, (G, G),
+                                     deterministic=deterministic))
     count = accs[0]
 
     occ = count >= min_count

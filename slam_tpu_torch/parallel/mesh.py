@@ -3,22 +3,26 @@
 Mesh axes, as in slam_tpu:
   dp — robots: each rank steps its own slice of the fleet (the reference's
        one robot a process becomes thousands of batched robots a rank);
-  sp — rows of each robot's grids, split over the ranks of a column.
+  sp — rows of each robot's grids, split over the ranks of a dp row.
 
 A Mesh is the (dp, sp) array of ranks; it is built for a rank count
 without a process group (layout tests run in one process) and makes its
-dp process group from that layout once a group is up
-(parallel/multihost.init_distributed). The placement rules are slam_tpu's
+process groups from that layout once a group is up
+(parallel/multihost.init_distributed): each sp column's dp group, each dp
+row's sp group and the whole mesh's. The placement rules are slam_tpu's
 NamedSharding specs written out as index slices: `fleet_sharding` and
 `grid_rows_sharding` give, for each tensor leaf, the slices every rank
 owns, exactly what `NamedSharding.devices_indices_map` gives.
 
-The sp axis is layout only: stepping a fleet whose grid rows are split
-needs a halo exchange in every grid op (the rolls, the point-map and
-occupancy scatters, the export's top-k, the particle scoring's reads),
-which is ROADMAP queue 1's next item. Until then placing or rolling a
-fleet on an sp > 1 mesh raises NotImplementedError; rows are never
-replicated silently.
+On an sp > 1 mesh `shard_fleet` and `shard_grids` place those slices: a
+rank holds its dp row's robots, and of their grids (local_map, map_grid,
+MLS banks) only its block of rows, the grid's `rows` field naming the
+split (parallel/rows.py); the state outside the grids is the same on every
+rank of the row. Where XLA inserts halo collectives, every grid op here
+exchanges over the sp group itself. `gather_grids` joins robots and rows
+again, for tests and checks. The paths not ported to split grids (3D with
+mesh_scaling --sp, the "grid" matcher's field, graph mode's regeneration,
+relocalization) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from slam_tpu_torch.parallel import multihost
+from slam_tpu_torch.parallel.rows import GroupExchange, Rows
 
 AXES = ("dp", "sp")
 
@@ -44,7 +49,8 @@ class Mesh:
             raise ValueError(f"a mesh is a (dp, sp) array of ranks, got "
                              f"shape {self.ranks.shape}")
         self.axis_names = AXES
-        self._dp_group = None
+        self._groups = None
+        self._exchange = None
 
     @property
     def shape(self) -> dict:
@@ -54,32 +60,85 @@ class Mesh:
     def size(self) -> int:
         return self.ranks.size
 
-    def dp_group(self):
-        """The process group of the dp axis (sp == 1: every rank of the
-        mesh), or None for a one-rank mesh without a process group. Made
-        at first use, collectively: every rank of the world calls it."""
-        require_dp_only(self, "a dp collective")
+    def coords(self, rank: int | None = None) -> tuple:
+        """(i, j): the robot shard and row block of `rank` (default this
+        process's)."""
+        me = multihost.rank() if rank is None else rank
+        at = np.argwhere(self.ranks == me)
+        if not len(at):
+            raise ValueError(f"rank {me} is not in the mesh {self.ranks}")
+        return int(at[0][0]), int(at[0][1])
+
+    def _process_groups(self):
+        """(dp group of this rank's sp column, sp group of its dp row (None
+        for sp = 1), the whole mesh's group), or None for a one-rank mesh
+        without a process group. Made at first use, collectively (every
+        rank of the world calls it): the columns' groups, then the rows'."""
         if not dist.is_initialized():
             if self.size > 1:
                 raise RuntimeError(f"a mesh of {self.size} ranks needs a "
                                    "process group (init_distributed)")
             return None
-        if self._dp_group is None:
-            members = sorted(self.ranks[:, 0].tolist())
-            if members == list(range(dist.get_world_size())):
-                self._dp_group = dist.group.WORLD
-            else:
-                self._dp_group = dist.new_group(members)
-        return self._dp_group
+        if self._groups is None:
+            world = list(range(dist.get_world_size()))
+            made = {}
+
+            def group(members):
+                key = tuple(sorted(int(m) for m in members))
+                if key not in made:
+                    made[key] = (dist.group.WORLD if list(key) == world
+                                 else dist.new_group(list(key)))
+                return made[key]
+            i, j = self.coords()
+            cols = [group(self.ranks[:, c]) for c in range(
+                self.ranks.shape[1])]
+            rows = [group(self.ranks[r]) if self.ranks.shape[1] > 1
+                    else None for r in range(self.ranks.shape[0])]
+            self._groups = (cols[j], rows[i], group(self.ranks.ravel()))
+        return self._groups
+
+    def dp_group(self):
+        """The process group of this rank's sp column (its dp axis: one
+        rank of every robot shard), or None for a one-rank mesh without a
+        process group. Made at first use, collectively."""
+        groups = self._process_groups()
+        return None if groups is None else groups[0]
+
+    def sp_group(self):
+        """The process group of this rank's dp row (the ranks that split
+        its robots' grid rows), None when sp = 1. Made collectively."""
+        groups = self._process_groups()
+        return None if groups is None else groups[1]
+
+    def group(self):
+        """The process group of every rank of the mesh, or None for a
+        one-rank mesh without a process group."""
+        groups = self._process_groups()
+        return None if groups is None else groups[2]
+
+    def rows(self, H: int) -> Rows:
+        """This rank's block of a grid's H rows, with its sp group's
+        exchange (one for every grid of the rank)."""
+        if self.shape["sp"] == 1:
+            raise ValueError("rows are split only on an sp > 1 mesh")
+        group = self.sp_group()
+        if group is None:
+            raise RuntimeError("grids split by rows need a process group "
+                               "(init_distributed)")
+        i, j = self.coords()
+        if self._exchange is None:
+            self._exchange = GroupExchange(group, self.ranks[i])
+        return Rows(self._exchange, j, self.shape["sp"], H)
 
 
 def require_dp_only(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError for `what` on an sp > 1 mesh."""
+    """Raise NotImplementedError for `what` on an sp > 1 mesh: the paths
+    the sp axis does not reach yet."""
     if mesh.shape["sp"] > 1:
         raise NotImplementedError(
-            f"{what} on a mesh with sp={mesh.shape['sp']}: stepping grids "
-            "whose rows are split over ranks needs the sp axis's halo "
-            "exchange, not yet ported (ROADMAP.md, queue 1); use sp=1")
+            f"{what} on a mesh with sp={mesh.shape['sp']} is not ported "
+            "yet: ROADMAP.md queue 1, step 3 (3D, with mesh_scaling --sp); "
+            "use sp=1")
 
 
 def make_mesh(n_devices: int | None = None, sp: int = 1) -> Mesh:
@@ -158,28 +217,97 @@ def fleet_sharding(mesh: Mesh, states):
     return sh
 
 
+def _grid_rows(grids) -> int:
+    """The row count of a grid container: its first leaf of (B, H, W,
+    ...)."""
+    for f in dataclasses.fields(grids):
+        t = getattr(grids, f.name)
+        if isinstance(t, torch.Tensor) and t.dim() >= 3:
+            return t.shape[1]
+    raise ValueError(f"{type(grids).__name__} holds no (B, H, W) leaf")
+
+
+def _split(mesh: Mesh, grids, me: int):
+    """grids (this rank's slice, h rows) with `rows` naming its block of
+    the whole h * sp, on an sp > 1 mesh; as they are otherwise."""
+    sp = mesh.shape["sp"]
+    if sp == 1:
+        return grids
+    if me != multihost.rank():
+        raise ValueError("rows split over an sp group are placed by their "
+                         "own rank")
+    return grids.replace(rows=mesh.rows(_grid_rows(grids) * sp))
+
+
+def shard_grids(mesh: Mesh, grids, rank: int | None = None, device=None):
+    """This rank's slice of a batch of grid containers (OccupancyGrid,
+    PointMapGrid, MlsGrid): its robot shard, and on an sp > 1 mesh its
+    block of every robot's rows, the container's `rows` naming the split
+    (which needs the process group). On this rank's device
+    (multihost.rank_device)."""
+    me = multihost.rank() if rank is None else rank
+    dev = multihost.rank_device(device)
+    return _split(mesh, tree_map(lambda t, s: t[s[me]].to(dev), grids,
+                                 grid_rows_sharding(mesh, grids)), me)
+
+
 def shard_fleet(mesh: Mesh, states, rank: int | None = None, device=None):
     """This rank's robots of a whole fleet's state (`rank` defaults to the
     process's), on this rank's device (multihost.rank_device: its card
-    unless `device` says otherwise). Raises NotImplementedError on an sp >
-    1 mesh."""
-    require_dp_only(mesh, "placing a fleet")
+    unless `device` says otherwise). On an sp > 1 mesh the robots' own
+    grids (local_map, map_grid) hold this rank's block of rows."""
     me = multihost.rank() if rank is None else rank
     dev = multihost.rank_device(device)
-    return tree_map(lambda t, s: t[s[me]].to(dev), states,
-                    fleet_sharding(mesh, states))
+    out = tree_map(lambda t, s: t[s[me]].to(dev), states,
+                   fleet_sharding(mesh, states))
+    out = out.replace(local_map=_split(mesh, out.local_map, me))
+    if out.map_grid is not None:
+        out = out.replace(map_grid=_split(mesh, out.map_grid, me))
+    return out
+
+
+def _in_order(group, x) -> dict:
+    """Every rank's x of `group` (pickled CPU copies: gloo cannot
+    all-gather CUDA tensors, and NCCL none on the CPU), keyed by rank."""
+    n = dist.get_world_size(group)
+    parts = [None] * n
+    dist.all_gather_object(parts, x, group=group)
+    return dict(zip(sorted(dist.get_process_group_ranks(group)), parts))
 
 
 def gather_fleet(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's `x` (its robots first) joined in dp order, on every
-    rank, on x's device. Through host memory, as pickled tensors: gloo
-    cannot all-gather CUDA tensors, and NCCL none on the CPU."""
+    """Every robot shard's `x` (its robots first) joined in dp order, on
+    every rank, on x's device. Through host memory, over this rank's sp
+    column."""
     group = mesh.dp_group()
     if group is None:
         return x
-    parts = [None] * mesh.size
-    dist.all_gather_object(parts, x.cpu(), group=group)
-    members = sorted(mesh.ranks[:, 0].tolist())
-    by_rank = dict(zip(members, parts))
-    return torch.cat([by_rank[int(r)] for r in mesh.ranks[:, 0]]).to(
+    by_rank = _in_order(group, x.cpu())
+    j = mesh.coords()[1]
+    return torch.cat([by_rank[int(r)] for r in mesh.ranks[:, j]]).to(
         x.device)
+
+
+def gather_grids(mesh: Mesh, grids):
+    """The whole batch of grid containers on every rank, robots and rows
+    joined (for tests and checks: it builds whole grids), rows None, on
+    the grids' device. Through host memory, over the whole mesh."""
+    group = mesh.group()
+    if group is None:
+        return grids
+    dev = next(t for t in (getattr(grids, f.name)
+                           for f in dataclasses.fields(grids))
+               if isinstance(t, torch.Tensor)).device
+    by_rank = _in_order(group, tree_map(lambda t: t.cpu(),
+                                        grids.replace(rows=None)))
+    dp, sp = mesh.ranks.shape
+    parts = [by_rank[int(r)] for r in mesh.ranks.ravel()]
+
+    def join(*leaves):
+        blocks = [leaves[i * sp:(i + 1) * sp] for i in range(dp)]
+        if leaves[0].dim() >= 3:
+            whole = [torch.cat(b, 1) for b in blocks]
+        else:
+            whole = [b[0] for b in blocks]
+        return torch.cat(whole).to(dev)
+    return tree_map(join, parts[0], *parts[1:])

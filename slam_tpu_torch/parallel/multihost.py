@@ -6,8 +6,9 @@ One process drives one device, PyTorch's idiom: `torch.distributed` with
 NCCL between cards and gloo on the CPU stands in for XLA's single-
 controller mesh. The topology rule is slam_tpu's: the robot (dp) axis is
 pure data parallelism, whose only cross-device traffic is config 5's
-shared-map all-reduce, so dp spans hosts; the spatial (sp) axis would
-carry halo exchanges every tick, so an sp column stays inside one host.
+shared-map all-reduce, so dp spans hosts; the spatial (sp) axis carries
+halo exchanges and rolls every tick (parallel/rows.py), so the sp ranks of
+a robot shard stay inside one host.
 
     torchrun --nproc-per-node N -m slam_tpu_torch.mesh_scaling
 

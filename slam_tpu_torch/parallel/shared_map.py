@@ -12,6 +12,14 @@ the shared grid, and one all-reduce a macro sums the ranks' folds into
 every replica: the psum GSPMD inserts in slam_tpu. `make_shared_map_merger`
 merges grids held across ranks the same way, one all-reduce of the four
 channels.
+
+On an sp > 1 mesh the ranks of a dp row hold the same robots, their
+local_map split by rows (parallel/rows.py), and every rank keeps the whole
+shared grid: only the row's first rank contributes its macro delta to the
+all-reduce (the others add zeros), so the replicas stay bit-identical even
+where two ranks' folds differ in the order of the card's atomic adds. The
+merger takes grids split over dp only (slam_tpu's in_specs=P("dp")) and
+all-reduces over each sp column.
 """
 
 from __future__ import annotations
@@ -23,7 +31,6 @@ from slam_tpu_torch import default_device
 from slam_tpu_torch.geometry import se2_apply_xy
 from slam_tpu_torch.mapping.point_map import (PointMapGrid,
                                               update_point_map_xy)
-from slam_tpu_torch.parallel.mesh import require_dp_only
 from slam_tpu_torch.pipeline import slam2d
 from slam_tpu_torch.utils import metrics
 
@@ -48,7 +55,7 @@ def merge_maps(grids: PointMapGrid) -> PointMapGrid:
         sum_y=grids.sum_y.sum(0, keepdim=True),
         sum_z=grids.sum_z.sum(0, keepdim=True),
         center=grids.center[:1],
-        resolution=grids.resolution)
+        resolution=grids.resolution, rows=grids.rows)
 
 
 def fold_scans(shared: PointMapGrid, qx: torch.Tensor, qy: torch.Tensor,
@@ -75,27 +82,28 @@ def _sum_over_ranks(grid: PointMapGrid, group, flag=None):
 
 def make_shared_map_merger(mesh):
     """merge(grids) -> the merged batch-1 grid, replicated on every rank of
-    the mesh's dp axis: each rank sums its own world-aligned grids (B, G,
-    G), then one all_reduce over the dp group folds the four channels.
+    the mesh: each rank sums its own world-aligned grids (B, G, G), its
+    robot shard's (the grids are split over dp only; the ranks of a dp row
+    hold the same ones), then one all_reduce over its sp column's dp group
+    folds the four channels.
 
     The alignment guard is global: each rank compares its grids' centres
-    with rank 0's robot 0 (a broadcast), and the verdict rides in the same
-    all_reduce, so grids that sit elsewhere on any one rank poison the
-    counts with NaN on every rank. The merged centre is rank 0's robot 0.
-    Without a process group a one-rank mesh merges locally (merge_maps).
-    Raises NotImplementedError on an sp > 1 mesh."""
-    require_dp_only(mesh, "the shared-map merger")
-    root = int(mesh.ranks[0, 0])
+    with its column's first rank's robot 0 (a broadcast), and the verdict
+    rides in the same all_reduce, so grids that sit elsewhere on any one
+    robot shard poison the counts with NaN on every rank. The merged centre
+    is robot shard 0's robot 0. Without a process group a one-rank mesh
+    merges locally (merge_maps)."""
 
     def merge(grids: PointMapGrid) -> PointMapGrid:
         group = mesh.dp_group()
         if group is None:
             return merge_maps(grids)
+        root = int(mesh.ranks[0, mesh.coords()[1]])
         center = grids.center[:1].clone()
         dist.broadcast(center, root, group=group)
         local = PointMapGrid(
             **{n: getattr(grids, n).sum(0, keepdim=True) for n in CHANNELS},
-            center=center, resolution=grids.resolution)
+            center=center, resolution=grids.resolution, rows=grids.rows)
         merged, off = _sum_over_ranks(local, group,
                                       (grids.center != center).any())
         return merged.replace(count=torch.where(off > 0, float("nan"), 1.0)
@@ -151,21 +159,23 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
     at the EKF pose) are folded into the shared grid in one scatter. The
     robots' own map grids are dropped.
 
-    With a dp `mesh` (parallel/mesh.py) `states` are this rank's robots
-    and `shared` its replica: each macro folds this rank's scans into a
-    zero delta, one all_reduce over the dp group sums the ranks' deltas,
-    and every rank adds the sum, so each observation counts once and the
-    replicas stay equal. Raises NotImplementedError on an sp > 1 mesh.
+    With a `mesh` (parallel/mesh.py) `states` are this rank's robots
+    (placed by shard_fleet: on an sp > 1 mesh their local_map holds this
+    rank's rows) and `shared` its whole replica: each macro folds this
+    rank's scans into a zero delta, one all_reduce over the mesh sums the
+    deltas of each dp row's first rank (the row's other ranks hold the
+    same robots and add zeros), and every rank adds the sum, so each
+    observation counts once and the replicas stay bit-identical.
 
     Random draws come from `generator`; without one, a fresh generator on
     the card (the states must then lie there). Returns (final_states,
     shared, (est, true)) with trajectories (B, num_macro * ticks_per_macro,
     3), this rank's robots under a mesh. Under metrics.nan_debug the
     states and the shared grid are checked finite after every tick."""
-    group = None
+    group, contributes = None, True
     if mesh is not None:
-        require_dp_only(mesh, "a fleet rollout")
-        group = mesh.dp_group()
+        group = mesh.group()
+        contributes = group is None or mesh.coords()[1] == 0
     if generator is None:
         generator = torch.Generator(device=default_device())
     dev = states.pose.device
@@ -182,6 +192,9 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
             states, shared, world, cfg, ticks_per_macro, generator,
             m * ticks_per_macro)
         if group is not None:
+            if not contributes:
+                delta = delta.replace(**{n: torch.zeros_like(getattr(
+                    delta, n)) for n in CHANNELS})
             delta = _sum_over_ranks(delta, group)[0]
         shared = add_grids(shared, delta)
         est.append(e)

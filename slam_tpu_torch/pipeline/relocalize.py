@@ -22,12 +22,16 @@ from slam_tpu_torch.geometry import subtract_yaw
 from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.fft_match import MatchResult, global_match
+from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.types import PointCloud, SlamState, select_cloud
 
 
 def relocalize(state: SlamState, scene: PointCloud, cfg) -> MatchResult:
     """Match each robot's (robot-frame) scene against its map_cloud around
-    its current belief."""
+    its current belief. Not ported to grids split by rows: raises
+    NotImplementedError there."""
+    for g in (state.local_map, state.map_grid):
+        refuse(g, "relocalization", "relocalization")
     return global_match(scene, state.map_cloud, state.pose[:, :2],
                         cfg.global_match, cfg.icp)
 

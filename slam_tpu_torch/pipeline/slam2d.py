@@ -21,6 +21,12 @@ engine, "voxel", "mls" or "grid" (graph/pose_graph.py,
 graph/pose_graph3d.py). The 3D path's graph mode
 (pipeline/slam3d.rollout_3d_with_graph) runs the same graph tick.
 
+Split by rows over an sp group (parallel/rows.py: the grids' `rows`
+field), the ticks and `rollout` run unchanged with matchers "fused",
+"points" and "particle": every grid op reads the split, and the per-robot
+state outside the grids is the same on every rank of the group. The "grid"
+matcher and graph mode raise NotImplementedError there.
+
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points".
 """
@@ -50,6 +56,7 @@ from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.ops.voxel import compact_planes, crop_box, voxel_downsample
+from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import (PointCloud, SlamState, make_cloud,
                                   select_cloud)
@@ -95,7 +102,7 @@ def init_state(cfg, batch: int, device=None,
 
 
 def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
-                       cfg):
+                       cfg, deterministic: bool = False):
     """Scene build for (B, N) scan planes: voxel-downsample at the GA grid's
     resolution and flag ground-adjacent (GA) points. Returns (sx, sy, ga,
     keep) planes of cfg.cloud.scene_capacity slots.
@@ -109,7 +116,9 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
     so that only valid centroids beyond the capacity are dropped. A cell
     is GA when it is interior and has >= ga_threshold empty 8-neighbours.
     (slam_tpu's incidence builder computes the same with same-cell (N, N)
-    matmuls; here the cells are scattered and gathered.)"""
+    matmuls; here the cells are scattered and gathered.) `deterministic`:
+    sums the same on every run (scatter_add_2d_multi), which the ranks of
+    an sp group need to hold the same scene bit for bit."""
     B, N = px.shape
     cap = cfg.cloud.scene_capacity
     builder = cfg.cloud.scene_builder
@@ -118,7 +127,8 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
     if builder == "grid":
         sx, sy, _, ga, _, keep = build_scene_grid_planes(
             px, py, None, hit, None, cap, cfg.icp.ga_resolution,
-            cfg.icp.scan_grid_bins, cfg.icp.ga_threshold)
+            cfg.icp.scan_grid_bins, cfg.icp.ga_threshold,
+            deterministic=deterministic)
         return sx, sy, ga, keep
     res = cfg.icp.ga_resolution
     G = cfg.icp.ga_num_bins
@@ -130,7 +140,8 @@ def build_scene_planes(px: torch.Tensor, py: torch.Tensor, hit: torch.Tensor,
     relx = torch.where(inb, px - ccx, 0.0)
     rely = torch.where(inb, py - ccy, 0.0)
     counts, sum_x, sum_y = scatter_add_2d_multi(ci, cj, (None, relx, rely),
-                                                inb, (G, G))
+                                                inb, (G, G),
+                                                deterministic=deterministic)
 
     # first point of each cell keeps the slot
     cell = (ci.clamp(0, G - 1) * G + cj.clamp(0, G - 1)).long()
@@ -287,7 +298,11 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
     ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
     pred = ekf_mod.pose_xyyaw(ekf)
 
-    sx, sy, sga, skeep = build_scene_planes(scan_x, scan_y, hit, cfg)
+    # robots whose grids are split by rows are stepped alike on every rank
+    # of their sp group: the scene's sums must not depend on atomic order
+    sx, sy, sga, skeep = build_scene_planes(
+        scan_x, scan_y, hit, cfg,
+        deterministic=state.local_map.rows is not None)
     scene = planes_to_cloud(sx, sy, sga, skeep)
     if matcher == "grid":
         if field is None:
@@ -461,7 +476,10 @@ def graph_update_delta(state: SlamState, cfg):
     select, so the tick never waits for the card. The target is
     regenerated by graph.map_regen's engine: "voxel" (a voxel merge of
     every keyframe), "mls" (a global MLS rebuild's obstacle export) or
-    "grid"."""
+    "grid". Not ported to grids split by rows: raises
+    NotImplementedError there."""
+    refuse(state.local_map, "graph mode's map regeneration",
+           "graph regeneration")
     gcfg = cfg.graph
     kf_cloud = state.prev_scene
     if state.prev_ground is not None:
@@ -523,7 +541,10 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
     regenerated target (incremental_map=False: the robots keep no map
     grid), then a graph tick. Returns (final_state, (est, true)),
     trajectories (B, num_macro * graph_every, 3). Under metrics.nan_debug
-    the state is checked finite after every tick and graph tick."""
+    the state is checked finite after every tick and graph tick. Not
+    ported to grids split by rows: raises NotImplementedError there."""
+    refuse(state.local_map, "graph mode's map regeneration",
+           "graph regeneration")
     est, true = [], []
     s = state
     for _ in range(num_macro):

@@ -56,6 +56,7 @@ from slam_tpu_torch.ops.icp_fused import fused_register
 from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.voxel import (compact_planes, crop_box,
                                       voxel_downsample_pairwise_planes)
+from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.pipeline.slam2d import (graph_update_delta, init_state,
                                             planes_to_cloud)
 from slam_tpu_torch.sim import world2d, world3d
@@ -202,7 +203,10 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     graph-regenerated state.map_cloud, its ground adjacency re-classified
     around the prediction, and the obstacle point map is left as it is;
     the ground map and occupancy update as always. A state that carries
-    prev_ground gets this frame's strided ground sample there."""
+    prev_ground gets this frame's strided ground sample there. Not ported
+    to grids split by rows: raises NotImplementedError there."""
+    for g in (state.local_map, state.map_grid, ground_map.grid):
+        refuse(g, "the 3D path", "3D, with mesh_scaling --sp")
     matcher = cfg.icp.matcher
     if matcher not in MATCHERS:
         raise ValueError(f"unknown 3D icp.matcher {matcher!r} (have "

@@ -98,12 +98,16 @@ class OccupancyGrid(Replaceable):
     drivable: (B, H, W) int8  — -1 unknown, 0 occupied, 1 drivable
     origin:   (B, 2) int32    — rolling origin in cells
     center:   (B, 2) float    — world xy of the grid's centre cell
+    rows:     static parallel/rows.Rows when the grid's rows are split
+              over an sp group (counts and drivable then hold the slab's
+              h rows), None when whole
     """
 
     counts: torch.Tensor
     drivable: torch.Tensor
     origin: torch.Tensor
     center: torch.Tensor
+    rows: object = None
 
 
 @dataclasses.dataclass
@@ -118,6 +122,8 @@ class MlsGrid(Replaceable):
     drivable: (B, H, W) int8        — -1 unknown, 0 blocked, 1 drivable
     origin:   (B, 2) int32          — rolling origin in cells
     center:   (B, 2) float          — world xy of the grid's centre cell
+    rows:     static parallel/rows.Rows when the rows are split over an
+              sp group, None when whole
     """
 
     mean: torch.Tensor
@@ -126,6 +132,7 @@ class MlsGrid(Replaceable):
     drivable: torch.Tensor
     origin: torch.Tensor
     center: torch.Tensor
+    rows: object = None
 
 
 @dataclasses.dataclass

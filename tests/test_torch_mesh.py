@@ -4,8 +4,9 @@ process (slam_tpu_torch vs slam_tpu, CPU).
 
 Exact throughout: the rank arrays equal the device ids of JAX's
 Mesh.devices, and every leaf's per-rank slices equal
-NamedSharding.devices_indices_map. The sp axis is layout only in the
-port: placing or rolling a fleet on an sp > 1 mesh raises.
+NamedSharding.devices_indices_map. On an sp > 1 mesh placing a fleet
+needs a process group (tests/test_torch_sp.py runs it on four gloo ranks),
+and the paths not ported to split grids raise.
 """
 
 import dataclasses
@@ -23,9 +24,15 @@ from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu_torch import interop, mesh_scaling
 from slam_tpu_torch.mapping.mls import init_mls
 from slam_tpu_torch.mapping.point_map import init_point_map
+from slam_tpu_torch.ops.grid_icp import nearest_point_field
+from slam_tpu_torch.ops.height import height_interpolate_grid
 from slam_tpu_torch.parallel import mesh as tmesh
 from slam_tpu_torch.parallel import multihost as tmh
+from slam_tpu_torch.parallel import rows as trows
 from slam_tpu_torch.parallel import shared_map as tsm
+from slam_tpu_torch.pipeline import relocalize, slam3d
+from slam_tpu_torch.pipeline import slam2d as tslam
+from slam_tpu_torch.types import GroundMap
 from tests.torch_parity import assert_equal, numpy_tree
 
 torch.set_num_threads(1)
@@ -122,16 +129,43 @@ def test_shard_fleet_takes_each_ranks_robots(fleet):
 
 
 def test_sp_is_layout_only(fleet):
+    """What the sp axis does not reach yet raises NotImplementedError naming
+    its ROADMAP item: the 3D path, the "grid" matcher's field, graph mode,
+    relocalization and mesh_scaling --sp; a split grid needs a process
+    group."""
     cfg, _, ts = fleet
     mesh = tmesh.make_mesh(8, sp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="process group"):
         tmesh.shard_fleet(mesh, ts, rank=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="halo"):
+    with pytest.raises(RuntimeError, match="process group"):
         tsm.fleet_rollout_shared(
             ts, init_point_map(1, 16, device="cpu"), None, cfg, 1,
             generator=torch.Generator(), mesh=mesh)
-    with pytest.raises(NotImplementedError):
-        tsm.make_shared_map_merger(mesh)
+    with pytest.raises(NotImplementedError, match="mesh_scaling --sp"):
+        tmesh.require_dp_only(mesh, "mesh_scaling")
+    rows = trows.Rows(object(), 0, 2, 192)
+    split = ts.replace(local_map=ts.local_map.replace(rows=rows),
+                       map_grid=ts.map_grid.replace(rows=rows))
+    refused = {
+        "3D, with mesh_scaling --sp": [
+            lambda: slam3d.process_frame_3d(
+                split, GroundMap(grid=split.map_grid, cloud=None), None,
+                None, None, None, None, None, cfg),
+            lambda: height_interpolate_grid(split.map_grid, ts.pose,
+                                            cfg.height)],
+        'the "grid" field': [lambda: nearest_point_field(split.map_grid,
+                                                         0.5)],
+        "graph regeneration": [
+            lambda: tslam.graph_update(split, cfg),
+            lambda: tslam.rollout_with_graph(split, None, cfg, 1, None)],
+        "relocalization": [lambda: relocalize.relocalize(split, None, cfg)],
+    }
+    for item, calls in refused.items():
+        for call in calls:
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP.md queue 1, step 3 "
+                                     f"\\({item}\\)"):
+                call()
 
 
 def test_layout_errors(fleet, monkeypatch):

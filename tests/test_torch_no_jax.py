@@ -4,8 +4,10 @@ fiducial, calibration, sample-map and utility modules, its entry
 points and its multi-device layer, and builds and
 drives its native runtime in build/slam_tpu_torch/) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
-slam_tpu package or builds a path into slam_tpu/ (nor does
-tests/torch_dist_worker.py, the distributed tests' rank process), and
+slam_tpu package or builds a path into slam_tpu/ (nor do
+tests/torch_dist_worker.py and tests/torch_sp_worker.py, the distributed
+tests' rank processes; parallel/rows.py, the sp axis's exchanges, among
+the sources), and
 chip_smoke.py refuses to report without a GPU."""
 
 import ast
@@ -65,6 +67,7 @@ import slam_tpu_torch.run_sim3d
 import slam_tpu_torch.mesh_scaling
 import slam_tpu_torch.parallel.mesh
 import slam_tpu_torch.parallel.multihost
+import slam_tpu_torch.parallel.rows
 import slam_tpu_torch.parallel.shared_map
 from slam_tpu_torch.runtime import native
 lib = native.build()
@@ -100,8 +103,10 @@ def test_tick_runs_with_jax_unimportable():
 def test_no_jax_imports_in_port_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|slam_tpu)(\.|\s|$)", re.M)
     files = sorted((ROOT / "slam_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+              ROOT / "tests" / "torch_sp_worker.py"]
     assert len(files) > 10
+    assert ROOT / "slam_tpu_torch" / "parallel" / "rows.py" in files
     for f in files:
         assert not pat.search(f.read_text()), f
 

@@ -254,7 +254,29 @@ non-zero:
              tick (config 5) no more than whole grids' (gloo's staging
              copies aside); ms/tick a rank, robot-steps/s, the
              exchanges' ms a macro, peak memory a rank; K1 and K5 held to
-             plain on rank 0's last calls
+             plain on rank 0's last calls. Then the sp paths beyond the
+             2D "fused" ticks, on the same layouts, each after a warm-up
+             macro and against the rank's dp shard on whole grids from
+             the same draws and deterministic sums: (a) config 2 at
+             ref_scale_config with the "grid" matcher, B=16, 8 ticks
+             (GroundMap.grid split too), (b) config 1 "grid", B=1024, 8
+             ticks, (c) config 4, B=256, 2 macros of 8 ticks and a graph
+             tick (K1, K2, K4), (d) config 3, B=128, 3 macros, robot 0
+             kidnapped at the second (K1, K4 in the polish); gates: poses
+             within 1e-3 m of whole grids, counts and flags exact, sums
+             within 1e-4, the "grid" field's slabs equal to the field of
+             the gathered grids in bits, each path's accuracy gate as
+             its phase has it (ticks cut: ATE over the timed ticks from
+             the 5th, 9th in config 4 and 3), the replicated state
+             (graph nodes and edges too) bit-identical in each sp group
+             at every macro, the group's host-read flags (fit
+             iterations, lost robots) equal, resident grid bytes 1/sp of
+             whole, host syncs of a macro with icp.loop "scan" no more
+             than whole grids' (staging copies aside), K1, K2 and K4 on
+             rank 0's last calls equal to plain; ms/tick a rank,
+             robot-steps/s, the exchanges' ms a macro, peak memory a
+             rank; and mesh_scaling --sp at B = 16, 32, 64 (finite
+             poses, per-rank peak memory)
 Every kernel launch count is set to 0 just before a main path (8-19,
 22, 23, and in each rank of 25) runs and read just after it; the JSON
 record's launches add up every path's. The last two lines are the
@@ -404,6 +426,12 @@ MESH_SP = ((1, 2),)   # [mesh]: (dp, sp) layouts whose grids split by rows,
 MESH_SP_CARDS = ((2, 2), (1, 4))   # --mesh-cards 4: the layouts on NCCL
 MESH_SUM_TOL = 1e-4   # the sp ranks' grid sums against one process on
                       # whole grids
+MESH_SP_REF = 16      # [mesh] sp (a): ref-scale "grid" robots ([refgrid]'s)
+MESH_SP_REF_MACROS = 4     # (a): timed macros of 4 ticks, [refgrid]'s
+MESH_SP_GRID_MACROS = 2    # (b) config 1 "grid", B=MESH_FLEET ([grid2d]: 10)
+MESH_SP_GRAPH_MACROS = 2   # (c) config 4, B=GRAPH_FLEET ([graph]: 12)
+MESH_SP_MLS_MACROS = 3     # (d) config 3, B=MLS_FLEET ([mls]: 8)
+MESH_SP_KIDNAP_AT = 1      # (d): the macro that kidnaps robot 0
 
 # One H100 SXM (NVIDIA's data sheet): device memory rate and the f32 rate
 # outside the tensor cores, for the least time a kernel's work could take.
@@ -3617,26 +3645,36 @@ def grid_bytes(*grids) -> int:
 
 
 class scenes_deterministic:
-    """Whole-grid runs build their scenes with the deterministic scatter,
-    as robots whose grids are split by rows do (slam2d.process_frame_planes):
-    the reference the sp ranks are held to."""
+    """Whole-grid runs take the deterministic sums that robots whose grids
+    are split by rows take (the reference the sp ranks are held to): every
+    float scatter through scatter2d.index_add (the scene builds, the map
+    and MLS folds, the graph's normal equations and regenerated targets)
+    sorts its adds."""
+
+    SITES = ("slam_tpu_torch.ops.scatter2d", "slam_tpu_torch.mapping.mls",
+             "slam_tpu_torch.graph.pose_graph",
+             "slam_tpu_torch.graph.pose_graph3d")
 
     def __enter__(self):
-        from slam_tpu_torch.pipeline import slam2d
-        self.build = build = slam2d.build_scene_planes
-        slam2d.build_scene_planes = lambda *a, **k: build(
-            *a, **{**k, "deterministic": True})
+        import importlib
+        self.saved = []
+        for name in self.SITES:
+            mod = importlib.import_module(name)
+            orig = mod.index_add
+            self.saved.append((mod, orig))
+            mod.index_add = (lambda acc, flat, vv, deterministic=False,
+                             _orig=orig: _orig(acc, flat, vv, True))
 
     def __exit__(self, *exc):
-        from slam_tpu_torch.pipeline import slam2d
-        slam2d.build_scene_planes = self.build
+        for mod, orig in self.saved:
+            mod.index_add = orig
 
 
-def sp_replicas(comm, prints, state, extra=()) -> bool:
-    """Every macro's print and the final bits of `state`'s replicated
-    tensors (and `extra`) equal on every rank of the sp group."""
+def sp_replicas(comm, prints, tensors) -> bool:
+    """Every macro's print and the final bits of the replicated `tensors`
+    equal on every rank of the sp group."""
     got = comm.all_gather(torch.stack(prints))
-    fin = comm.all_gather(as_words(replicated(state) + tuple(extra)))
+    fin = comm.all_gather(as_words(tensors))
     return all(torch.equal(g, got[0]) for g in got) and all(
         torch.equal(f, fin[0]) for f in fin)
 
@@ -3706,7 +3744,7 @@ def sp_config1(me, mesh, dev, cfg, world) -> dict:
                resident=resident, whole_bytes=whole_bytes,
                est=torch.cat(est, 1).cpu(), true=torch.cat(true, 1).cpu())
     comm.ring, comm.all_gather = ring, gather
-    out["replicas"] = sp_replicas(comm, prints, state)
+    out["replicas"] = sp_replicas(comm, prints, replicated(state))
     calls, k1_fn = [], icp_fused.icp_fused_planes
     if me == 0:
         icp_fused.icp_fused_planes = kept(k1_fn, calls, copy=True, last=True)
@@ -3806,7 +3844,7 @@ def sp_config5(me, mesh, dev, fcfg, world) -> dict:
                shared_print=int(fingerprint(
                    [getattr(shared, n) for n in ("count", "sum_x", "sum_y",
                                                  "sum_z")])))
-    out["replicas"] = sp_replicas(comm, prints, state)
+    out["replicas"] = sp_replicas(comm, prints, replicated(state))
     _, syncs = count_syncs(lambda: slam2d.slam_step(
         state, world, fcfg, torch.Generator(dev).manual_seed(9),
         incremental_map=False, refresh_map=False, shift_maps=False,
@@ -3858,10 +3896,412 @@ def sp_config5(me, mesh, dev, fcfg, world) -> dict:
     return out
 
 
+class sp_timing:
+    """Within it, the sp group's exchanges (ring, all_gather, all_reduce)
+    are timed by CUDA events into `events`, and the staging copies they
+    make are counted from `copies`."""
+
+    def __init__(self, comm):
+        self.comm, self.events = comm, []
+
+    def __enter__(self):
+        c = self.comm
+        self.saved = (c.ring, c.all_gather, c.all_reduce)
+        c.ring, c.all_gather, c.all_reduce = (event_timed(f, self.events)
+                                              for f in self.saved)
+        self.copies = c.host_copies
+        return self
+
+    def __exit__(self, *exc):
+        self.comm.ring, self.comm.all_gather, self.comm.all_reduce = \
+            self.saved
+
+
+def sp_field_equal(mesh, grid, k, cfg) -> bool:
+    """The "grid" field built on this rank's slab of the first k robots'
+    point maps against the field of the same grids gathered whole (for the
+    check only), rows j*h:(j+1)*h: px, py and valid equal in bits, n_class
+    equal."""
+    from slam_tpu_torch.ops import grid_icp
+    from slam_tpu_torch.parallel.mesh import gather_grids, tree_map
+    mine = tree_map(lambda t: t[:k], grid)
+    res, thr = cfg.icp.voxel_leaf_obs[0], cfg.icp.ga_threshold
+    part = grid_icp.nearest_point_field(mine, res, thr)
+    whole = grid_icp.nearest_point_field(gather_grids(mesh, mine), res, thr)
+    i, j = mesh.coords()
+    h = part.px.shape[2]
+    rows, robots = slice(j * h, (j + 1) * h), slice(i * k, (i + 1) * k)
+    return all(same_bits(getattr(part, n), getattr(whole, n)[robots][:, :, rows])
+               for n in ("px", "py", "valid")) and \
+        torch.equal(part.n_class, whole.n_class[robots])
+
+
+def sp_path(me, mesh, dev, case):
+    """One of [mesh]'s sp paths on this rank, `case` a dict of its
+    callables: make(rows, gen) -> the carry (state and grids, the grids
+    this rank's slab with `rows`, whole without); macro(carry, m, gen, cfg)
+    -> (carry, est, true) for macro m (-1 the warm-up); grids(carry) ->
+    {name: (container, exact channels, summed channels)};
+    replicated(carry) -> the tensors every rank of the group must hold
+    alike. Dp row 0 draws its phase's own fleet
+    (case["seed"]: [refgrid]'s, [grid2d]'s, [graph]'s, [mls]'s), row i
+    that seed + 65536 i. A warm-up macro, case["macros"] timed macros
+    with the replicated state's print after each, one more macro with
+    icp.loop "scan" counting host syncs; then the same draws on whole grids
+    (this rank's dp shard: the reference), and the comparisons. The
+    kernels' last calls (case["keep"]) are held to their plain versions
+    by case["check"] on rank 0."""
+    import torch.distributed as dist
+    from slam_tpu_torch.ops import icp_fused, nn, particle
+    i, j = mesh.coords()
+    rows = mesh.rows(case["H"])
+    macros, ticks = case["macros"], case["macros"] * case["ticks"]
+    seed = case["seed"] + 65536 * i     # row 0: its phase's own fleet
+    gen = torch.Generator(dev).manual_seed(seed)
+    carry = case["make"](rows, gen)
+    carry = case["macro"](carry, -1, gen, case["cfg"])[0]
+    comm = rows.comm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = sum(grid_bytes(g) for g, _, _ in case["grids"](carry).values())
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    prints, est, true, flags = [], [], [], []
+    kept_calls = {name: [] for name in case.get("keep", {})}
+    saved = {name: getattr(mod, fn) for name, (mod, fn) in
+             case.get("keep", {}).items()}
+    calls = [0]
+    if "count" in case:       # the fit iterations each macro runs
+        cmod, cfn = case["count"]
+        counted = getattr(cmod, cfn)
+
+        def counting(*a, **k):
+            calls[0] += 1
+            return counted(*a, **k)
+        setattr(cmod, cfn, counting)
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts(icp_fused, nn, particle)
+    try:
+        with sp_timing(comm) as tm:
+            e0.record()
+            for m in range(macros):
+                if m == macros - 1:       # the last macro's kernel calls
+                    for name, (mod, fn) in case.get("keep", {}).items():
+                        setattr(mod, fn, kept(saved[name], kept_calls[name],
+                                              copy=True))
+                calls[0] = 0
+                carry, e, t = case["macro"](carry, m, gen, case["cfg"])
+                prints.append(fingerprint(case["replicated"](carry)))
+                est.append(e)
+                true.append(t)
+                flags.append(case["flag"](carry) if "flag" in case
+                             else calls[0])
+            e1.record()
+            torch.cuda.synchronize()
+    finally:
+        for name, (mod, fn) in case.get("keep", {}).items():
+            setattr(mod, fn, saved[name])
+        if "count" in case:
+            setattr(cmod, cfn, counted)
+    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
+                "K4": nn.launches}
+    out = dict(ms_tick=e0.elapsed_time(e1) / ticks, launches=launches,
+               exchange_ms=sum(a.elapsed_time(b) for a, b in tm.events)
+               / macros, exchanges=len(tm.events) // macros,
+               copies=(comm.host_copies - tm.copies) // macros,
+               peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
+               resident=resident, est=torch.cat(est, 1).cpu(),
+               true=torch.cat(true, 1).cpu(), flags=flags,
+               coords=(i, j))
+    out["replicas"] = sp_replicas(comm, prints, case["replicated"](carry))
+    out["agree"] = all(list(x) == list(flags)
+                       for x in _gather_obj(mesh, flags))
+    out["gate"] = case["gate"](carry, out)
+    if me == 0 and "check" in case:
+        out["checks"] = case["check"](kept_calls)
+    kept_calls.clear()
+    copies = comm.host_copies
+    (carry_s, _, _), syncs = count_syncs(
+        lambda: case["macro"](carry, macros, gen, case["scan"]))
+    out["syncs"] = (len(syncs), comm.host_copies - copies, sync_sites(syncs))
+    if "field" in case:
+        out["field_equal"] = sp_field_equal(mesh, case["field"](carry), 8,
+                                            case["cfg"])
+    del carry_s
+
+    # the reference: this dp shard on whole grids, the same draws and the
+    # same deterministic sums
+    gen = torch.Generator(dev).manual_seed(seed)
+    with scenes_deterministic():
+        ref = case["make"](None, gen)
+        ref = case["macro"](ref, -1, gen, case["cfg"])[0]
+        rest = []
+        for m in range(macros):
+            ref, e, _ = case["macro"](ref, m, gen, case["cfg"])
+            rest.append(e)
+        (_, _, _), ref_syncs = count_syncs(
+            lambda: case["macro"](ref, macros, gen, case["scan"]))
+    out["whole_bytes"] = sum(grid_bytes(g) for g, _, _ in
+                             case["grids"](ref).values())
+    out["ref_syncs"] = (len(ref_syncs), sync_sites(ref_syncs))
+    diff = (out["est"] - torch.cat(rest, 1).cpu()).abs()
+    out["pose_err"] = float(diff.max())
+    out["first_off_tick"] = int((diff.amax((0, 2)) > 0).float().argmax()) \
+        if out["pose_err"] > 0 else -1
+    whole = case["grids"](ref)
+    out["grids"] = [dict(sp_grids(g, whole[k][0], j, exact, sums), name=k)
+                    for k, (g, exact, sums) in case["grids"](carry).items()]
+    out["ref_print"] = int(fingerprint(case["replicated"](ref)))
+    return out
+
+
+def _gather_obj(mesh, x) -> list:
+    """x from every rank of this rank's sp group (pickled)."""
+    import torch.distributed as dist
+    parts = [None] * mesh.shape["sp"]
+    dist.all_gather_object(parts, x, group=mesh.sp_group())
+    return parts
+
+
+def sp_refgrid_case(dev, local):
+    """(a) config 2 at ref_scale_config with the "grid" matcher (bench.py's
+    bench_ref_scale): rollout_3d, the obstacle and ground point maps and
+    the occupancy grid split by rows."""
+    from slam_tpu_torch.config import ref_scale_config
+    from slam_tpu_torch.ops import grid_icp
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.sim import world3d
+    base = ref_scale_config()
+    forms = loop_forms(base.replace(icp=dataclasses.replace(base.icp,
+                                                            matcher="grid")))
+    cfg = forms["while"]
+    world = world3d.make_world(torch.Generator(dev).manual_seed(42), cfg.sim,
+                               device=dev)
+
+    def make(rows, gen):
+        return (slam3d.init_state_3d(cfg, local, world, device=dev,
+                                     generator=gen, rows=rows),
+                slam3d.init_ground_map(cfg, local, dev, rows=rows))
+
+    def macro(carry, m, gen, c):
+        st, gm, (e, t, _) = slam3d.rollout_3d(carry[0], world, carry[1], c,
+                                              4, gen)
+        return (st, gm), e, t
+
+    def grids(carry):
+        # the 3D occupancy's counts are evidence sums (+1 an obstacle point,
+        # -0.3 a ground point), which the card's deterministic scatter adds
+        # in a slab's order: held as sums, the flags exact
+        st, gm = carry
+        sums = ("sum_x", "sum_y", "sum_z")
+        return {"local_map": (st.local_map, ("drivable",), ("counts",)),
+                "map_grid": (st.map_grid, ("count",), sums),
+                "ground": (gm.grid, ("count",), sums)}
+
+    def gate(carry, out):
+        est, true = out["est"], out["true"]
+        return dict(med=float(slam2d.ate(est[:, 4:], true[:, 4:]).median()),
+                    z=float((est[:, 4:, 3] - true[:, 4:, 3]).abs().mean()),
+                    ok=bool(carry[0].scan_reg_ok.all()))
+    return dict(H=cfg.mls.size_x, cfg=cfg, scan=forms["scan"], make=make,
+                macro=macro, grids=grids, seed=0, macros=MESH_SP_REF_MACROS,
+                ticks=4, field=lambda c: c[0].map_grid, gate=gate,
+                count=(grid_icp, "fit_step_grid"),
+                replicated=lambda c: replicated(c[0]))
+
+
+def sp_grid2d_case(dev, local, world):
+    """(b) config 1 with the "grid" matcher (run_fleet --matcher grid)."""
+    from slam_tpu_torch.config import sim2d_config
+    from slam_tpu_torch.ops import grid_icp
+    from slam_tpu_torch.pipeline import slam2d
+    base = sim2d_config()
+    forms = loop_forms(base.replace(icp=dataclasses.replace(base.icp,
+                                                            matcher="grid")))
+    cfg = forms["while"]
+
+    def make(rows, gen):
+        return (slam2d.init_state(cfg, local, device=dev, generator=gen,
+                                  rows=rows),)
+
+    def macro(carry, m, gen, c):
+        st, (e, t) = slam2d.rollout(carry[0], world, c, 4, gen)
+        return (st,), e, t
+
+    def grids(carry):
+        st = carry[0]
+        return {"local_map": (st.local_map, ("counts", "drivable"), ()),
+                "map_grid": (st.map_grid, ("count",), ("sum_x", "sum_y"))}
+
+    def gate(carry, out):
+        est, true = out["est"], out["true"]
+        return dict(med=float(slam2d.ate(est[:, 4:], true[:, 4:]).median()))
+    return dict(H=cfg.mls.size_x, cfg=cfg, scan=forms["scan"], make=make,
+                macro=macro, grids=grids, seed=6,
+                macros=MESH_SP_GRID_MACROS, ticks=4,
+                field=lambda c: c[0].map_grid, gate=gate,
+                count=(grid_icp, "fit_step_grid"),
+                replicated=lambda c: replicated(c[0]))
+
+
+def sp_graph_case(dev, local, world):
+    """(c) config 4 (sim2d_graph_config): rollout_with_graph, the occupancy
+    grid split by rows, the graph and its regenerated target replicated;
+    K1 on the ticks, K2 on the edges, K4 on the edge information."""
+    from slam_tpu_torch.config import sim2d_graph_config
+    from slam_tpu_torch.graph import pose_graph as pg
+    from slam_tpu_torch.ops import icp_fused
+    from slam_tpu_torch.pipeline import slam2d
+    cfg = sim2d_graph_config()
+
+    def make(rows, gen):
+        return (slam2d.init_state(cfg, local, device=dev, generator=gen,
+                                  with_graph=True, rows=rows),)
+
+    def macro(carry, m, gen, c):
+        st, (e, t) = slam2d.rollout_with_graph(carry[0], world, c, 1, gen,
+                                               GRAPH_EVERY)
+        return (st,), e, t
+
+    def check(calls):
+        k1 = mesh_k1_check(icp_fused, calls["K1"][-1:])
+        args = calls["K2"][-1][0]
+        k2 = near_tie_agreement(
+            "K2 on a [mesh] sp rank's last graph tick",
+            icp_fused.icp_fused(*args), icp_fused.icp_fused_reference(*args),
+            icp_fused.packed_planes(*args[:6]), args[6], args[7],
+            max(1, args[0].shape[0] // 100), 0)
+        nn_equal("a [mesh] sp rank's edge information", calls["K4"][-1])
+        return dict(k1=k1["err"], k2=k2["err"], k4=0.0)
+
+    def gate(carry, out):
+        est, true = out["est"], out["true"]
+        g = carry[0].graph
+        return dict(med=float(slam2d.ate(est[:, 8:], true[:, 8:]).median()),
+                    nodes=int(g.num_nodes.min()))
+    return dict(H=cfg.mls.size_x, cfg=cfg, scan=cfg, make=make, macro=macro,
+                grids=lambda c: {"local_map": (c[0].local_map,
+                                               ("counts", "drivable"), ())},
+                seed=6, macros=MESH_SP_GRAPH_MACROS, ticks=GRAPH_EVERY,
+                keep={"K1": (icp_fused, "icp_fused_planes"),
+                      "K2": (pg, "icp_fused"), "K4": (pg, "nearest_neighbor")},
+                check=check, gate=gate,
+                replicated=lambda c: replicated(c[0]) + (
+                    c[0].graph.node_pose, c[0].graph.edge_rel,
+                    c[0].graph.num_edges))
+
+
+def sp_mls_case(dev, local, world, row):
+    """(d) config 3 (sim2d_reloc_config, profile_tick.mls_macro): the MLS
+    banks, the occupancy grid and the point map split by rows; robot 0
+    (dp row 0) kidnapped and flagged lost at macro 1; K1 on the ticks, K4
+    in the polish."""
+    from slam_tpu_torch.config import sim2d_reloc_config
+    from slam_tpu_torch.mapping.mls import init_mls
+    from slam_tpu_torch.ops import icp as icp_mod
+    from slam_tpu_torch.ops import icp_fused
+    from slam_tpu_torch.pipeline import slam2d
+    from slam_tpu_torch.profile_tick import mls_macro
+    cfg = sim2d_reloc_config()
+    seen = {}
+
+    def make(rows, gen):
+        return (slam2d.init_state(cfg, local, device=dev, generator=gen,
+                                  rows=rows),
+                init_mls(cfg.mls, local, device=dev, rows=rows), None)
+
+    def macro(carry, m, gen, c):
+        kid = m == MESH_SP_KIDNAP_AT and row == 0
+        st, grid, (e, t), pre, lost = mls_macro(carry[0], carry[1], world, c,
+                                                gen, kidnap_robot0=kid)
+        if kid:
+            seen["robot0"] = (dist0(pre), dist0(st))
+        return (st, grid, bool(lost.any())), e, t
+
+    def dist0(s):
+        return float(torch.linalg.vector_norm(s.ekf.mu[0, :2] -
+                                              s.true_pose[0, :2]))
+
+    def check(calls):
+        k1 = mesh_k1_check(icp_fused, calls["K1"][-1:])
+        return dict(k1=k1["err"], k4=0.0)
+
+    def gate(carry, out):
+        est, true = out["est"], out["true"]
+        first = 1 if row == 0 else 0
+        grid = carry[1]
+        return dict(
+            med=float(slam2d.ate(est[first:, 8:], true[first:, 8:])
+                      .median()),
+            robot0=seen.get("robot0"),
+            drivable=int((grid.drivable == 1).sum((1, 2)).min()),
+            finite=bool(torch.isfinite(grid.mean).all()))
+    return dict(H=cfg.mls.size_x, cfg=cfg, scan=cfg, make=make, macro=macro,
+                grids=lambda c: {
+                    "local_map": (c[0].local_map, ("counts", "drivable"), ()),
+                    "map_grid": (c[0].map_grid, ("count",),
+                                 ("sum_x", "sum_y")),
+                    "mls": (c[1], ("num_pts", "drivable"),
+                            ("mean", "var_z"))},
+                seed=12, macros=MESH_SP_MLS_MACROS, ticks=4,
+                keep={"K1": (icp_fused, "icp_fused_planes")}, check=check,
+                gate=gate, flag=lambda c: c[2],
+                polish=(icp_mod, "nearest_neighbor"),
+                replicated=lambda c: replicated(c[0]))
+
+
+def mesh_sp_paths(me, mesh, dev, world) -> dict:
+    """[mesh]'s four sp paths beyond the 2D "fused" ticks on this rank:
+    (a) the reference scale with the "grid" matcher, (b) config 1 "grid",
+    (c) config 4, (d) config 3; and mesh_scaling --sp at MESH_BATCHES."""
+    from slam_tpu_torch import mesh_scaling
+    dp, sp = mesh.ranks.shape
+    out = {}
+    for name, make, fleet in (
+            ("refgrid", lambda n: sp_refgrid_case(dev, n), MESH_SP_REF),
+            ("grid2d", lambda n: sp_grid2d_case(dev, n, world), MESH_FLEET),
+            ("graph", lambda n: sp_graph_case(dev, n, world), GRAPH_FLEET),
+            ("mls", lambda n: sp_mls_case(dev, n, world, mesh.coords()[0]),
+             MLS_FLEET)):
+        case = make(fleet // dp)
+        if name == "mls":
+            out[name] = sp_mls_path(me, mesh, dev, case)
+        else:
+            out[name] = sp_path(me, mesh, dev, case)
+        torch.cuda.empty_cache()
+    out["scaling"] = mesh_scaling.run(MESH_BATCHES, 4, sp, dev)
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_mls_path(me, mesh, dev, case) -> dict:
+    """sp_path for config 3, with K4 held to its plain version on the
+    relocalization polish's calls of the kidnap macro (rank 0)."""
+    mod, fn = case.pop("polish")
+    calls, orig = [], getattr(mod, fn)
+
+    def macro(carry, m, gen, c, inner=case["macro"]):
+        if m == MESH_SP_KIDNAP_AT and me == 0:
+            setattr(mod, fn, kept(orig, calls, copy=True))
+            try:
+                return inner(carry, m, gen, c)
+            finally:
+                setattr(mod, fn, orig)
+        return inner(carry, m, gen, c)
+    case["macro"] = macro
+    out = sp_path(me, mesh, dev, case)
+    if me == 0:
+        for call in calls:
+            nn_equal("a [mesh] sp rank's relocalization polish", call)
+        out["checks"]["polish_calls"] = len(calls)
+    return out
+
+
 def mesh_sp(me, layouts) -> dict:
-    """[mesh]'s sp ranks: config 1 and config 5 on each (dp, sp) layout of
-    this world, every robot's grids split by rows over the sp ranks of its
-    dp row."""
+    """[mesh]'s sp ranks: config 1 and config 5, then mesh_sp_paths' four
+    paths and mesh_scaling --sp, on each (dp, sp) layout of this world,
+    every robot's grids split by rows over the sp ranks of its dp row."""
     from slam_tpu_torch.parallel import multihost
     dev = multihost.rank_device()
     cfg, fcfg, world = mesh_worlds(dev)
@@ -3872,7 +4312,160 @@ def mesh_sp(me, layouts) -> dict:
                              config1=sp_config1(me, mesh, dev, cfg, world),
                              config5=sp_config5(me, mesh, dev, fcfg, world))
         torch.cuda.empty_cache()
+        out[(dp, sp)]["paths"] = mesh_sp_paths(me, mesh, dev, world)
     return out
+
+
+SP_PATHS = (  # key, label, median ATE limit
+    ("refgrid", 'config 2 at ref_scale_config, "grid" (B=%d)' % MESH_SP_REF,
+     ATE_REF_LIMIT),
+    ("grid2d", 'config 1 "grid" (B=%d)' % MESH_FLEET, GRID_ATE_LIMIT),
+    ("graph", "config 4 (B=%d; K1, K2, K4)" % GRAPH_FLEET, GRAPH_ATE_LIMIT),
+    ("mls", "config 3 (B=%d; K1, K4 in the polish)" % MLS_FLEET,
+     MLS_ATE_LIMIT))
+
+
+def sp_paths_report(say, results, how) -> dict:
+    """Gate and print mesh_sp_paths' results (each rank's) for every
+    layout, every path's line before any failure is raised; returns their
+    launches and kernel errors."""
+    got = {"K1": 0, "K2": 0, "K4": 0, "k1_err": 0.0, "k2_err": 0.0}
+    failed = []
+    for (dp, sp) in results[0]:
+        ranks = [r[(dp, sp)]["paths"] for r in results]
+        where = f"dp{dp} x sp{sp} ({how})"
+        for key, label, limit in SP_PATHS:
+            runs = [r[key] for r in ranks]
+            fail = []
+            est = torch.cat([x["est"] for x in runs])
+            if not bool(torch.isfinite(est).all()):
+                fail.append("non-finite poses")
+            meds = [x["gate"]["med"] for x in runs]
+            if not max(meds) < limit:
+                fail.append(f"median ATE {meds} m (limit {limit})")
+            err = max(x["pose_err"] for x in runs)
+            if err > MESH_POSE_TOL:
+                fail.append(f"max pose err {err} m against whole grids")
+            grids = [g for x in runs for g in x["grids"]]
+            off = sum(g["cells_off"] for g in grids)
+            serr = max(g["sum_err"] for g in grids)
+            if off or serr > MESH_SUM_TOL:
+                fail.append(
+                    f"{off} grid cells differ from whole grids (" + ", ".join(
+                        f"{g['name']} {g['cells_off']}" for g in grids) +
+                    f"), sums within {serr}; poses {err} m off from tick "
+                    f"{[x['first_off_tick'] for x in runs]}; the whole-grid "
+                    f"runs of a group equal each other "
+                    f"{len({x['ref_print'] for x in runs}) == 1}")
+            if not all(x["replicas"] for x in runs):
+                fail.append("replicated state differs within an sp group")
+            if not all(x["agree"] for x in runs):
+                fail.append("an sp group's host-read flags differ: " +
+                            str([x["flags"] for x in runs]))
+            over = [x["syncs"][0] - x["syncs"][1] - x["ref_syncs"][0]
+                    for x in runs]
+            if max(over) > 0:
+                fail.append(f"host syncs beyond whole grids' {over}: " +
+                            "; ".join(f"{x['syncs'][2]} vs "
+                                      f"{x['ref_syncs'][1]}" for x in runs))
+            bad = [(x["resident"], x["whole_bytes"]) for x in runs
+                   if x["resident"] * sp != x["whole_bytes"]]
+            if bad:
+                fail.append(f"resident grid bytes not 1/{sp} of whole: {bad}")
+            if "field_equal" in runs[0] and not all(x["field_equal"]
+                                                    for x in runs):
+                fail.append("the field's slabs differ from the whole grid's")
+            ticks = runs[0]["est"].shape[1]
+            macros = ticks // (GRAPH_EVERY if key == "graph" else 4)
+            need = {"refgrid": {}, "grid2d": {},
+                    "graph": {"K1": ticks, "K2": macros, "K4": macros},
+                    "mls": {"K1": ticks}}[key]
+            for x in runs:
+                for k, v in x["launches"].items():
+                    if v < need.get(k, 0) or (not need and v):
+                        fail.append(f"{k} launches {v} on a rank (want "
+                                    f"{need.get(k, 0)}{'' if need else ' exactly'})")
+            gates = ""
+            if key == "refgrid":
+                zs = [x["gate"]["z"] for x in runs]
+                if not max(zs) < Z_REF_LIMIT or not all(x["gate"]["ok"]
+                                                        for x in runs):
+                    fail.append(f"mean |z error| {zs} (limit {Z_REF_LIMIT}), "
+                                f"last tick registered "
+                                f"{[x['gate']['ok'] for x in runs]}")
+                gates = (f", mean |z error| {max(zs):.4f} m, every robot "
+                         f"registered on its last tick")
+            if key == "graph":
+                gates = (f", keyframes >= "
+                         f"{min(x['gate']['nodes'] for x in runs)}")
+            if key == "mls":
+                kid = [x["gate"]["robot0"] for x in runs
+                       if x["coords"][0] == 0]
+                if not kid or not all(k is not None and k[1] < RELOC_LIMIT
+                                      for k in kid):
+                    fail.append(f"robot 0 not back within {RELOC_LIMIT} m: "
+                                f"{kid}")
+                if min(x["gate"]["drivable"] for x in runs) < 1 or not all(
+                        x["gate"]["finite"] for x in runs):
+                    fail.append("MLS banks without drivable cells or finite")
+                k4 = [x["launches"]["K4"] for x in runs
+                      if x["coords"][0] == 0]
+                if min(k4) < 1:
+                    fail.append(f"no K4 launch in the polish: {k4}")
+                if kid and kid[0] is not None:
+                    gates = (f", robot 0 {kid[0][0]:.3f} m from its true "
+                             f"pose after the kidnap, {kid[0][1]:.4f} m after "
+                             f"relocalizing (bound {RELOC_LIMIT}); lost "
+                             f"flags a macro {runs[0]['flags']} on every rank "
+                             f"of each group")
+            if fail:
+                failed.append(f"[mesh] {where} {key}: " + "; ".join(fail))
+                say(f"sp {where} {key} FAILED: " + "; ".join(fail))
+                continue
+            for k in ("K1", "K2", "K4"):
+                got[k] += sum(x["launches"][k] for x in runs)
+            checks = runs[0].get("checks", {})
+            got["k1_err"] = max(got["k1_err"], checks.get("k1", 0.0))
+            got["k2_err"] = max(got["k2_err"], checks.get("k2", 0.0))
+            ms = max(x["ms_tick"] for x in runs)
+            fleet = runs[0]["est"].shape[0] * dp
+            say(f"sp {where} {label}, {ticks} ticks after a warm-up macro, "
+                f"1/{sp} of every grid's rows a rank: " + ", ".join(
+                    f"{x['ms_tick']:.3f}" for x in runs) +
+                f" ms/tick a rank, {fleet * 1000.0 / ms:.1f} robot-steps/s "
+                f"aggregate; exchanges " + ", ".join(
+                    f"{x['exchange_ms']:.3f}" for x in runs) +
+                f" ms a macro a rank ({runs[0]['exchanges']} calls, "
+                f"{runs[0]['copies']} host copies a macro); median ATE "
+                f"{max(meds):.4f} m{gates}; max pose err {err:.3g} m "
+                f"against one process on whole grids, 0 grid cells differ, "
+                f"sums within {serr:.3g}" +
+                ("; the field's slabs equal the whole grid's rows in bits"
+                 if "field_equal" in runs[0] else "") +
+                f"; replicated state bit-identical in each sp group at every "
+                f"macro, host-read flags (" +
+                ("lost robots" if key == "mls" else "fit iterations"
+                 if key in ("refgrid", "grid2d") else "none") +
+                f") equal on every rank; resident grid bytes a rank "
+                f"{runs[0]['resident']} = 1/{sp} of "
+                f"{runs[0]['whole_bytes']}; launches a rank "
+                f"{[x['launches'] for x in runs]}; peak " + ", ".join(
+                    f"{x['peak_mb']:.1f}" for x in runs) +
+                " MB a rank; host syncs (sp - staging copies / whole) " +
+                ", ".join(f"{x['syncs'][0] - x['syncs'][1]}/"
+                          f"{x['ref_syncs'][0]}" for x in runs) +
+                (f"; on rank 0's last calls vs plain: " + ", ".join(
+                    f"{k} {v:.3g}" for k, v in checks.items())
+                 if checks else ""))
+        from slam_tpu_torch.mesh_scaling import line
+        rows = ranks[0]["scaling"]
+        for row in rows:
+            say("mesh_scaling --sp " + line(row, f"{where}"))
+        if not all(r["finite"] for r in rows):
+            failed.append(f"[mesh] mesh_scaling --sp {sp}: non-finite poses")
+    if failed:
+        raise RuntimeError(" | ".join(failed))
+    return got
 
 
 def sp_layouts(world, backend) -> tuple:
@@ -4219,11 +4812,17 @@ def mesh_phase(card, world=MESH_WORLD, backend="gloo") -> dict:
                                f"finite {a['finite']} / {b['finite']}, peak "
                                f"MB world 1 {a['peak_mb']}, world "
                                f"{world} {b['peak_mb']}")
+    out.update(K2=0, K4=0, k2_err=0.0)
     if split:
         sp = sp_report(say, split, shards)
         for k in ("K1", "K5", "K5 table"):
             out[k] += sp[k]
         out["k1_err"] = max(out["k1_err"], sp["k1_err"])
+        paths = sp_paths_report(say, split, shards)
+        for k in ("K1", "K2", "K4"):
+            out[k] += paths[k]
+        out["k1_err"] = max(out["k1_err"], paths["k1_err"])
+        out["k2_err"] = paths["k2_err"]
     say(f"mesh_scaling: every world-{world} rank's peak memory below world "
         f"1's at each B; aggregate robot-steps/s world {world} / world 1 " +
         ", ".join(f"B={a['batch']} {b['rate'] / a['rate']:.3f}"
@@ -4570,8 +5169,8 @@ def main(argv=None) -> int:
     fiducial_phase(card)
     mesh = mesh_phase(card)
     launches["K1 (mesh ranks)"] = mesh["K1"]
-    launches["K5"] += mesh["K5"]
-    launches["K5 table"] += mesh["K5 table"]
+    for k in ("K2", "K4", "K5", "K5 table"):
+        launches[k] += mesh[k]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "slam_tpu"
@@ -4597,7 +5196,8 @@ def main(argv=None) -> int:
         record("icp_fused (K2, packed adapter onto K1's kernel)",
                "slam_tpu_torch/csrc/icp_fused.cu",
                "slam_tpu/ops/icp_pallas.py:39", "K2",
-               max(graph["k2_err"], se3["k2_err"], entry["k2_err"]),
+               max(graph["k2_err"], se3["k2_err"], entry["k2_err"],
+                   mesh["k2_err"]),
                graph["k2_ms"], graph["k2_plain_ms"], graph["k2_bound"]),
         record("icp_fused_planes_tiled (K3)",
                "slam_tpu_torch/csrc/icp_tiled.cu",

@@ -61,6 +61,7 @@ from slam_tpu_torch.ops.icp3d import icp3d_fit
 from slam_tpu_torch.ops.icp_fused import icp_fused
 from slam_tpu_torch.ops.linalg import cho_solve
 from slam_tpu_torch.ops.nn import nearest_neighbor
+from slam_tpu_torch.ops.scatter2d import index_add
 from slam_tpu_torch.ops.voxel import compact, voxel_downsample
 from slam_tpu_torch.types import PointCloud, PoseGraph
 
@@ -448,7 +449,7 @@ def _se2_edge_residuals(poses: torch.Tensor, graph: PoseGraph):
     return e, A, Bj
 
 
-def optimize(graph: PoseGraph, cfg):
+def optimize(graph: PoseGraph, cfg, deterministic: bool = False):
     """Dense Gauss-Newton / LM over every robot's (x, y, yaw), then one
     linear least-squares solve of z. Returns (graph with optimised valid
     nodes, delta (B, 4)): the newest node's pose change, yaw wrapped.
@@ -459,7 +460,9 @@ def optimize(graph: PoseGraph, cfg):
     not with E x N. With opt_min_delta > 0 each robot freezes once its
     largest valid-node update falls below it (that update applied), as
     slam_tpu's while loop under vmap does; all opt_iterations steps run
-    for the batch, so no step waits for the card."""
+    for the batch, so no step waits for the card. `deterministic`: the
+    normal equations summed the same on every run (scatter2d.index_add),
+    for graphs that several ranks hold alike."""
     Bn, N = graph.node_valid.shape
     dev, dt = graph.node_pose.device, graph.node_pose.dtype
     rows = torch.arange(Bn, device=dev)[:, None]
@@ -484,12 +487,13 @@ def optimize(graph: PoseGraph, cfg):
         AtO = A.mT @ Om
         BtO = Bj.mT @ Om
         H = torch.zeros(Bn * N * N, 3, 3, dtype=dt, device=dev)
-        H.index_add_(0, blocks, torch.cat(
-            [AtO @ A, AtO @ Bj, BtO @ A, BtO @ Bj], 1).reshape(-1, 3, 3))
+        index_add(H, blocks, torch.cat(
+            [AtO @ A, AtO @ Bj, BtO @ A, BtO @ Bj], 1).reshape(-1, 3, 3),
+            deterministic)
         b = torch.zeros(Bn * N, 3, dtype=dt, device=dev)
-        b.index_add_(0, ends, torch.cat([AtO @ e[..., None],
-                                         BtO @ e[..., None]], 1
-                                        ).reshape(-1, 3))
+        index_add(b, ends, torch.cat([AtO @ e[..., None],
+                                      BtO @ e[..., None]], 1
+                                     ).reshape(-1, 3), deterministic)
         Hd = H.view(Bn, N, N, 3, 3).permute(0, 1, 3, 2, 4).reshape(
             Bn, 3 * N, 3 * N) + torch.diag_embed(diag)
         dx = cho_solve(Hd, -b.view(Bn, 3 * N)).view(Bn, N, 3)
@@ -512,9 +516,11 @@ def optimize(graph: PoseGraph, cfg):
     ez = zs[rows, j] - zs[rows, i] - graph.edge_rel[..., 3]
     wz = w_edge * graph.edge_info[..., 3, 3]
     Hz = torch.zeros(Bn * N * N, dtype=dt, device=dev)
-    Hz.index_add_(0, blocks, torch.cat([wz, -wz, -wz, wz], 1).reshape(-1))
+    index_add(Hz, blocks, torch.cat([wz, -wz, -wz, wz], 1).reshape(-1),
+              deterministic)
     bz = torch.zeros(Bn * N, dtype=dt, device=dev)
-    bz.index_add_(0, ends, torch.cat([-wz * ez, wz * ez], 1).reshape(-1))
+    index_add(bz, ends, torch.cat([-wz * ez, wz * ez], 1).reshape(-1),
+              deterministic)
     diagz = torch.full((Bn, N), cfg.lm_lambda, dtype=dt, device=dev)
     diagz[:, 0] = 1e5
     zs = zs + cho_solve(Hz.view(Bn, N, N) + torch.diag_embed(diagz + invalid),
@@ -584,7 +590,8 @@ def _kf_world_xyz(graph: PoseGraph) -> torch.Tensor:
 def regenerate_map_grid(graph: PoseGraph, capacity: int,
                         resolution: float = 0.5, grid_bins: int = 384,
                         ga_threshold: int = 2,
-                        recall: float = 1.0) -> PointCloud:
+                        recall: float = 1.0,
+                        deterministic: bool = False) -> PointCloud:
     """The scan-to-map target regenerated from every robot's keyframes:
     scatter all keyframe points under the optimised poses into a centroid
     grid of grid_bins cells centred on the newest node (snapped to whole
@@ -594,7 +601,8 @@ def regenerate_map_grid(graph: PoseGraph, capacity: int,
     recall: slam_tpu passes cfg.cloud.export_recall to its approx_max_k
     export, which equals the exact top-k off the TPU. The port's export is
     always the exact top-k (export_points' stable sort), so recall is
-    accepted and has no effect."""
+    accepted and has no effect. `deterministic`: the grid's sums the same
+    on every run, for a target that several ranks build alike."""
     del recall
     B, N, P, _ = graph.kf_xyz.shape
     xyz = _kf_world_xyz(graph).reshape(B, N * P, 3)
@@ -605,7 +613,7 @@ def regenerate_map_grid(graph: PoseGraph, capacity: int,
     grid = init_point_map(B, grid_bins, resolution,
                           device=xyz.device).replace(center=center)
     grid = update_point_map_xy(grid, xyz[..., 0], xyz[..., 1], xyz[..., 2],
-                               valid, resolution)
+                               valid, resolution, deterministic=deterministic)
     return export_points(grid, capacity, ga_threshold=ga_threshold)
 
 
@@ -631,15 +639,18 @@ def regenerate_map(graph: PoseGraph, capacity: int,
     return voxel_downsample(merged, voxel_leaf, capacity)
 
 
-def regenerate_map_mls(graph: PoseGraph, mls_cfg, capacity: int):
+def regenerate_map_mls(graph: PoseGraph, mls_cfg, capacity: int,
+                       deterministic: bool = False):
     """The global map rebuilt as an MLS grid centred on the world origin:
     every keyframe slot's cloud under its optimised pose folded in, slot
     after slot (one batched add_to_mls each), then the cluster means
-    exported. Returns (obstacle cloud, ground cloud, grid)."""
+    exported. Returns (obstacle cloud, ground cloud, grid).
+    `deterministic` as regenerate_map_grid's."""
     world = _kf_world_xyz(graph)
     grid = init_mls(mls_cfg, graph.kf_xyz.shape[0], device=world.device)
     for i in range(graph.kf_xyz.shape[1]):
-        grid = add_to_mls(grid, _kf_world_cloud(graph, world, i), mls_cfg)
+        grid = add_to_mls(grid, _kf_world_cloud(graph, world, i), mls_cfg,
+                          deterministic)
     obs, gnd = get_segmented_clouds(grid, mls_cfg, capacity)
     return obs, gnd, grid
 

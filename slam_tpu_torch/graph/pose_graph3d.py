@@ -35,6 +35,7 @@ import torch
 from slam_tpu_torch import default_device
 from slam_tpu_torch.geometry import angle_wrap, rot3_from_rpy
 from slam_tpu_torch.ops.linalg import cho_solve
+from slam_tpu_torch.ops.scatter2d import index_add
 from slam_tpu_torch.types import PoseGraph, Replaceable
 
 
@@ -325,11 +326,14 @@ def _edge_jacobians(node_t, node_R, graph: Se3Graph):
 
 def optimize_se3(graph: Se3Graph, iterations: int = 10,
                  lm_lambda: float = 1e-3, gauge_weight: float = 1e5,
-                 min_delta: float = 1e-5) -> Se3Graph:
+                 min_delta: float = 1e-5,
+                 deterministic: bool = False) -> Se3Graph:
     """Dense Gauss-Newton / LM on SE(3) for every robot: node 0 holds a
     gauge_weight prior, every node lm_lambda damping and every invalid
     node a unit regulariser; all `iterations` steps run, each robot frozen
-    once its largest valid-node update falls below min_delta (> 0)."""
+    once its largest valid-node update falls below min_delta (> 0).
+    `deterministic`: the normal equations summed the same on every run
+    (scatter2d.index_add), for graphs that several ranks hold alike."""
     Bn, N = graph.node_valid.shape
     dev, dt = graph.node_t.device, graph.node_t.dtype
     rows = torch.arange(Bn, device=dev)[:, None]
@@ -352,12 +356,13 @@ def optimize_se3(graph: Se3Graph, iterations: int = 10,
         AtO = A.mT @ Om
         BtO = Bj.mT @ Om
         H = torch.zeros(Bn * N * N, 6, 6, dtype=dt, device=dev)
-        H.index_add_(0, blocks, torch.cat(
-            [AtO @ A, AtO @ Bj, BtO @ A, BtO @ Bj], 1).reshape(-1, 6, 6))
+        index_add(H, blocks, torch.cat(
+            [AtO @ A, AtO @ Bj, BtO @ A, BtO @ Bj], 1).reshape(-1, 6, 6),
+            deterministic)
         b = torch.zeros(Bn * N, 6, dtype=dt, device=dev)
-        b.index_add_(0, ends, torch.cat([AtO @ e[..., None],
-                                         BtO @ e[..., None]], 1
-                                        ).reshape(-1, 6))
+        index_add(b, ends, torch.cat([AtO @ e[..., None],
+                                      BtO @ e[..., None]], 1
+                                     ).reshape(-1, 6), deterministic)
         Hd = H.view(Bn, N, N, 6, 6).permute(0, 1, 3, 2, 4).reshape(
             Bn, 6 * N, 6 * N) + torch.diag_embed(diag)
         dx = cho_solve(Hd, -b.view(Bn, 6 * N)).view(Bn, N, 6)
@@ -395,13 +400,14 @@ def _planar_result(graph: PoseGraph, se3: Se3Graph, **extra):
     return graph.replace(node_pose=new_pose, **extra), delta
 
 
-def optimize_planar(graph: PoseGraph, cfg):
+def optimize_planar(graph: PoseGraph, cfg, deterministic: bool = False):
     """pose_graph.optimize's contract through the SE(3) solver (engine
     "se3" over planar edges): lift with from_planar, optimise, project back
     to (x, y, yaw, z). Returns (graph, delta (B, 4) of the newest node)."""
     se3 = optimize_se3(from_planar(graph), iterations=cfg.opt_iterations,
                        lm_lambda=cfg.lm_lambda,
-                       min_delta=getattr(cfg, "opt_min_delta", 1e-5))
+                       min_delta=getattr(cfg, "opt_min_delta", 1e-5),
+                       deterministic=deterministic)
     return _planar_result(graph, se3)
 
 
@@ -420,13 +426,14 @@ def from_native(graph: PoseGraph) -> Se3Graph:
         edge_info=graph.edge_info6, edge_valid=graph.edge_valid)
 
 
-def optimize_native(graph: PoseGraph, cfg):
+def optimize_native(graph: PoseGraph, cfg, deterministic: bool = False):
     """Optimise a 6-DoF graph over its measured 6-DoF edges (engine "se3"
     with edge_registration "3d"): writes (x, y, yaw, z) and node_rp back
     on valid nodes. Returns (graph, delta (B, 4) of the newest node)."""
     se3 = optimize_se3(from_native(graph), iterations=cfg.opt_iterations,
                        lm_lambda=cfg.lm_lambda,
-                       min_delta=getattr(cfg, "opt_min_delta", 1e-5))
+                       min_delta=getattr(cfg, "opt_min_delta", 1e-5),
+                       deterministic=deterministic)
     R = se3.node_R
     # ZYX Euler angles, the inverse of rot3_from_rpy
     pitch = -torch.arcsin(torch.clamp(R[..., 2, 0], -1.0, 1.0))

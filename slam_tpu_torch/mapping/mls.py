@@ -34,21 +34,25 @@ import torch.nn.functional as F
 
 from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
-from slam_tpu_torch.parallel.rows import halo, merge_top, whole_rows
+from slam_tpu_torch.ops.scatter2d import index_add
+from slam_tpu_torch.parallel.rows import (halo, merge_top, slab_rows,
+                                          whole_rows)
 from slam_tpu_torch.types import MlsGrid, PointCloud
 
 
-def init_mls(cfg, batch: int, device=None, dtype=torch.float32) -> MlsGrid:
-    """Empty grids, on the card unless `device` says otherwise."""
+def init_mls(cfg, batch: int, device=None, dtype=torch.float32,
+             rows=None) -> MlsGrid:
+    """Empty grids, on the card unless `device` says otherwise; with
+    `rows` (parallel/rows.Rows) this rank's slab of them."""
     device = default_device(device)
-    H, W, K = cfg.size_x, cfg.size_y, cfg.max_clusters
+    H, W, K = slab_rows(rows, cfg.size_x), cfg.size_y, cfg.max_clusters
 
     def z(*shape, dt=dtype):
         return torch.zeros((batch,) + shape, dtype=dt, device=device)
     return MlsGrid(mean=z(H, W, K, 3), var_z=z(H, W, K), num_pts=z(H, W, K),
                    drivable=torch.full((batch, H, W), -1, dtype=torch.int8,
                                        device=device),
-                   origin=z(2, dt=torch.int32), center=z(2))
+                   origin=z(2, dt=torch.int32), center=z(2), rows=rows)
 
 
 def shift_origin_mls(grid: MlsGrid, new_center_xy: torch.Tensor,
@@ -135,10 +139,14 @@ def _associate(grid: MlsGrid, cell: torch.Tensor, z: torch.Tensor,
     return torch.where(inb, slot, K + 1)
 
 
-def add_to_mls(grid: MlsGrid, cloud: PointCloud, cfg) -> MlsGrid:
+def add_to_mls(grid: MlsGrid, cloud: PointCloud, cfg,
+               deterministic: bool = False) -> MlsGrid:
     """Fold clouds (B, N), robot-centred (or world-frame for a grid centred
     on the origin), into the cluster grids and refresh the drivability of
-    the cells they touch. Split by rows, the points of the slab's rows."""
+    the cells they touch. Split by rows, the points of the slab's rows.
+    `deterministic`: the cluster sums the same on every run (for a grid
+    that several ranks build alike, as graph regeneration's), as they
+    always are on a grid split by rows."""
     B, H, W, K = grid.num_pts.shape
     xyz = cloud.xyz
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
@@ -165,7 +173,8 @@ def add_to_mls(grid: MlsGrid, cloud: PointCloud, cfg) -> MlsGrid:
     vals = torch.stack([torch.ones_like(x), x, y, z, z * z], -1)
     vals = torch.where(inb[..., None], vals, 0.0)
     acc = torch.zeros(B * S, 5, dtype=xyz.dtype, device=x.device)
-    acc.index_add_(0, flat, vals.reshape(-1, 5))
+    index_add(acc, flat, vals.reshape(-1, 5),
+              deterministic or grid.rows is not None)
     acc = acc.view(B, H, W, K + 2, 5)
     cnt, sx, sy, sz, szz = acc.unbind(-1)
     c_exist = cnt[..., :K]

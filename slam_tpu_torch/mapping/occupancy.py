@@ -16,20 +16,22 @@ import torch
 from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
 from slam_tpu_torch.ops.scatter2d import scatter_add_2d_multi
-from slam_tpu_torch.parallel.rows import merge_top, whole_rows
+from slam_tpu_torch.parallel.rows import merge_top, slab_rows, whole_rows
 from slam_tpu_torch.types import OccupancyGrid, PointCloud
 
 
 def init_occupancy(cfg, batch: int, device=None,
-                   dtype=torch.float32) -> OccupancyGrid:
-    """Empty grids, on the card unless `device` says otherwise."""
+                   dtype=torch.float32, rows=None) -> OccupancyGrid:
+    """Empty grids, on the card unless `device` says otherwise; with
+    `rows` (parallel/rows.Rows) this rank's slab of them."""
     device = default_device(device)
-    shape = (batch, cfg.size_x, cfg.size_y)
+    shape = (batch, slab_rows(rows, cfg.size_x), cfg.size_y)
     return OccupancyGrid(
         counts=torch.zeros(shape, dtype=dtype, device=device),
         drivable=torch.full(shape, -1, dtype=torch.int8, device=device),
         origin=torch.zeros(batch, 2, dtype=torch.int32, device=device),
         center=torch.zeros(batch, 2, dtype=dtype, device=device),
+        rows=rows,
     )
 
 

@@ -23,7 +23,8 @@ from slam_tpu_torch import default_device, true_div
 from slam_tpu_torch.ops.roll import fresh_mask, roll_cells, shift_step
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
-from slam_tpu_torch.parallel.rows import merge_top, row_index, whole_rows
+from slam_tpu_torch.parallel.rows import (merge_top, row_index, slab_rows,
+                                          whole_rows)
 from slam_tpu_torch.types import PointCloud, Replaceable
 
 
@@ -44,18 +45,20 @@ class PointMapGrid(Replaceable):
 
 
 def init_point_map(batch: int, grid_size: int, resolution: float = 0.5,
-                   device=None, dtype=torch.float32) -> PointMapGrid:
+                   device=None, dtype=torch.float32,
+                   rows=None) -> PointMapGrid:
     """Empty grids; on the card unless `device` says otherwise. Batch 1 is
-    config 5's one map shared by the fleet."""
+    config 5's one map shared by the fleet. With `rows`
+    (parallel/rows.Rows) this rank's slab of them."""
     device = default_device(device)
 
     def z():
-        return torch.zeros(batch, grid_size, grid_size, dtype=dtype,
-                           device=device)
+        return torch.zeros(batch, slab_rows(rows, grid_size), grid_size,
+                           dtype=dtype, device=device)
     return PointMapGrid(count=z(), sum_x=z(), sum_y=z(), sum_z=z(),
                         center=torch.zeros(batch, 2, dtype=dtype,
                                            device=device),
-                        resolution=resolution)
+                        resolution=resolution, rows=rows)
 
 
 def shift_point_map(grid: PointMapGrid, new_center_xy: torch.Tensor,
@@ -89,9 +92,11 @@ def update_point_map(grid: PointMapGrid, xyz_world: torch.Tensor,
 
 def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
                         qy: torch.Tensor, qz, valid: torch.Tensor,
-                        resolution: float | None = None) -> PointMapGrid:
+                        resolution: float | None = None,
+                        deterministic: bool = False) -> PointMapGrid:
     """Fold world-frame x / y planes (B, N) into the grid. qz None (the 2D
-    path) leaves sum_z untouched."""
+    path) leaves sum_z untouched. `deterministic`: sums the same on every
+    run (scatter_add_2d_multi; always so on a grid split by rows)."""
     G = grid.count.shape[-1]
     res = resolution or grid.resolution
     rx = qx - grid.center[:, 0:1]
@@ -102,7 +107,7 @@ def update_point_map_xy(grid: PointMapGrid, qx: torch.Tensor,
     oy = ry - (cy.to(ry.dtype) - G // 2 + 0.5) * res
     chans = (None, ox, oy) + (() if qz is None else (qz,))
     acc = scatter_add_2d_multi(cx, cy, chans, valid, grid.count.shape[1:],
-                               rows=grid.rows)
+                               rows=grid.rows, deterministic=deterministic)
     return grid.replace(
         count=grid.count + acc[0], sum_x=grid.sum_x + acc[1],
         sum_y=grid.sum_y + acc[2],

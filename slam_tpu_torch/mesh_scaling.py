@@ -6,26 +6,28 @@ tools/mesh_scaling.py.
         [--device cpu]
 
 Config 2 at ref_scale_config with the "grid" matcher (20,480-ray scans,
-384 x 384 maps: bench.py's bench_ref_scale configuration), the fleet split
-over the dp axis of make_fleet_mesh. For each batch B every rank builds
-its B / N robots (host_local_batch) from a generator seeded from (0,
-rank), runs `steps` ticks to warm up, then `steps` timed ticks, and rank
-0 prints one line:
+384 x 384 maps: bench.py's bench_ref_scale configuration) on the (dp,
+sp) mesh of make_fleet_mesh(sp): the fleet split over dp, and with sp > 1
+each robot's grids (occupancy, obstacle point map, ground map) split by
+rows over the sp ranks of its dp row (parallel/rows.py). For each batch B
+every rank builds its dp row's B / dp robots from a generator seeded from
+(0, dp row), its grids as its slab alone (init_state_3d and
+init_ground_map with `rows`), runs `steps` ticks to warm up, then `steps`
+timed ticks, and rank 0 prints one line:
 
   - each rank's peak device memory over the batch
-    (torch.cuda.max_memory_allocated): the quantity the dp split must
-    shrink, in place of XLA's memory analysis;
-  - the robots a rank;
+    (torch.cuda.max_memory_allocated): the quantity the dp and sp splits
+    must shrink, in place of XLA's memory analysis;
+  - the robots a rank (its dp row's: every rank of the row steps them);
   - the aggregate robot-steps/s, B x ticks over the slowest rank's time,
     and its ms a tick (rollout_3d runs whole macros of 4 ticks: `steps`
     rounds up to them, and the rate counts the ticks run).
 
 One rank a card (NCCL, the default on the card). Ranks sharing one card
-(backend gloo) measure the card's sharing, not scaling. Alone, without
-torchrun, it runs one rank. --sp > 1 raises NotImplementedError: the sp
-axis splits the 2D grids (parallel/rows.py), and the 3D path's grids are
-ROADMAP queue 1's next sp item. On the card unless given --device cpu,
-where peak memory is not measured; it raises without a card.
+(backend gloo) measure the card's sharing, not scaling, and their sp
+exchanges cross host memory. Alone, without torchrun, it runs one rank
+(sp 1). On the card unless given --device cpu, where peak memory is not
+measured; it raises without a card.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from slam_tpu_torch.parallel import multihost
-from slam_tpu_torch.parallel.mesh import require_dp_only
+from slam_tpu_torch.parallel.mesh import gather_fleet
 from slam_tpu_torch.pipeline import slam3d
 from slam_tpu_torch.run_sim3d import config
 from slam_tpu_torch.sim import world3d
@@ -60,23 +62,28 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(batches, steps: int = 4, sp: int = 1, device=None) -> list:
-    """One row a batch (the printed numbers), on every rank."""
+    """One row a batch (the printed numbers, and the final poses of the
+    whole fleet, "pose"), on every rank."""
     dev = multihost.rank_device(device)
     mesh = multihost.make_fleet_mesh(sp)
-    require_dp_only(mesh, "mesh_scaling")
+    dp, row = mesh.shape["dp"], mesh.coords()[0]
     cfg = config(ref_scale=True)
+    rows = mesh.rows(cfg.mls.size_x) if sp > 1 else None
     world = world3d.make_world(torch.Generator(dev).manual_seed(42),
                                cfg.sim, device=dev)
     ticks = -(-steps // 4) * 4          # rollout_3d's whole macros
-    rows = []
+    out = []
     for batch in batches:
-        local = multihost.host_local_batch(batch)
-        gen = multihost.rank_generator(0, dev)
+        if batch % dp:
+            raise ValueError(f"a fleet of {batch} robots does not divide "
+                             f"over dp={dp}")
+        local = batch // dp
+        gen = multihost.rank_generator(0, dev, row)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         st = slam3d.init_state_3d(cfg, local, world, device=dev,
-                                  generator=gen)
-        gm = slam3d.init_ground_map(cfg, local, device=dev)
+                                  generator=gen, rows=rows)
+        gm = slam3d.init_ground_map(cfg, local, device=dev, rows=rows)
         st, gm, _ = slam3d.rollout_3d(st, world, gm, cfg, steps, gen)
         _sync(dev)
         t0 = time.perf_counter()
@@ -89,14 +96,14 @@ def run(batches, steps: int = 4, sp: int = 1, device=None) -> list:
                 if dev.type == "cuda" else None)
         every = _everyone((dt, peak, bool(torch.isfinite(est).all())))
         slowest = max(e[0] for e in every)
-        rows.append(dict(batch=batch, dp=mesh.shape["dp"], sp=sp,
-                         robots_per_rank=local,
-                         peak_mb=[e[1] for e in every],
-                         rate=batch * ticks / slowest,
-                         ms_step=slowest / ticks * 1e3,
-                         finite=all(e[2] for e in every)))
+        out.append(dict(batch=batch, dp=dp, sp=sp, robots_per_rank=local,
+                        peak_mb=[e[1] for e in every],
+                        rate=batch * ticks / slowest,
+                        ms_step=slowest / ticks * 1e3,
+                        finite=all(e[2] for e in every),
+                        pose=gather_fleet(mesh, st.pose).cpu()))
         del st, gm, est
-    return rows
+    return out
 
 
 def line(row: dict, where: str) -> str:
@@ -114,8 +121,8 @@ def main(argv=None) -> list:
     ap.add_argument("--batches", default="16,32,64")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--sp", type=int, default=1,
-                    help="spatial shards a robot grid (> 1 raises: the 3D "
-                         "path is not split by rows yet)")
+                    help="ranks a robot's grids split over by rows (its dp "
+                         "row's ranks; each holds 1/sp of every grid)")
     ap.add_argument("--backend", default=None,
                     help="nccl (one rank a card; default on the card) or "
                          "gloo (ranks may share a card)")

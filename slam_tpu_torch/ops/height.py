@@ -17,7 +17,7 @@ import torch
 
 from slam_tpu_torch import true_div
 from slam_tpu_torch.ops.scatter2d import gather_cells_2d
-from slam_tpu_torch.parallel.rows import refuse
+from slam_tpu_torch.parallel.rows import all_sum, owner_of, owner_select
 
 
 def _plane_normal(pts: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -99,9 +99,10 @@ def height_interpolate_grid(grid, pose_xyyawz: torch.Tensor,
                             cfg) -> torch.Tensor:
     """height_interpolate straight off the ground centroid grid: the
     occupied cells of the window that any accepted match must lie in.
-    Not ported to grids split by rows: raises NotImplementedError there."""
-    refuse(grid, "height_interpolate_grid's cell reads",
-           "3D, with mesh_scaling --sp")
+    On a grid split by rows the window may cross slabs: each rank reads
+    the window cells of its rows, and one owner_select joins them by the
+    cell's row, so every rank of the group gets the same window."""
+    rows = grid.rows
     G = grid.count.shape[-1]
     res = float(grid.resolution)
     reach = math.hypot(cfg.x_wheel_dist, cfg.y_wheel_dist)
@@ -115,9 +116,16 @@ def height_interpolate_grid(grid, pose_xyyawz: torch.Tensor,
     ar = torch.arange(W, device=ci.device)
     ii = (i0[:, None] + ar)[:, :, None].expand(-1, W, W)
     jj = (j0[:, None] + ar)[:, None, :].expand(-1, W, W)
-    cnt, sx, sy, sz = (v.reshape(v.shape[0], -1) for v in gather_cells_2d(
-        (grid.count, grid.sum_x, grid.sum_y, grid.sum_z),
-        ii.reshape(-1, W * W), jj.reshape(-1, W * W)))
+    ci_read = ii.reshape(-1, W * W)
+    if rows is not None:
+        ci_read = ci_read - rows.r0
+    cells = torch.stack(gather_cells_2d(
+        (grid.count, grid.sum_x, grid.sum_y, grid.sum_z), ci_read,
+        jj.reshape(-1, W * W)), -1)                          # (B, W * W, 4)
+    if rows is not None:
+        cells = owner_select(cells, owner_of(ii.reshape(-1, W * W), rows),
+                             rows)
+    cnt, sx, sy, sz = cells.unbind(-1)
     occ = cnt >= 1.0
     safe = torch.clamp(cnt, min=1.0)
     iif = ii.reshape(-1, W * W).to(grid.center.dtype)
@@ -126,6 +134,12 @@ def height_interpolate_grid(grid, pose_xyyawz: torch.Tensor,
     ctr_y = (jjf - G // 2 + 0.5) * res + grid.center[:, 1:2]
     return height_interpolate_planes(ctr_x + sx / safe, ctr_y + sy / safe,
                                      sz / safe, occ, pose_xyyawz, cfg)
+
+
+def occupied_cells(grid) -> torch.Tensor:
+    """(B,) the occupied cells (count >= 1) of each robot's ground grid,
+    the whole grid's: summed over the sp group on a slab."""
+    return all_sum((grid.count >= 1.0).sum((1, 2)), grid.rows)
 
 
 def height_interpolate(ground, pose_xyyawz: torch.Tensor,

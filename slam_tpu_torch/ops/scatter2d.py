@@ -13,7 +13,9 @@ several ranks compute and must hold bit for bit alike.
 On a grid split by rows (parallel/rows.py) a scatter keeps the points
 whose row lies in the slab, offset by the slab's first row, and drops the
 rest: the points are the same on every rank of the sp group, so a scatter
-needs no exchange.
+needs no exchange. Its sums are always the deterministic ones there, so
+that a split run repeats bit for bit and equals a whole-grid run that
+takes them too.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from __future__ import annotations
 import torch
 
 
-def _index_add(acc: torch.Tensor, flat: torch.Tensor, vv: torch.Tensor,
-               deterministic: bool) -> None:
+def index_add(acc: torch.Tensor, flat: torch.Tensor, vv: torch.Tensor,
+              deterministic: bool = False) -> None:
+    """acc.index_add_(0, flat, vv); with `deterministic` on the card, the
+    sort-based accumulate, whose sums are the same on every run."""
     if deterministic and acc.is_cuda:
         was = torch.are_deterministic_algorithms_enabled()
         warn = torch.is_deterministic_algorithms_warn_only_enabled()
@@ -42,11 +46,12 @@ def scatter_add_2d_multi(cx: torch.Tensor, cy: torch.Tensor, values: tuple,
     (B, H, W) grids, one per channel; a `None` channel counts points.
     Points that are invalid or outside the grid are dropped (a masked point
     may carry NaN coordinates: it never reaches a sum). With `rows`, shape
-    is the slab's and cx the whole grid's row."""
+    is the slab's and cx the whole grid's row, and the sums deterministic."""
     H, W = shape
     B, N = cx.shape
     if rows is not None:
         cx = cx - rows.r0
+        deterministic = True
     inb = valid & (cx >= 0) & (cy >= 0) & (cx < H) & (cy < W)
     base = torch.arange(B, device=cx.device)[:, None] * (H * W)
     # a dropped point adds 0 to a cell of its own robot's grid, cell n for
@@ -59,7 +64,7 @@ def scatter_add_2d_multi(cx: torch.Tensor, cy: torch.Tensor, values: tuple,
         vv = inb.to(torch.float32) if v is None else \
             torch.where(inb, v, 0.0).to(torch.float32)
         acc = torch.zeros(B * H * W, dtype=torch.float32, device=cx.device)
-        _index_add(acc, flat, vv.reshape(-1), deterministic)
+        index_add(acc, flat, vv.reshape(-1), deterministic)
         outs.append(acc.view(B, H, W))
     return tuple(outs)
 

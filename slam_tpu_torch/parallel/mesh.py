@@ -16,13 +16,15 @@ owns, exactly what `NamedSharding.devices_indices_map` gives.
 
 On an sp > 1 mesh `shard_fleet` and `shard_grids` place those slices: a
 rank holds its dp row's robots, and of their grids (local_map, map_grid,
-MLS banks) only its block of rows, the grid's `rows` field naming the
-split (parallel/rows.py); the state outside the grids is the same on every
-rank of the row. Where XLA inserts halo collectives, every grid op here
-exchanges over the sp group itself. `gather_grids` joins robots and rows
-again, for tests and checks. The paths not ported to split grids (3D with
-mesh_scaling --sp, the "grid" matcher's field, graph mode's regeneration,
-relocalization) raise NotImplementedError naming their ROADMAP item.
+MLS banks, the 3D path's GroundMap.grid) only its block of rows, the
+grid's `rows` field naming the split (parallel/rows.py); the state
+outside the grids is the same on every rank of the row. Where XLA inserts
+halo collectives, every grid op here exchanges over the sp group itself:
+the 2D and 3D ticks with every matcher, the "grid" matcher's field, graph
+mode and relocalization all run on split grids. `gather_grids` joins
+robots and rows again, for tests and checks. The init functions
+(slam2d.init_state, slam3d.init_state_3d, init_ground_map, init_mls)
+take `rows=` and allocate the slab alone.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.distributed as dist
 
 from slam_tpu_torch.parallel import multihost
 from slam_tpu_torch.parallel.rows import GroupExchange, Rows
+from slam_tpu_torch.types import GroundMap
 
 AXES = ("dp", "sp")
 
@@ -129,16 +132,6 @@ class Mesh:
         if self._exchange is None:
             self._exchange = GroupExchange(group, self.ranks[i])
         return Rows(self._exchange, j, self.shape["sp"], H)
-
-
-def require_dp_only(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError for `what` on an sp > 1 mesh: the paths
-    the sp axis does not reach yet."""
-    if mesh.shape["sp"] > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh with sp={mesh.shape['sp']} is not ported "
-            "yet: ROADMAP.md queue 1, step 3 (3D, with mesh_scaling --sp); "
-            "use sp=1")
 
 
 def make_mesh(n_devices: int | None = None, sp: int = 1) -> Mesh:
@@ -241,12 +234,19 @@ def _split(mesh: Mesh, grids, me: int):
 
 def shard_grids(mesh: Mesh, grids, rank: int | None = None, device=None):
     """This rank's slice of a batch of grid containers (OccupancyGrid,
-    PointMapGrid, MlsGrid): its robot shard, and on an sp > 1 mesh its
-    block of every robot's rows, the container's `rows` naming the split
-    (which needs the process group). On this rank's device
+    PointMapGrid, MlsGrid, GroundMap): its robot shard, and on an sp > 1
+    mesh its block of every robot's rows, the container's `rows` naming
+    the split (which needs the process group); a GroundMap's cloud is
+    split by robots only. On this rank's device
     (multihost.rank_device)."""
     me = multihost.rank() if rank is None else rank
     dev = multihost.rank_device(device)
+    if isinstance(grids, GroundMap):
+        return GroundMap(
+            grid=shard_grids(mesh, grids.grid, rank, device),
+            cloud=tree_map(lambda t, s: t[s[me]].to(dev), grids.cloud,
+                           tree_map(lambda t: _owned(mesh, t.shape, False),
+                                    grids.cloud)))
     return _split(mesh, tree_map(lambda t, s: t[s[me]].to(dev), grids,
                                  grid_rows_sharding(mesh, grids)), me)
 
@@ -291,10 +291,15 @@ def gather_fleet(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 def gather_grids(mesh: Mesh, grids):
     """The whole batch of grid containers on every rank, robots and rows
     joined (for tests and checks: it builds whole grids), rows None, on
-    the grids' device. Through host memory, over the whole mesh."""
+    the grids' device (a GroundMap's cloud joined over robots). Through
+    host memory, over the whole mesh."""
     group = mesh.group()
     if group is None:
         return grids
+    if isinstance(grids, GroundMap):
+        return GroundMap(grid=gather_grids(mesh, grids.grid),
+                         cloud=tree_map(lambda t: gather_fleet(mesh, t),
+                                        grids.cloud))
     dev = next(t for t in (getattr(grids, f.name)
                            for f in dataclasses.fields(grids))
                if isinstance(t, torch.Tensor)).device

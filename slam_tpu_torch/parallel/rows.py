@@ -1,22 +1,28 @@
 """Grids split by rows over the sp axis: the slab descriptor and its
 exchanges.
 
-On a (dp, sp) mesh with sp > 1 each robot's 2D grids (OccupancyGrid,
-PointMapGrid, MlsGrid: leaves (B, H, W, ...)) lie on the sp ranks of its
-dp row in blocks of h = H / sp rows, block j on the row's j-th rank: the
-layout of slam_tpu's `grid_rows_sharding`, P("dp", "sp", ...). A grid
-container carries its split in its static `rows` field (a `Rows`; None
-when the grid is whole), and every grid op reads it, so no pipeline
-signature changes. No rank ever holds a whole robot grid.
+On a (dp, sp) mesh with sp > 1 each robot's grids (OccupancyGrid,
+PointMapGrid, MlsGrid, the 3D path's GroundMap.grid: leaves (B, H, W,
+...)) lie on the sp ranks of its dp row in blocks of h = H / sp rows,
+block j on the row's j-th rank: the layout of slam_tpu's
+`grid_rows_sharding`, P("dp", "sp", ...). A grid container carries its
+split in its static `rows` field (a `Rows`; None when the grid is whole),
+and every grid op reads it, so no pipeline signature changes. No rank
+ever holds a whole robot grid, nor a whole nearest-centroid field.
 
 Each grid op is a local half, a plain function of this rank's slab and of
 what it received, and an exchange over the sp group:
-- `halo`: r rows from each neighbouring block (the stencils), the grid's
-  outer edges filled with a value the caller chooses (`with_halo`);
+- `halo`: r rows from each neighbouring block (the stencils, the jump
+  flood), the grid's outer edges filled with a value the caller chooses
+  (`with_halo`);
 - `ring` steps: rotate-by-one over the group (the rolls, ops/roll.py);
 - `merge_top`: each slab's top-k candidates all-gathered in block order
   and merged by a stable sort (`merge_candidates`), which gives the whole
   grid's order exactly, ties included;
+- `owner_select`: each slab's answers to queries that every rank holds
+  alike (field lookups, height windows) all-gathered, each element taken
+  from the block that owns its row (`select_owned`), exact in bits;
+- `all_sum`: an integer all-reduce (class and occupied-cell counts);
 - `all_gather`: K5's bit-table words (ops/particle.py).
 
 `GroupExchange` runs them on a torch.distributed group: NCCL moves the
@@ -74,15 +80,19 @@ def row_index(rows: Rows | None, n: int, device) -> torch.Tensor:
     return r if rows is None else r + rows.r0
 
 
-def refuse(grid, what: str, item: str) -> None:
-    """Raise NotImplementedError for `what` on a grid split by rows (a grid
-    container, or None): the paths not ported to the sp axis. `item` names
-    the ROADMAP step that ports it."""
-    rows = None if grid is None else getattr(grid, "rows", None)
-    if rows is not None:
-        raise NotImplementedError(
-            f"{what} on grids split by rows (sp={rows.sp}) is not ported "
-            f"yet: ROADMAP.md queue 1, step 3 ({item}); use sp=1")
+def slab_rows(rows: Rows | None, n: int) -> int:
+    """Rows an init function allocates of a grid of n: the slab's h with
+    `rows` (whose H must be n), else n."""
+    if rows is None:
+        return n
+    if rows.H != n:
+        raise ValueError(f"a split of {rows.H} rows for a grid of {n}")
+    return rows.h
+
+
+def owner_of(r: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """The block that holds each of the whole grid's rows r (in [0, H))."""
+    return torch.div(r, rows.h, rounding_mode="floor")
 
 
 class GroupExchange:
@@ -139,6 +149,12 @@ class GroupExchange:
         parts = [torch.empty_like(send) for _ in range(self.sp)]
         dist.all_gather(parts, send, group=self.group)
         return [self._back(p, x.device) for p in parts]
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every block's x (integers: exact in any order)."""
+        send = self._host(x).clone()
+        dist.all_reduce(send, group=self.group)
+        return self._back(send, x.device)
 
 
 def with_halo(x: torch.Tensor, above, below, fill, j: int,
@@ -212,3 +228,35 @@ def merge_top(score: torch.Tensor, payloads: list, capacity: int,
                 zip(g.split(sizes, -1), parts)]
         blocks.append((cols[0], cols[1:]))
     return merge_candidates(blocks, capacity)
+
+
+def select_owned(blocks: list, owner: torch.Tensor) -> torch.Tensor:
+    """Local half of `owner_select`: every block's (B, n, ...) answers in
+    block order -> (B, n, ...), element (b, k) taken from block owner[b,
+    k]. A gather, so the answer keeps the owner's bits (a float sum of
+    the other blocks' zeros would turn -0.0 into +0.0)."""
+    stacked = torch.stack(blocks)                           # (sp, B, n, ...)
+    idx = owner.to(torch.int64).view((1,) + owner.shape +
+                                     (1,) * (stacked.dim() - 3))
+    idx = idx.expand((1,) + stacked.shape[1:])
+    return torch.gather(stacked, 0, idx)[0]
+
+
+def owner_select(x: torch.Tensor, owner: torch.Tensor,
+                 rows: Rows) -> torch.Tensor:
+    """This slab's answers x (B, n, ...) to queries that every rank of the
+    sp group holds alike, joined with the other slabs' in one all-gather:
+    element (b, k) from block owner[b, k] (B, n), the block whose rows
+    hold its cell; the same on every rank. x's value where this block is
+    not the owner is never read."""
+    return select_owned(rows.comm.all_gather(x.contiguous()), owner)
+
+
+def all_sum(x: torch.Tensor, rows: Rows | None) -> torch.Tensor:
+    """x (integers) summed over the sp group; x itself when not split."""
+    if rows is None:
+        return x
+    if x.is_floating_point():
+        raise TypeError("all_sum adds integers only: a float sum depends on "
+                        "its order")
+    return rows.comm.all_reduce(x)

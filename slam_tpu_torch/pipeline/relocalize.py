@@ -12,6 +12,13 @@ Relocalization is a recovery path: `fleet_relocalize_if_lost` reads one
 flag from the card ("is any robot lost") and runs the search for the
 whole batch only when one is, as slam_tpu's batch-level `lax.cond` does;
 healthy robots pass through bit for bit.
+
+On grids split by rows (parallel/rows.py) relocalization reads only the
+replicated map_cloud and EKF state, so every rank of an sp group takes
+the same branch and finds the same match; the EKF shift that follows
+moves the grids at the next re-centring, by a slab or more through the
+roll's ring. The search raster and the polish are transients, built
+whole and alike on every rank.
 """
 
 from __future__ import annotations
@@ -22,16 +29,13 @@ from slam_tpu_torch.geometry import subtract_yaw
 from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.fft_match import MatchResult, global_match
-from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.types import PointCloud, SlamState, select_cloud
 
 
 def relocalize(state: SlamState, scene: PointCloud, cfg) -> MatchResult:
     """Match each robot's (robot-frame) scene against its map_cloud around
-    its current belief. Not ported to grids split by rows: raises
-    NotImplementedError there."""
-    for g in (state.local_map, state.map_grid):
-        refuse(g, "relocalization", "relocalization")
+    its current belief. It reads no grid: on grids split by rows every
+    rank of the sp group searches the same replicated map_cloud alike."""
     return global_match(scene, state.map_cloud, state.pose[:, :2],
                         cfg.global_match, cfg.icp)
 
@@ -82,7 +86,8 @@ def apply_relocalization_graph(state: SlamState, match: MatchResult,
     genuine = match.ok & (match.score > 0.0)
     graph, injected = pg.relocalization_edge(state.graph, belief, match.pose,
                                              genuine, cfg.graph)
-    optimized, _ = pg.optimize(graph, cfg.graph)
+    optimized, _ = pg.optimize(graph, cfg.graph,
+                               state.local_map.rows is not None)
     graph = graph.replace(node_pose=torch.where(
         injected[:, None, None], optimized.node_pose, graph.node_pose))
     regen = pg.regenerate_map(graph, state.map_cloud.capacity,

@@ -22,10 +22,13 @@ graph/pose_graph3d.py). The 3D path's graph mode
 (pipeline/slam3d.rollout_3d_with_graph) runs the same graph tick.
 
 Split by rows over an sp group (parallel/rows.py: the grids' `rows`
-field), the ticks and `rollout` run unchanged with matchers "fused",
-"points" and "particle": every grid op reads the split, and the per-robot
-state outside the grids is the same on every rank of the group. The "grid"
-matcher and graph mode raise NotImplementedError there.
+field), the ticks, `rollout` (every matcher) and graph mode run unchanged:
+every grid op reads the split, and the per-robot state outside the grids
+is the same on every rank of the group, bit for bit. The stages that sum
+floats with atomics on that replicated state (the scene build, the graph's
+normal equations and regenerated target) then take their deterministic
+scatter; the pose graph, its keyframes and the regenerated map_cloud stay
+whole on every rank.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points".
@@ -56,7 +59,6 @@ from slam_tpu_torch.ops.scatter2d import gather_cells_2d, scatter_add_2d_multi
 from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.ops.voxel import compact_planes, crop_box, voxel_downsample
-from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import (PointCloud, SlamState, make_cloud,
                                   select_cloud)
@@ -68,14 +70,16 @@ MATCHERS = ("fused", "points", "grid", "particle")
 def init_state(cfg, batch: int, device=None,
                generator: torch.Generator | None = None,
                with_graph: bool = False, with_metrics_ring: bool = False,
-               metrics_ring_capacity: int = 256) -> SlamState:
+               metrics_ring_capacity: int = 256, rows=None) -> SlamState:
     """Fresh fleet state. Each robot's gyro bias is estimated from
     cfg.ekf.num_init_imu_samples stationary samples, drawn from `generator`
     (the robot must not move while they are taken). with_graph: graph mode,
     an empty pose graph and no point-map grid (the target is regenerated
     from keyframes). with_metrics_ring: a device metrics ring of
     metrics_ring_capacity rows per robot. On the card unless `device` says
-    otherwise."""
+    otherwise. `rows` (parallel/rows.Rows): the grids are this rank's slab
+    of every robot's rows, allocated so (the rest of the state whole; give
+    every rank of the sp group the same generator)."""
     device = default_device(device)
     noise = torch.randn(batch, cfg.ekf.num_init_imu_samples,
                         generator=generator, device=device)
@@ -87,11 +91,12 @@ def init_state(cfg, batch: int, device=None,
         pose=zeros4,
         scan_reg_pose=zeros4.clone(),
         scan_reg_ok=torch.zeros(batch, dtype=torch.bool, device=device),
-        local_map=init_occupancy(cfg.mls, batch, device=device),
+        local_map=init_occupancy(cfg.mls, batch, device=device, rows=rows),
         prev_scene=make_cloud(batch, cfg.cloud.scene_capacity, device=device),
         map_cloud=make_cloud(batch, cfg.cloud.map_capacity, device=device),
         map_grid=None if with_graph else init_point_map(
-            batch, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0], device=device),
+            batch, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0], device=device,
+            rows=rows),
         step=torch.zeros(batch, dtype=torch.int32, device=device),
         true_pose=zeros4.clone(),
         graph=pg.init_graph(cfg.graph, batch, device) if with_graph else None,
@@ -476,10 +481,10 @@ def graph_update_delta(state: SlamState, cfg):
     select, so the tick never waits for the card. The target is
     regenerated by graph.map_regen's engine: "voxel" (a voxel merge of
     every keyframe), "mls" (a global MLS rebuild's obstacle export) or
-    "grid". Not ported to grids split by rows: raises
-    NotImplementedError there."""
-    refuse(state.local_map, "graph mode's map regeneration",
-           "graph regeneration")
+    "grid". On grids split by rows the graph tick is the same on every rank
+    of the sp group: it reads no grid, and its float sums (the normal
+    equations, the regeneration grid) take their deterministic scatter."""
+    split = state.local_map.rows is not None
     gcfg = cfg.graph
     kf_cloud = state.prev_scene
     if state.prev_ground is not None:
@@ -495,11 +500,11 @@ def graph_update_delta(state: SlamState, cfg):
                                    attitude=state.attitude)
     opt = added & (graph.num_edges > 0)
     if gcfg.engine == "se3" and gcfg.edge_registration == "3d":
-        optimized, delta = pg3.optimize_native(graph, gcfg)
+        optimized, delta = pg3.optimize_native(graph, gcfg, split)
     elif gcfg.engine == "se3":
-        optimized, delta = pg3.optimize_planar(graph, gcfg)
+        optimized, delta = pg3.optimize_planar(graph, gcfg, split)
     else:
-        optimized, delta = pg.optimize(graph, gcfg)
+        optimized, delta = pg.optimize(graph, gcfg, split)
     graph = graph.replace(node_pose=torch.where(
         opt[:, None, None], optimized.node_pose, graph.node_pose))
     if graph.node_rp is not None:
@@ -515,11 +520,11 @@ def graph_update_delta(state: SlamState, cfg):
             graph, capacity, resolution=cfg.icp.voxel_leaf_obs[0],
             grid_bins=gcfg.regen_grid_bins,
             ga_threshold=cfg.icp.ga_threshold,
-            recall=cfg.cloud.export_recall)
+            recall=cfg.cloud.export_recall, deterministic=split)
     elif gcfg.map_regen == "mls":
         # the 2D path has no ground class: the obstacle export is the
         # whole target
-        regen = pg.regenerate_map_mls(graph, cfg.mls, capacity)[0]
+        regen = pg.regenerate_map_mls(graph, cfg.mls, capacity, split)[0]
     else:
         regen = pg.regenerate_map(graph, capacity, cfg.icp.voxel_leaf_obs)
     map_cloud = select_cloud(added, regen, state.map_cloud)
@@ -541,10 +546,7 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
     regenerated target (incremental_map=False: the robots keep no map
     grid), then a graph tick. Returns (final_state, (est, true)),
     trajectories (B, num_macro * graph_every, 3). Under metrics.nan_debug
-    the state is checked finite after every tick and graph tick. Not
-    ported to grids split by rows: raises NotImplementedError there."""
-    refuse(state.local_map, "graph mode's map regeneration",
-           "graph regeneration")
+    the state is checked finite after every tick and graph tick."""
     est, true = [], []
     s = state
     for _ in range(num_macro):

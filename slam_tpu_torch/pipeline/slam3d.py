@@ -24,7 +24,13 @@ above RESIDENT_TILE_LIMIT) or 6-DoF edges (ops/icp3d.py, with the ground
 sample the state carries in prev_ground) per cfg.graph.
 
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
-swapped for "points". Graph mode registers "grid" as "points", as
+swapped for "points".
+
+Split by rows over an sp group (parallel/rows.py), the obstacle point
+map, the occupancy grid and the ground map's grid hold this rank's slab;
+the field, the height window and the exports read them through the sp
+exchanges, and the per-robot state outside the grids is the same on every
+rank of the group, bit for bit (the scene grid's sums deterministic). Graph mode registers "grid" as "points", as
 slam_tpu does: the field reads the obstacle grid, which graph mode does
 not keep.
 
@@ -50,13 +56,13 @@ from slam_tpu_torch.ops.grid_icp import icp_fit_grid, nearest_point_field
 from slam_tpu_torch.ops.ground import segment_ground, split_ground_obstacle
 from slam_tpu_torch.ops.height import (height_interpolate,
                                        height_interpolate_grid,
-                                       height_interpolate_planes)
+                                       height_interpolate_planes,
+                                       occupied_cells)
 from slam_tpu_torch.ops.icp import icp_fit
 from slam_tpu_torch.ops.icp_fused import fused_register
 from slam_tpu_torch.ops.scene_grid import build_scene_grid_planes
 from slam_tpu_torch.ops.voxel import (compact_planes, crop_box,
                                       voxel_downsample_pairwise_planes)
-from slam_tpu_torch.parallel.rows import refuse
 from slam_tpu_torch.pipeline.slam2d import (graph_update_delta, init_state,
                                             planes_to_cloud)
 from slam_tpu_torch.sim import world2d, world3d
@@ -69,16 +75,17 @@ MATCHERS = ("fused", "points", "grid")
 
 def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
                   generator: torch.Generator | None = None,
-                  with_graph: bool = False):
+                  with_graph: bool = False, rows=None):
     """init_state with z anchored at the true sensor height over the start
     point (the estimated z drifts from there), and a zero IMU attitude.
     with_graph: graph mode, an empty pose graph, no obstacle point-map grid
     (graph mode registers against the regenerated keyframe map and never
     reads or writes one; slam_tpu allocates it only to keep its pytree's
     shape, and interop carries either), and for 6-DoF edges an empty
-    ground sample of keyframe_points slots."""
+    ground sample of keyframe_points slots. `rows`: the grids are this
+    rank's slab of every robot's rows (init_state)."""
     s = init_state(cfg, batch, device=device, generator=generator,
-                   with_graph=with_graph)
+                   with_graph=with_graph, rows=rows)
     if with_graph and cfg.graph.edge_registration == "3d":
         s = s.replace(prev_ground=make_cloud(batch, cfg.graph.keyframe_points,
                                              device=s.pose.device))
@@ -92,17 +99,20 @@ def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
                      attitude=torch.zeros(batch, 2, device=s.pose.device))
 
 
-def init_ground_map(cfg, batch: int, device=None) -> GroundMap:
+def init_ground_map(cfg, batch: int, device=None, rows=None) -> GroundMap:
     """Empty ground stores. With grid-direct height interpolation the
-    exported ground cloud is never read, so it is a stub of 8 slots."""
+    exported ground cloud is never read, so it is a stub of 8 slots.
+    `rows` (parallel/rows.Rows): the grid is this rank's slab of every
+    robot's rows; the cloud stays whole."""
     cap = 8 if cfg.height.source == "grid" else cfg.cloud.map_capacity
     return GroundMap(grid=init_point_map(batch, cfg.mls.size_x,
                                          cfg.icp.voxel_leaf_obs[0],
-                                         device=device),
+                                         device=device, rows=rows),
                      cloud=make_cloud(batch, cap, device=device))
 
 
-def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
+def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg,
+                          deterministic: bool = False):
     """Segment upright scans (B, N, 3) and build the obstacle scene.
 
     Returns obstacle planes (ox, oy, oz, oga, odrv, ovalid), capacity
@@ -110,7 +120,10 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
     slots. Builder "incidence" (the default, "auto", up to 4096 points)
     compacts the obstacles, flags ground adjacency and voxel-downsamples;
     "grid" (above) scatters them into a scan-local centroid grid. The
-    ground class is not downsampled: its consumers re-bin it."""
+    ground class is not downsampled: its consumers re-bin it.
+    `deterministic`: the scene grid's sums the same on every run, which
+    the ranks of an sp group need to hold the same scene bit for bit (the
+    other stages are exact in any order)."""
     seg = segment_ground(cloud_from_xyz(scan_xyz, valid=hit), cfg.ground)
     obstacle, ground, _ = split_ground_obstacle(seg.cloud)
     x, y, z = scan_xyz.unbind(-1)
@@ -122,7 +135,7 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg):
         ox, oy, oz, oga, odrv, okeep = build_scene_grid_planes(
             x, y, z, obstacle, drv, cfg.cloud.scene_capacity,
             cfg.icp.ga_resolution, cfg.icp.scan_grid_bins,
-            cfg.icp.ga_threshold)
+            cfg.icp.ga_threshold, deterministic=deterministic)
         return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
     (ox, oy, oz, odrv), ovalid = compact_planes((x, y, z, drv), obstacle,
                                                 cfg.cloud.scene_capacity)
@@ -203,10 +216,9 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     graph-regenerated state.map_cloud, its ground adjacency re-classified
     around the prediction, and the obstacle point map is left as it is;
     the ground map and occupancy update as always. A state that carries
-    prev_ground gets this frame's strided ground sample there. Not ported
-    to grids split by rows: raises NotImplementedError there."""
-    for g in (state.local_map, state.map_grid, ground_map.grid):
-        refuse(g, "the 3D path", "3D, with mesh_scaling --sp")
+    prev_ground gets this frame's strided ground sample there. On grids
+    split by rows (parallel/rows.py) every grid op reads the split and the
+    rest is the same on every rank of the group."""
     matcher = cfg.icp.matcher
     if matcher not in MATCHERS:
         raise ValueError(f"unknown 3D icp.matcher {matcher!r} (have "
@@ -232,7 +244,8 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     pred = ekf_mod.pose_xyyaw(ekf)
 
     (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
-        build_scene_3d_planes(scan_xyz, hit, cfg)
+        build_scene_3d_planes(scan_xyz, hit, cfg,
+                              deterministic=state.local_map.rows is not None)
     if matcher == "grid":
         if field is None:
             field = nearest_point_field(state.map_grid,
@@ -276,7 +289,7 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     if cfg.height.source == "grid":
         new_z = height_interpolate_grid(ground_map.grid, pose4_pre,
                                         cfg.height)
-        have_map = (ground_map.grid.count >= 1.0).sum((1, 2)) >= \
+        have_map = occupied_cells(ground_map.grid) >= \
             cfg.height.min_corr_points
     else:
         new_z = height_interpolate(ground_map.cloud, pose4_pre, cfg.height)

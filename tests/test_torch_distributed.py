@@ -22,6 +22,10 @@ Tolerances:
   macros: against one process of the port trajectories 1e-5, counts
   exact; against slam_tpu that file's tolerances (trajectories 1e-5,
   counts exact, offset sums 2e-3).
+- (d) mesh_scaling (the ref-scale "grid" fleet) at B = 2: sp = 1 gives
+  the same rows on both ranks; with --sp 2 each rank holds half of every
+  grid's rows, and the poses equal one process's run of the same robots
+  on whole grids to 1e-5 and each other in bits.
 """
 
 import dataclasses
@@ -44,7 +48,7 @@ from slam_tpu.parallel import mesh as jmesh
 from slam_tpu.parallel import shared_map as jsm
 from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu.sim import world2d as jw
-from slam_tpu_torch import interop
+from slam_tpu_torch import interop, mesh_scaling
 from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.parallel import multihost
 from slam_tpu_torch.parallel import shared_map as tsm
@@ -223,16 +227,30 @@ def test_shared_rollout_over_two_ranks(setup):
 
 def test_mesh_scaling_over_two_ranks(setup):
     """python3 -m slam_tpu_torch.mesh_scaling's run() with the group up: one
-    robot a rank at B = 2, the rows equal on both ranks; sp = 2 raises."""
+    robot a rank at B = 2, the rows equal on both ranks; with --sp 2 both
+    ranks step both robots on half of every grid's rows, and the fleet's
+    poses equal one process's --sp 1 run of the same robots (the dp row's
+    generator) within 1e-5."""
     rows = [out["scaling"]["rows"] for out in setup["ranks"]]
-    assert rows[0] == rows[1] and len(rows[0]) == 1
+    assert len(rows[0]) == 1
+    for a, b in zip(rows[0], rows[1]):
+        assert_equal(a.pop("pose"), b.pop("pose"))
+    assert rows[0] == rows[1]
     row = rows[0][0]
     assert (row["batch"], row["dp"], row["sp"], row["robots_per_rank"]) == (
         2, WORLD, 1, 1)
     assert row["finite"] and row["rate"] > 0 and row["ms_step"] > 0
     assert row["peak_mb"] == [None, None]        # not measured on the CPU
+    alone = mesh_scaling.run([2], 1, 1, "cpu")[0]
     for out in setup["ranks"]:
-        assert "ROADMAP" in out["scaling"]["sp_refused"]
+        sp = out["scaling"]["sp_rows"][0]
+        assert (sp["batch"], sp["dp"], sp["sp"], sp["robots_per_rank"]) == (
+            2, 1, 2, 2)
+        assert sp["finite"] and sp["rate"] > 0
+        assert sp["pose"].shape == (2, 4)
+        assert_close(sp["pose"], alone["pose"], atol=1e-5)
+    assert torch.equal(setup["ranks"][0]["scaling"]["sp_rows"][0]["pose"],
+                       setup["ranks"][1]["scaling"]["sp_rows"][0]["pose"])
 
 
 def test_init_distributed_is_a_no_op_alone(monkeypatch):

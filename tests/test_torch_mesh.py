@@ -5,11 +5,14 @@ process (slam_tpu_torch vs slam_tpu, CPU).
 Exact throughout: the rank arrays equal the device ids of JAX's
 Mesh.devices, and every leaf's per-rank slices equal
 NamedSharding.devices_indices_map. On an sp > 1 mesh placing a fleet
-needs a process group (tests/test_torch_sp.py runs it on four gloo ranks),
-and the paths not ported to split grids raise.
+needs a process group (tests/test_torch_sp.py and
+tests/test_torch_sp_paths.py run it on four gloo ranks); the paths once
+refused there run on loopback slabs and give the whole grids' results
+exactly.
 """
 
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -33,6 +36,8 @@ from slam_tpu_torch.parallel import shared_map as tsm
 from slam_tpu_torch.pipeline import relocalize, slam3d
 from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import GroundMap
+from tests.test_torch_rows import on_blocks, slab
+from tests.test_torch_sp_paths import jax_inputs
 from tests.torch_parity import assert_equal, numpy_tree
 
 torch.set_num_threads(1)
@@ -128,11 +133,36 @@ def test_shard_fleet_takes_each_ranks_robots(fleet):
         assert mine.pose.shape == (2, 4) and mine.map_grid.resolution == 0.5
 
 
+def _split_state(state, j, sp, comm):
+    """Block j of sp of a state's grids (local_map, map_grid) on a
+    loopback exchange."""
+    mg = state.map_grid
+    return state.replace(local_map=slab(state.local_map, j, sp, comm),
+                         map_grid=None if mg is None else slab(mg, j, sp, comm))
+
+
+def _port_inputs():
+    """Two robots of each formerly refused path from
+    tests/test_torch_sp_paths.py's inputs (its tiny configurations), the
+    3D maps filled by a 2-macro rollout and config 3's scene by a tick."""
+    cfgs, _, _, port = jax_inputs()
+    two = {k: tmesh.tree_map(lambda t: t[:2], v) for k, v in port.items()
+           if k.startswith("states") or k == "gm3"}
+    world, world3 = port["world"], port["world3"]
+    s3, gm3, _ = slam3d.rollout_3d(two["states3"], world3, two["gm3"],
+                                   cfgs["ref3d"], 8)
+    sm = tslam.slam_step(two["states_mls"], world, cfgs["mls"],
+                         torch.Generator())
+    return cfgs, world, world3, s3, gm3, two["states_graph"], sm
+
+
 def test_sp_is_layout_only(fleet):
-    """What the sp axis does not reach yet raises NotImplementedError naming
-    its ROADMAP item: the 3D path, the "grid" matcher's field, graph mode,
-    relocalization and mesh_scaling --sp; a split grid needs a process
-    group."""
+    """Placing a fleet on split grids needs a process group; with an
+    exchange, every call the sp axis once refused runs on slabs (sp = 2,
+    the blocks as threads on a loopback exchange) and gives the whole
+    grids' poses: the 3D tick (process_frame_3d), height_interpolate_grid,
+    the "grid" matcher's field, graph_update and rollout_with_graph,
+    relocalize. require_dp_only and rows.refuse are gone."""
     cfg, _, ts = fleet
     mesh = tmesh.make_mesh(8, sp=2)
     with pytest.raises(RuntimeError, match="process group"):
@@ -141,31 +171,54 @@ def test_sp_is_layout_only(fleet):
         tsm.fleet_rollout_shared(
             ts, init_point_map(1, 16, device="cpu"), None, cfg, 1,
             generator=torch.Generator(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="mesh_scaling --sp"):
-        tmesh.require_dp_only(mesh, "mesh_scaling")
-    rows = trows.Rows(object(), 0, 2, 192)
-    split = ts.replace(local_map=ts.local_map.replace(rows=rows),
-                       map_grid=ts.map_grid.replace(rows=rows))
-    refused = {
-        "3D, with mesh_scaling --sp": [
-            lambda: slam3d.process_frame_3d(
-                split, GroundMap(grid=split.map_grid, cloud=None), None,
-                None, None, None, None, None, cfg),
-            lambda: height_interpolate_grid(split.map_grid, ts.pose,
-                                            cfg.height)],
-        'the "grid" field': [lambda: nearest_point_field(split.map_grid,
-                                                         0.5)],
-        "graph regeneration": [
-            lambda: tslam.graph_update(split, cfg),
-            lambda: tslam.rollout_with_graph(split, None, cfg, 1, None)],
-        "relocalization": [lambda: relocalize.relocalize(split, None, cfg)],
+    assert not hasattr(tmesh, "require_dp_only")
+    assert not hasattr(trows, "refuse")
+    cfgs, world, world3, s3, gm3, sg, sm = _port_inputs()
+    c3 = cfgs["ref3d"]
+
+    def tick3(s, gm):
+        return slam3d.slam_step_3d(s, world3, gm, c3)[0].pose
+
+    calls = {
+        "3D tick": lambda sp3, gm: tick3(sp3, gm),
+        "height_interpolate_grid": lambda sp3, gm: height_interpolate_grid(
+            gm.grid, sp3.pose, c3.height),
+        "the field": lambda sp3, gm: nearest_point_field(
+            sp3.map_grid, 0.5).n_class,
+        "graph_update": lambda *_: tslam.graph_update(
+            _split_state(sg, *_blk()), cfgs["graph"]).map_cloud.xyz,
+        "rollout_with_graph": lambda *_: tslam.rollout_with_graph(
+            _split_state(sg, *_blk()), world, cfgs["graph"], 1,
+            torch.Generator(), 4)[1][0],
+        "relocalize": lambda *_: relocalize.relocalize(
+            _split_state(sm, *_blk()), sm.prev_scene, cfgs["mls"]).pose,
     }
-    for item, calls in refused.items():
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.md queue 1, step 3 "
-                                     f"\\({item}\\)"):
-                call()
+    blk = {}
+
+    def _blk():
+        return blk[threading.get_ident()]
+
+    def run(j, comm):
+        blk[threading.get_ident()] = (j, 2, comm)
+        gm = GroundMap(grid=slab(gm3.grid, j, 2, comm), cloud=gm3.cloud)
+        return {k: f(_split_state(s3, j, 2, comm), gm)
+                for k, f in calls.items()}
+    got = on_blocks(2, run)
+    want = {
+        "3D tick": tick3(s3, gm3),
+        "height_interpolate_grid": height_interpolate_grid(
+            gm3.grid, s3.pose, c3.height),
+        "the field": nearest_point_field(s3.map_grid, 0.5).n_class,
+        "graph_update": tslam.graph_update(sg, cfgs["graph"]).map_cloud.xyz,
+        "rollout_with_graph": tslam.rollout_with_graph(
+            sg, world, cfgs["graph"], 1, torch.Generator(), 4)[1][0],
+        "relocalize": relocalize.relocalize(sm, sm.prev_scene,
+                                            cfgs["mls"]).pose,
+    }
+    for block in got:
+        for k, v in want.items():
+            assert_equal(block[k], v)
+    assert int(want["the field"].sum()) > 0
 
 
 def test_layout_errors(fleet, monkeypatch):

@@ -5,9 +5,9 @@ points and its multi-device layer, and builds and
 drives its native runtime in build/slam_tpu_torch/) with jax unimportable and no
 module of the slam_tpu package loaded (by import or by file path), no source file of it (or chip_smoke.py) imports jax or the
 slam_tpu package or builds a path into slam_tpu/ (nor do
-tests/torch_dist_worker.py and tests/torch_sp_worker.py, the distributed
-tests' rank processes; parallel/rows.py, the sp axis's exchanges, among
-the sources), and
+tests/torch_dist_worker.py, tests/torch_sp_worker.py and
+tests/torch_sp_paths_worker.py, the distributed tests' rank processes;
+parallel/rows.py, the sp axis's exchanges, among the sources), and
 chip_smoke.py refuses to report without a GPU."""
 
 import ast
@@ -104,7 +104,8 @@ def test_no_jax_imports_in_port_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|slam_tpu)(\.|\s|$)", re.M)
     files = sorted((ROOT / "slam_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
-              ROOT / "tests" / "torch_sp_worker.py"]
+              ROOT / "tests" / "torch_sp_worker.py",
+              ROOT / "tests" / "torch_sp_paths_worker.py"]
     assert len(files) > 10
     assert ROOT / "slam_tpu_torch" / "parallel" / "rows.py" in files
     for f in files:

@@ -5,23 +5,30 @@ through a loopback (the threads meet at a barrier), the blocks' results
 stitched back into whole grids.
 
 Exact throughout: counts, flags, rolled cells, exports (order and values,
-ties included) and bit tables are equal; float sums that a scatter adds
-point by point are held within 1e-6 (on the CPU each cell adds its points
-in the same order, so they are equal too).
+ties included), bit tables, the "grid" matcher's field (px, py, valid,
+n_class), its lookups and fits, and the height window's reads are equal;
+float sums that a scatter adds point by point are held within 1e-6 (on
+the CPU each cell adds its points in the same order, so they are equal
+too). The field is also held to slam_tpu's within 1e-6.
 """
 
 import dataclasses
 import threading
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from slam_tpu_torch.config import MlsConfig
+from slam_tpu.mapping import point_map as jpm
+from slam_tpu.ops import grid_icp as jg
+from slam_tpu_torch.config import HeightConfig, IcpConfig, MlsConfig
 from slam_tpu_torch.mapping import mls as tmls
 from slam_tpu_torch.mapping import occupancy as tocc
 from slam_tpu_torch.mapping import point_map as tpm
-from slam_tpu_torch.ops import grid_icp, particle, roll, scatter2d, stencil
+from slam_tpu_torch.ops import (grid_icp, height, particle, roll, scatter2d,
+                                stencil)
 from slam_tpu_torch.parallel import rows as trows
 from slam_tpu_torch.parallel.mesh import tree_map
 from slam_tpu_torch.types import OccupancyGrid, PointCloud
@@ -61,6 +68,9 @@ class Loopback:
 
             def all_gather(self, x):
                 return [t.clone() for t in self._swap(x)]
+
+            def all_reduce(self, x):
+                return sum(self._swap(x))
         return Member()
 
 
@@ -404,14 +414,207 @@ def test_with_halo_fills_outer_edges():
 
 
 def test_rows_need_an_exchange_and_refuse():
-    """A split grid needs its group's exchange; the paths not ported raise
-    NotImplementedError naming their ROADMAP item."""
+    """A split grid needs its group's exchange; with one, the "grid"
+    matcher's field builds on a slab (h of the G rows) instead of
+    refusing."""
     with pytest.raises(ValueError, match="process group"):
         trows.Rows(None, 0, 2, G)
     with pytest.raises(ValueError, match="divide"):
         trows.Rows(object(), 0, 3, G)
     pm = _point_map()
     s = slab(pm, 0, 2, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        grid_icp.nearest_point_field(s, 0.5)
     assert repr(s.rows) == "Rows(block 0 of 2, 16 of 32 rows)"
+    fields = split_run(pm, 2, lambda s: grid_icp.nearest_point_field(s, 0.5))
+    assert fields[0].px.shape == (B, 2, G // 2, G)
+    assert fields[1].rows.j == 1 and fields[1].rows.H == G
+    with pytest.raises(ValueError, match="a split of 32 rows"):
+        tpm.init_point_map(B, 16, rows=trows.Rows(object(), 0, 2, G),
+                           device="cpu")
+
+
+RES = 0.5
+# slam_tpu's field, vmapped over robots, compiled once
+_jax_field = jax.jit(jax.vmap(lambda g: jg.nearest_point_field(g, RES)))
+
+
+def _sparse_point_map(seed=8):
+    """Occupied cells on the rows one to four from every slab boundary of
+    sp = 2 and 4 (8, 16, 24), on the grid's outer rows and a few between;
+    half the centroids at their cell centre, so that many flood candidates
+    tie and slam_tpu's visit order decides."""
+    g = torch.Generator().manual_seed(seed)
+    count = torch.zeros(B, G, G)
+    near = [r for b in (8, 16, 24) for r in (b - 4, b - 3, b - 1, b, b + 1,
+                                             b + 3)] + [0, 1, G - 2, G - 1]
+    for r in near + [5, 12, 19, 28]:
+        cols = torch.randint(0, G, (B, 3), generator=g)
+        count[torch.arange(B)[:, None], r, cols] = torch.randint(
+            1, 4, (B, 3), generator=g).float()
+    count[:, 14:18, 10:14] = 2.0                    # a block: inner cells NGA
+    off = (torch.rand(B, G, G, generator=g) - 0.5) * RES * count
+    centred = torch.rand(B, G, G, generator=g) < 0.5
+    off = torch.where(centred, 0.0, off)
+    off_y = torch.where(centred, 0.0, (torch.rand(B, G, G, generator=g) - 0.5)
+                        * RES * count)
+    return tpm.PointMapGrid(
+        count=count, sum_x=off, sum_y=off_y, sum_z=torch.zeros(B, G, G),
+        center=torch.tensor([[0.0, 0.0], [1.5, -2.0], [-3.0, 4.5]]),
+        resolution=RES)
+
+
+def _field_arrays(f):
+    return (f.px, f.py, f.valid)
+
+
+@pytest.mark.parametrize("sp", SPS)
+def test_nearest_point_field_on_slabs(sp):
+    """The field built on slabs (a halo a visit from the neighbouring
+    slab's current rows, n_class summed over the group) equals the whole
+    grid's in bits, and slam_tpu's within 1e-6 (valid and n_class
+    exact)."""
+    pm = _sparse_point_map()
+    want = grid_icp.nearest_point_field(pm, RES)
+    got = split_run(pm, sp, lambda s: grid_icp.nearest_point_field(s, RES))
+    for k, whole in enumerate(_field_arrays(want)):
+        assert_equal(torch.cat([_field_arrays(f)[k] for f in got], 2), whole)
+    for f in got:
+        assert_equal(f.n_class, want.n_class)
+        assert f.rows.sp == sp
+    jf = _jax_field(jpm.PointMapGrid(
+        count=jnp.asarray(pm.count.numpy()),
+        sum_x=jnp.asarray(pm.sum_x.numpy()),
+        sum_y=jnp.asarray(pm.sum_y.numpy()),
+        sum_z=jnp.asarray(pm.sum_z.numpy()),
+        center=jnp.asarray(pm.center.numpy()), resolution=RES))
+    assert_equal(want.valid, np.asarray(jf.valid))
+    assert_equal(want.n_class, np.asarray(jf.n_class).astype(np.int32))
+    assert_close(want.px, np.asarray(jf.px), atol=1e-6)
+    assert_close(want.py, np.asarray(jf.py), atol=1e-6)
+    # the flood crosses every boundary: cells beside one take a centroid
+    # from the other side
+    h = G // sp
+    assert bool((want.valid[:, :, h - 1] & (pm.count[:, None, h - 1] == 0))
+                .any()) and int(want.n_class[:, 1].sum()) > 0
+
+
+def _queries(seed=9, S=200):
+    """Queries over every slab, some off the grid on each side."""
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.rand(B, S, 2, generator=g) - 0.5) * (G + 8) * RES
+    q = q + torch.tensor([[0.0, 0.0], [1.5, -2.0], [-3.0, 4.5]])[:, None]
+    return q, torch.rand(B, S, generator=g) < 0.5
+
+
+@pytest.mark.parametrize("sp", SPS)
+def test_lookup_and_fit_on_field_slabs(sp):
+    """lookup on field slabs (each rank answers the queries of its rows,
+    one owner_select joins them) equals the whole field's, queries in
+    every slab and off the grid; icp_fit_grid ("while" and "scan")
+    equals the whole grid's fit."""
+    pm = _sparse_point_map()
+    q, q_ga = _queries()
+    want = grid_icp.lookup(grid_icp.nearest_point_field(pm, RES), q, q_ga)
+    scene = q[:, :120] * 0.3
+    init = torch.tensor([[0.2, -0.1, 0.05], [1.4, -1.8, -0.1],
+                         [-3.1, 4.3, 0.0]])
+    fits = {loop: IcpConfig(loop=loop, max_iterations=6, inlier_dist=4.0,
+                            min_scene_points=10) for loop in ("while", "scan")}
+    want_fit = {k: grid_icp.icp_fit_grid(
+        scene, torch.ones(B, 120, dtype=torch.bool), q_ga[:, :120],
+        grid_icp.nearest_point_field(pm, RES), init, c)
+        for k, c in fits.items()}
+
+    def ops(s):
+        f = grid_icp.nearest_point_field(s, RES)
+        return grid_icp.lookup(f, q, q_ga), {k: grid_icp.icp_fit_grid(
+            scene, torch.ones(B, 120, dtype=torch.bool), q_ga[:, :120], f,
+            init, c) for k, c in fits.items()}
+    got = split_run(pm, sp, ops)
+    for r in got:
+        assert_equal(r[0][0], want[0])
+        assert_equal(r[0][1], want[1])
+        for k in fits:
+            tree_map(assert_equal, r[1][k]._asdict(), want_fit[k]._asdict())
+    rows = torch.floor((q[..., 0] - pm.center[:, None, 0]) / RES) + G // 2
+    assert bool((rows < 0).any() and (rows >= G).any())
+    for j in range(sp):
+        assert bool(((rows // (G // sp)) == j).any())
+    assert bool(want[1].any() and (~want[1]).any())
+    assert int(want_fit["scan"].num_corr.min()) > 0
+
+
+def _ground_map(seed=10):
+    """A ground point map of dense cells with z, for height windows."""
+    g = torch.Generator().manual_seed(seed)
+    count = (torch.rand(B, G, G, generator=g) < 0.7).float() * \
+        torch.randint(1, 4, (B, G, G), generator=g).float()
+    return tpm.PointMapGrid(
+        count=count,
+        sum_x=(torch.rand(B, G, G, generator=g) - 0.5) * RES * count,
+        sum_y=(torch.rand(B, G, G, generator=g) - 0.5) * RES * count,
+        sum_z=(torch.randn(B, G, G, generator=g) * 0.05 - 1.0) * count,
+        center=torch.tensor([[0.0, 0.0], [1.5, -2.0], [-3.0, 4.5]]),
+        resolution=RES)
+
+
+@pytest.mark.parametrize("sp", SPS)
+@pytest.mark.parametrize("where", ["straddle", "edge"])
+def test_height_window_on_slabs(sp, where):
+    """height_interpolate_grid on slabs: the window's cells read from the
+    slab that holds their row and joined by owner_select give the whole
+    grid's z in bits, for windows across a slab boundary and windows
+    clamped at the grid's outer rows."""
+    gm = _ground_map()
+    cfg = HeightConfig(max_nn_dist_sq=1.0)
+    h = G // sp
+    if where == "straddle":
+        rows = torch.tensor([h, 2 * h - 1 if sp > 2 else h + 1, h - 1])
+    else:
+        rows = torch.tensor([0, G - 1, 1])
+    x = (rows.float() - G // 2 + 0.5) * RES + gm.center[:, 0]
+    y = gm.center[:, 1] + torch.tensor([0.3, -1.2, 6.0])
+    pose = torch.stack([x, y, torch.tensor([0.1, 2.0, -1.0]),
+                        torch.full((B,), 0.0)], -1)
+    want = height.height_interpolate_grid(gm, pose, cfg)
+    got = split_run(gm, sp, lambda s: height.height_interpolate_grid(
+        s, pose, cfg))
+    for z in got:
+        assert_equal(z, want)
+    assert int((want != 0.0).sum()) >= 2      # most robots found ground
+
+
+@pytest.mark.parametrize("sp", SPS)
+def test_occupied_cells_sum_over_slabs(sp):
+    """The 3D tick's have-a-ground-map gate counts the whole grid's
+    occupied cells: one cell in each slab is sp cells on every block."""
+    gm = _ground_map()
+    h = G // sp
+    count = torch.zeros(B, G, G)
+    count[:, torch.arange(sp) * h + 1, 3] = 2.0
+    gm = gm.replace(count=count)
+    want = height.occupied_cells(gm)
+    assert_equal(want, torch.full((B,), sp))
+    for got in split_run(gm, sp, height.occupied_cells):
+        assert_equal(got, want)
+
+
+def test_owner_select_and_all_sum():
+    """The local half takes each element from its owner's block, keeping
+    -0.0; all_sum adds integers over the group and refuses floats."""
+    blocks = [torch.tensor([[[-0.0, 1.0], [2.0, 3.0]]]),
+              torch.tensor([[[0.0, 5.0], [6.0, 7.0]]])]
+    got = trows.select_owned(blocks, torch.tensor([[0, 1]]))
+    assert_equal(got, torch.tensor([[[-0.0, 1.0], [6.0, 7.0]]]))
+    assert torch.signbit(got[0, 0, 0])
+    out = on_blocks(3, lambda j, c: (
+        trows.owner_select(torch.full((2, 4), float(j)),
+                           torch.tensor([[2, 1, 0, 2], [0, 0, 1, 1]]),
+                           trows.Rows(c, j, 3, 6)),
+        trows.all_sum(torch.tensor([j, 1]), trows.Rows(c, j, 3, 6))))
+    for sel, tot in out:
+        assert_equal(sel, torch.tensor([[2.0, 1, 0, 2], [0, 0, 1, 1]]))
+        assert_equal(tot, torch.tensor([3, 3]))
+    x = torch.tensor([4, 5])
+    assert trows.all_sum(x, None) is x
+    with pytest.raises(TypeError, match="integers"):
+        trows.all_sum(torch.zeros(2), trows.Rows(object(), 0, 2, 4))

@@ -66,16 +66,14 @@ def shared(inp, mesh):
 
 
 def scaling():
-    """mesh_scaling's rows at B = 2 over the two ranks, and its refusal of
-    sp = 2."""
+    """mesh_scaling's rows at B = 2 over the two ranks: sp = 1 (one robot a
+    rank) and sp = 2 (both robots on both ranks, each rank half of every
+    grid's rows)."""
     rows = mesh_scaling.main(["--batches", "2", "--steps", "1",
                               "--device", "cpu"])
-    try:
-        mesh_scaling.main(["--sp", "2", "--device", "cpu"])
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    return dict(rows=rows, sp_refused=refused)
+    sp_rows = mesh_scaling.main(["--sp", "2", "--batches", "2", "--steps",
+                                 "1", "--device", "cpu"])
+    return dict(rows=rows, sp_rows=sp_rows)
 
 
 def main():

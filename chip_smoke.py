@@ -41,7 +41,12 @@ non-zero:
              splits; vs K1's plain version on a problem both take (S=512,
              C=4096); repeated calls must give the same bits; and K2 on
              packed problems above RESIDENT_TILE_LIMIT (B=16, S=C=2048),
-             which it sends to K3, vs its plain version
+             which it sends to K3, vs its plain version; then K1 and K3
+             with their fit-iteration counter set (under a profiler) and
+             null: equal bits, and the counted iterations equal to each
+             robot's own (read from runs cut at every max_iterations),
+             beside the plain version's count, at config 1's and
+             the reference scale's shapes ([fit counters])
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
@@ -962,13 +967,13 @@ def device_ops(fn, required=False) -> dict:
     questions). A session that misses a canary gives n None ("not
     measured"), or raises if the count is `required`."""
     from slam_tpu_torch.ops import nn
+    from slam_tpu_torch.utils import profiling
     one = torch.zeros(1, 1, 2, device="cuda")
     valid = torch.ones(1, 1, dtype=torch.bool, device="cuda")
 
     def canary():
-        before = nn.launches
         nn.nearest_neighbor(one, one, valid)
-        nn.launches = before
+        profiling.count("k4.launches", -1)
 
     fn()
     torch.cuda.synchronize()
@@ -1067,15 +1072,77 @@ def check_k2_tiled(cfg, B=16, P=2048, seed=12) -> dict:
     args = (torch.stack([p["sx"], p["sy"]], -1), p["s_valid"], p["s_ga"],
             torch.stack([p["mx"], p["my"]], -1), p["m_valid"], p["m_ga"],
             p["init"], cfg)
-    before = (icp_fused.packed_launches, icp_fused.tiled_launches,
-              icp_fused.launches)
+    before = (counter("k2.launches"), counter("k3.launches"),
+              counter("k1.launches"))
     got = icp_fused.icp_fused(*args)
-    after = (icp_fused.packed_launches, icp_fused.tiled_launches,
-             icp_fused.launches)
+    after = (counter("k2.launches"), counter("k3.launches"),
+             counter("k1.launches"))
     if [a - b for a, b in zip(after, before)] != [1, 1, 0]:
         raise RuntimeError(f"K2 above RESIDENT_TILE_LIMIT: launches (K2, K3,"
                            f" K1) went {before} -> {after}")
     return agreement("K2 on K3", got, icp_fused.icp_fused_reference(*args))
+
+
+def check_fit_counters() -> dict:
+    """K1 and K3 with their fit-iteration counter set (under a profiler,
+    which is when utils/profiling passes its address) against the same
+    call without it: equal bits; and the iterations they count against
+    each robot's own, one more than the most max_iterations at which the
+    kernel's result is not yet its full run's (a fit that ran n iterations
+    gives its final bits from max_iterations n on, and another delta at
+    n - 1; one that cycles between two poses until max_iterations can
+    meet its final bits earlier, so the first match would not do),
+    on the kernel table's shapes: K1 at B=FLEET S=384 C=512, K3 at the
+    reference scale's B, S and C, full and at the path's sparse
+    occupancy. The plain version's count (icp_fused.fit_iterations) is
+    reported beside: its sums round in another order, and which iteration
+    first moves less than min_delta (1e-6, an f32 ulp at 8 m) is rounding."""
+    import dataclasses
+    from slam_tpu_torch.config import ref_scale_config, sim2d_config
+    from slam_tpu_torch.ops import icp_fused
+    act = torch.profiler.ProfilerActivity
+    k1, k3 = icp_fused.icp_fused_planes, icp_fused.icp_fused_planes_tiled
+    ref = ref_scale_config().icp
+    cases = (("K1", "k1", k1, registration_problem(FLEET, seed=0),
+              sim2d_config().icp),
+             ("K3 full", "k3", k3, registration_problem(
+                 FLEET_REF, REF_S, REF_C, seed=11, span=100.0, max_rot=0.01),
+              ref),
+             ("K3 sparse", "k3", k3, sparse_problem(
+                 FLEET_REF, REF_S, REF_C, REF_SCENE, REF_TARGET, True,
+                 seed=21), ref))
+    fields = ("pose", "num_corr", "delta", "mean_residual")
+
+    def same(a, b):            # (B,) robots whose results are equal in bits
+        eq = a.ok == b.ok
+        for f in fields:
+            x, y = getattr(a, f).float(), getattr(b, f).float()
+            eq &= (x.view(torch.int32) == y.view(torch.int32)).reshape(
+                x.shape[0], -1).all(-1)
+        return eq
+    out = {}
+    for name, key, fit, problem, cfg in cases:
+        ops = fused_operands(problem)
+        off = fit(*ops, cfg)
+        before = (device_count(f"{key}.fit_iterations"),
+                  counter(f"{key}.fit_problems"))
+        with torch.profiler.profile(activities=[act.CPU]):
+            on = fit(*ops, cfg)
+            torch.cuda.synchronize()
+        iters = device_count(f"{key}.fit_iterations") - before[0]
+        problems = counter(f"{key}.fit_problems") - before[1]
+        own = torch.zeros_like(off.num_corr)
+        for k in range(cfg.max_iterations):
+            at = same(fit(*ops, dataclasses.replace(cfg, max_iterations=k)),
+                      off)
+            own = torch.where(at, own, k + 1)
+        out[name] = dict(counted=iters, own=int(own.sum()), problems=problems,
+                         plain=int(icp_fused.fit_iterations(*ops, cfg).sum()),
+                         same_bits=bool(same(on, off).all()))
+        if not out[name]["same_bits"] or iters != out[name]["own"] or \
+                problems != ops[0].shape[0]:
+            raise RuntimeError(f"{name}'s fit counter: {out[name]}")
+    return out
 
 
 def event_timed(fn, events):
@@ -1109,12 +1176,24 @@ def kept(fn, calls, copy=False, last=False):
     return keep
 
 
-def reset_counts(*modules) -> None:
-    for m in modules:
-        for attr in ("launches", "packed_launches", "tiled_launches",
-                     "pack_launches"):
-            if hasattr(m, attr):
-                setattr(m, attr, 0)
+def reset_counts() -> None:
+    from slam_tpu_torch.utils import profiling
+    profiling.reset_counters()
+
+
+def counter(name: str) -> int:
+    """A host counter of the port's registry (slam_tpu_torch/utils/
+    profiling.py: the kernels' launches, the live staging's waits); reads
+    no device counter, so it never waits for the card."""
+    from slam_tpu_torch.utils import profiling
+    return profiling.count_of(name)
+
+
+def device_count(name: str) -> int:
+    """A counter of the registry with its device part (K1's and K3's fit
+    iterations) read to the host: waits for the card."""
+    from slam_tpu_torch.utils import profiling
+    return profiling.counters().get(name, 0)
 
 
 def scan_to_scan_phase(state, world, cfg, gen):
@@ -1122,16 +1201,16 @@ def scan_to_scan_phase(state, world, cfg, gen):
     two scenes, one more tick apart, against its plain version. Returns
     (result dict with the K2 operands under "args", K2 launches)."""
     from slam_tpu_torch.geometry import se2_apply_xy
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused
     from slam_tpu_torch.pipeline import slam2d
     prev = state
     cur = slam2d.slam_step(prev, world, cfg, gen)
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     s2s = slam2d.register_scan_to_scan(cur.prev_scene, prev.prev_scene,
                                        prev.pose, prev.pose[:, :3], cfg)
     torch.cuda.synchronize()
-    launches = icp_fused.packed_launches
+    launches = counter("k2.launches")
     tx, ty = se2_apply_xy(prev.pose[:, :3], prev.prev_scene.xyz[..., 0],
                           prev.prev_scene.xyz[..., 1])
     args = (cur.prev_scene.xyz[..., :2], cur.prev_scene.valid,
@@ -1177,7 +1256,6 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     against one shared map, after a warm-up macro on another fleet.
     Returns (the config, K5 launches)."""
     from slam_tpu_torch.mapping.point_map import init_point_map
-    from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.parallel.shared_map import fleet_rollout_shared
     from slam_tpu_torch.pipeline import slam2d
     dev = world.centers.device
@@ -1195,14 +1273,14 @@ def shared_fleet_phase(world, cfg, gen, card, fleet_size=FLEET,
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     e0.record()
     fleet, shared, (est, true) = fleet_rollout_shared(
         fleet, shared, world, fcfg, macros, generator=gen)
     e1.record()
     torch.cuda.synchronize()
-    launches = particle.launches
-    packs = particle.pack_launches
+    launches = counter("k5.launches")
+    packs = counter("k5.pack_launches")
     ticks = 4 * macros
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (fleet_size, ticks, 3) or fleet.map_grid is not None:
@@ -1241,7 +1319,6 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     z_skip, the fused matcher's kernel launched every tick, and (ref) the
     share of (robot, tick) registrations that succeeded. Returns the
     kernel's launch count."""
-    from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.sim import world3d
     dev = torch.device("cuda")
@@ -1253,14 +1330,14 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     e0.record()
     state, gm, (est, true, reg_ok) = slam3d.rollout_3d(state, world, gm, cfg,
                                                        ticks, gen)
     e1.record()
     torch.cuda.synchronize()
-    counts = {"K1": icp_fused.launches, "K3": icp_fused.tiled_launches,
-              "K4": nn.launches}
+    counts = {"K1": counter("k1.launches"), "K3": counter("k3.launches"),
+              "K4": counter("k4.launches")}
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (fleet, ticks, 4):
         raise RuntimeError(f"{label} trajectory shape {tuple(est.shape)}")
@@ -1314,6 +1391,69 @@ def count_syncs(fn):
     torch.cuda.synchronize()
     return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
                  if "called a synchronizing" in str(w.message)]
+
+
+def check_sync_counts() -> dict:
+    """The host reads the program counts (`host_syncs`) against the syncs
+    count_syncs sees, on the paths the benchmark's cells run: a macro of
+    4 ticks of config 1 at B=64 with K1 ("fused") and with the "points"
+    matcher's while loop (a converged read an iteration), one of the
+    reference scale at B=4 (K3), each after a macro that gives it a map,
+    and 8 live frames popped through Staging into GraphedStep (its
+    converged reads; each copy has finished before its buffer is
+    refilled, since every step reads the card). Returns
+    {case: {outside, counted, sites}}; an unmarked sync makes outside
+    exceed counted."""
+    from slam_tpu_torch import live
+    from slam_tpu_torch.config import ref_scale_config, sim2d_config
+    from slam_tpu_torch.pipeline import slam2d, slam3d
+    from slam_tpu_torch.runtime import native
+    from slam_tpu_torch.sim import replay, world2d, world3d
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    out = {}
+
+    def measured(case, fn):
+        fn()                                # warm: every shape built
+        before = counter("host_syncs")
+        _, syncs = count_syncs(fn)
+        out[case] = dict(outside=len(syncs),
+                         counted=counter("host_syncs") - before,
+                         sites=sync_sites(syncs) or "none")
+
+    cfg = sim2d_config()
+    world = world2d.make_world(gen.manual_seed(42), cfg.sim, device=dev)
+    for case, c in (("2D K1", cfg), ("2D points while", cfg.replace(
+            icp=dataclasses.replace(cfg.icp, matcher="points",
+                                    loop="while")))):
+        state, _ = slam2d.rollout(slam2d.init_state(
+            c, 64, device=dev, generator=gen.manual_seed(3)), world, c, 4,
+            gen)                            # a map to register against
+        measured(case, lambda s=state, c=c: slam2d.rollout(s, world, c, 4,
+                                                           gen))
+    c3 = ref_scale_config()
+    w3 = world3d.make_world(gen.manual_seed(42), c3.sim, device=dev)
+    s3 = slam3d.init_state_3d(c3, 4, w3, device=dev,
+                              generator=gen.manual_seed(0))
+    s3, gm, _ = slam3d.rollout_3d(s3, w3, slam3d.init_ground_map(c3, 4, dev),
+                                  c3, 4, gen)
+    measured("3D K3", lambda: slam3d.rollout_3d(s3, w3, gm, c3, 4, gen))
+    frames = replay.synth_frames(world, cfg.sim, 24, seed=0)
+    floats = replay.frame_floats(cfg.sim)
+    live.warm_up(frames, cfg, dev)
+    step = live.make_step(cfg, dev, torch.from_numpy(frames[0]).to(dev))
+    ring = native.FrameRing(32, (floats,))
+    staging = live.Staging(floats, dev)
+    feed = iter(frames[1:])
+
+    def frames8():
+        for _ in range(8):
+            ring.push(next(feed))
+            step(staging.pop(ring))
+    waits = counter("live.staging_waits")
+    measured("live", frames8)
+    out["live"]["staging_waits"] = counter("live.staging_waits") - waits
+    return out
 
 
 def sync_sites(syncs) -> str:
@@ -1415,7 +1555,7 @@ def mls_phase(world, gen, card) -> dict:
     from slam_tpu_torch.config import sim2d_reloc_config
     from slam_tpu_torch.mapping.mls import init_mls
     from slam_tpu_torch.ops import icp as icp_mod
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import nn
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.pipeline.relocalize import fleet_relocalize_if_lost
     from slam_tpu_torch.profile_tick import KIDNAP, mls_macro
@@ -1434,7 +1574,7 @@ def mls_phase(world, gen, card) -> dict:
               for _ in range(MLS_MACROS)]
     est, true, losts = [], [], []
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     for m in range(MLS_MACROS):
         events[m][0].record()
         state, grid, (e, t), pre, lost = mls_macro(
@@ -1446,7 +1586,7 @@ def mls_phase(world, gen, card) -> dict:
         if m == MLS_KIDNAP_AT:
             kid_pre, kid_post, kid_lost = pre, state, lost
     torch.cuda.synchronize()
-    launches = {"K1": icp_fused.launches, "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K4": counter("k4.launches")}
     macro_ms = [a.elapsed_time(b) for a, b in events]
     fired = [bool(x.any()) for x in losts]
     ms = sum(macro_ms) / (4 * MLS_MACROS)
@@ -1555,7 +1695,6 @@ def regen_phase(world, gen, card) -> dict:
     host sync. After the voxel run, apply_relocalization_graph on robot 0
     kidnapped by KIDNAP: its edge must be injected, every pose finite."""
     from slam_tpu_torch.config import sim2d_graph_config
-    from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import relocalize, slam2d
     from slam_tpu_torch.profile_tick import KIDNAP, kidnap
     base = sim2d_graph_config()
@@ -1578,7 +1717,7 @@ def regen_phase(world, gen, card) -> dict:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        reset_counts(icp_fused, nn, particle)
+        reset_counts()
         slam2d.graph_update = event_timed(update, tick_events)
         try:
             e0.record()
@@ -1588,8 +1727,8 @@ def regen_phase(world, gen, card) -> dict:
             torch.cuda.synchronize()
         finally:
             slam2d.graph_update = update
-        launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
-                    "K4": nn.launches}
+        launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+                    "K4": counter("k4.launches")}
         for k, v in launches.items():
             out["launches"][k] += v
         ticks = REGEN_MACROS * GRAPH_EVERY
@@ -1844,7 +1983,7 @@ def graph_phase(world, gen, card) -> dict:
 
     from slam_tpu_torch.config import sim2d_graph_config
     from slam_tpu_torch.graph import pose_graph as pg
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused
     from slam_tpu_torch.pipeline import slam2d
     cfg = sim2d_graph_config()
     dev = world.centers.device
@@ -1864,7 +2003,7 @@ def graph_phase(world, gen, card) -> dict:
     e1 = torch.cuda.Event(enable_timing=True)
     est, true = [], []
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     pg.icp_fused = kept(k2, k2_calls)
     slam2d.graph_update = event_timed(update, tick_events)
     try:
@@ -1878,8 +2017,8 @@ def graph_phase(world, gen, card) -> dict:
         torch.cuda.synchronize()
     finally:
         pg.icp_fused, slam2d.graph_update = k2, update
-    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
-                "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+                "K4": counter("k4.launches")}
     ticks = GRAPH_MACROS * GRAPH_EVERY
     ms = e0.elapsed_time(e1) / ticks
     graph_ms = [a.elapsed_time(b) for a, b in tick_events]
@@ -2020,7 +2159,7 @@ def graph3d_phase(gen, card) -> dict:
     host sync in one graph tick with its ground-map offset."""
     from slam_tpu_torch.config import ref_scale_graph_config
     from slam_tpu_torch.graph import pose_graph as pg
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.sim import world3d
     cfg = ref_scale_graph_config()
@@ -2045,7 +2184,7 @@ def graph3d_phase(gen, card) -> dict:
     e1 = torch.cuda.Event(enable_timing=True)
     est, true = [], []
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     pg.icp_fused, pg.nearest_neighbor = kept(k2, k2_calls), kept(nn_fn,
                                                                   nn_calls)
     slam3d.graph_update_delta = event_timed(update, tick_events)
@@ -2061,8 +2200,8 @@ def graph3d_phase(gen, card) -> dict:
     finally:
         pg.icp_fused, pg.nearest_neighbor = k2, nn_fn
         slam3d.graph_update_delta = update
-    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
-                "K3": icp_fused.tiled_launches, "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+                "K3": counter("k3.launches"), "K4": counter("k4.launches")}
     ticks = GRAPH3D_MACROS * GRAPH_EVERY
     ms = e0.elapsed_time(e1) / ticks
     graph_ms = [a.elapsed_time(b) for a, b in tick_events]
@@ -2216,7 +2355,7 @@ def se3_phase(gen, card) -> dict:
     from slam_tpu_torch.config import sim3d_se3_config
     from slam_tpu_torch.graph import pose_graph as pg
     from slam_tpu_torch.graph import pose_graph3d as pg3
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.profile_tick import kidnap
     from slam_tpu_torch.sim import world3d
@@ -2249,7 +2388,7 @@ def se3_phase(gen, card) -> dict:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        reset_counts(icp_fused, nn, particle)
+        reset_counts()
         slam3d.graph_update_delta = event_timed(update, tick_events)
         if edges == "3d":
             icp_fused.icp_fused_planes = kept(k1, k1_calls)
@@ -2266,8 +2405,8 @@ def se3_phase(gen, card) -> dict:
             slam3d.graph_update_delta = update
             icp_fused.icp_fused_planes, pg.icp_fused, pg.nearest_neighbor = \
                 k1, k2, nn_fn
-        launches = {"K1": icp_fused.launches,
-                    "K2": icp_fused.packed_launches, "K4": nn.launches}
+        launches = {"K1": counter("k1.launches"),
+                    "K2": counter("k2.launches"), "K4": counter("k4.launches")}
         for k, v in launches.items():
             out["launches"][k] += v
         ticks = macros * GRAPH_EVERY
@@ -2460,7 +2599,7 @@ def refgrid_phase(gen, card) -> None:
     and z gates, and at most max_iterations + 1 host reads a fit, all in
     icp_fit_grid, in one macro."""
     from slam_tpu_torch.config import ref_scale_config
-    from slam_tpu_torch.ops import grid_icp, icp_fused, nn, particle
+    from slam_tpu_torch.ops import grid_icp
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.sim import world3d
     cfg = ref_scale_config()
@@ -2479,7 +2618,7 @@ def refgrid_phase(gen, card) -> None:
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     slam3d.nearest_point_field = kept(build, grids)
     slam3d.icp_fit_grid = kept(fit, fits)
     try:
@@ -2490,8 +2629,8 @@ def refgrid_phase(gen, card) -> None:
         torch.cuda.synchronize()
     finally:
         slam3d.nearest_point_field, slam3d.icp_fit_grid = build, fit
-    launches = {"K1": icp_fused.launches, "K3": icp_fused.tiled_launches,
-                "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K3": counter("k3.launches"),
+                "K4": counter("k4.launches")}
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (B, ticks, 4) or len(grids) != ticks // 4 or \
             len(fits) != ticks:
@@ -2630,7 +2769,6 @@ def grid2d_phase(world, gen, card) -> None:
     GA flags (same_centroids); both builders on ga_num_bins cells, so that
     their extents agree."""
     from slam_tpu_torch.config import sim2d_config
-    from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.sim import world2d
     forms = loop_forms(dataclasses.replace(
@@ -2645,12 +2783,12 @@ def grid2d_phase(world, gen, card) -> None:
                                   generator=gen.manual_seed(6))
         state, _ = slam2d.rollout(state, world, cfg, 4, gen)
         torch.cuda.synchronize()
-        reset_counts(icp_fused, nn, particle)
+        reset_counts()
         e0.record()
         state, (est, true) = slam2d.rollout(state, world, cfg, TICKS, gen)
         e1.record()
         torch.cuda.synchronize()
-        launches = {"K1": icp_fused.launches, "K4": nn.launches}
+        launches = {"K1": counter("k1.launches"), "K4": counter("k4.launches")}
         ms = e0.elapsed_time(e1) / TICKS
         if est.shape != (FLEET, TICKS, 3) or not bool(
                 torch.isfinite(est).all()):
@@ -2771,7 +2909,7 @@ def entry_phase(card) -> dict:
     from slam_tpu_torch.config import sim2d_config
     from slam_tpu_torch.graph import pose_graph as pg
     from slam_tpu_torch.ops import icp as icp_mod
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused, particle
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.runtime import native
     from slam_tpu_torch.sim import replay, world2d, world3d
@@ -2789,12 +2927,13 @@ def entry_phase(card) -> dict:
     def counted(fn):
         """fn() between a reset of every count and their reading."""
         torch.cuda.synchronize()
-        reset_counts(icp_fused, nn, particle)
+        reset_counts()
         r = fn()
         torch.cuda.synchronize()
-        got = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
-               "K3": icp_fused.tiled_launches, "K4": nn.launches,
-               "K5": particle.launches, "K5 table": particle.pack_launches}
+        got = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+               "K3": counter("k3.launches"), "K4": counter("k4.launches"),
+               "K5": counter("k5.launches"),
+               "K5 table": counter("k5.pack_launches")}
         for k, v in got.items():
             total[k] += v
         return r, {k: v for k, v in got.items() if v}
@@ -3077,7 +3216,7 @@ def live_phase(card) -> dict:
     from slam_tpu_torch import live
     from slam_tpu_torch.config import sim2d_config
     from slam_tpu_torch.ops import icp as icp_mod
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import nn
     from slam_tpu_torch.runtime import native
     from slam_tpu_torch.sim import replay, world2d
     cfg = sim2d_config()
@@ -3135,7 +3274,8 @@ def live_phase(card) -> dict:
         step = prof.stats("device_step")
         out = dict(poses=poses, secs=secs, dropped=ring.dropped, done=done,
                    ms=step["total_us"] / max(step["calls"], 1) / 1000.0,
-                   max_ms=step["max_us"] / 1000.0, waits=staging.waits)
+                   max_ms=step["max_us"] / 1000.0,
+                   waits=counter("live.staging_waits"))
         if loader.error or done != n or ring.dropped:
             raise RuntimeError(f"[live] {slots} slots at {rate:g} Hz: "
                                f"consumed {done} of {n} frames, dropped "
@@ -3145,16 +3285,16 @@ def live_phase(card) -> dict:
         return out
 
     calls = []
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     icp_mod.nearest_neighbor = kept(nn.nearest_neighbor, calls, copy=True)
     try:
         paced = run(LIVE_SLOTS, LIVE_RATE_HZ)
     finally:
         icp_mod.nearest_neighbor = nn.nearest_neighbor
-    launches = nn.launches
-    if launches < n or icp_fused.launches:
+    launches, k1 = counter("k4.launches"), counter("k1.launches")
+    if launches < n or k1:
         raise RuntimeError(f"[live] K4 launched {launches} times in {n} "
-                           f"frames, K1 {icp_fused.launches}")
+                           f"frames, K1 {k1}")
     err = (paced["poses"][:, :2] - truth[:, :2]).norm(dim=-1)
     med = float(err[10:].median())
     if not med < LIVE_ERR_LIMIT:
@@ -3479,7 +3619,7 @@ def mesh_fleets(me) -> dict:
     one more macro's recorded calls (arguments cloned)."""
     import torch.distributed as dist
     from slam_tpu_torch import mesh_scaling
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused, particle
     from slam_tpu_torch.parallel import multihost
     from slam_tpu_torch.parallel.mesh import gather_fleet
     from slam_tpu_torch.parallel.shared_map import fleet_rollout_shared
@@ -3495,7 +3635,7 @@ def mesh_fleets(me) -> dict:
     def timed(fn):
         torch.cuda.synchronize()
         dist.barrier()
-        reset_counts(icp_fused, nn, particle)
+        reset_counts()
         e0.record()
         r = fn()
         e1.record()
@@ -3511,7 +3651,7 @@ def mesh_fleets(me) -> dict:
     (state, (est, true)), ms = timed(
         lambda: slam2d.rollout(state, world, cfg, MESH_TICKS, gen))
     out["config1"] = dict(
-        ms_tick=ms / MESH_TICKS, k1=icp_fused.launches,
+        ms_tick=ms / MESH_TICKS, k1=counter("k1.launches"),
         est=est.cpu(), true=true.cpu(),
         gathered=gather_fleet(mesh, est).cpu() if me == 0 else None)
     if me == 0:
@@ -3543,8 +3683,8 @@ def mesh_fleets(me) -> dict:
     finally:
         dist.all_reduce = all_reduce
     out["config5"] = dict(
-        ms_tick=ms / (4 * MESH_PF_MACROS), k5=particle.launches,
-        packs=particle.pack_launches, est=est.cpu(), true=true.cpu(),
+        ms_tick=ms / (4 * MESH_PF_MACROS), k5=counter("k5.launches"),
+        packs=counter("k5.pack_launches"), est=est.cpu(), true=true.cpu(),
         ok=fleet.scan_reg_ok.cpu(),
         shared={n: getattr(shared, n).cpu()
                 for n in ("count", "sum_x", "sum_y", "sum_z", "center")},
@@ -3699,7 +3839,7 @@ def sp_config1(me, mesh, dev, cfg, world) -> dict:
     this rank's dp shard on whole grids from the same generator (the
     reference), and the comparisons."""
     import torch.distributed as dist
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import icp_fused
     from slam_tpu_torch.parallel.mesh import (gather_grids, shard_fleet,
                                               tree_map)
     from slam_tpu_torch.pipeline import slam2d
@@ -3725,7 +3865,7 @@ def sp_config1(me, mesh, dev, cfg, world) -> dict:
     prints, est, true = [], [], []
     torch.cuda.synchronize()
     dist.barrier()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     copies = comm.host_copies
     e0.record()
     for _ in range(macros):
@@ -3736,7 +3876,7 @@ def sp_config1(me, mesh, dev, cfg, world) -> dict:
     e1.record()
     torch.cuda.synchronize()
     out = dict(ms_tick=e0.elapsed_time(e1) / MESH_TICKS,
-               k1=icp_fused.launches,
+               k1=counter("k1.launches"),
                exchange_ms=sum(a.elapsed_time(b) for a, b in events) / macros,
                exchanges=len(events) // macros,
                copies=(comm.host_copies - copies) // macros,
@@ -3794,7 +3934,7 @@ def sp_config5(me, mesh, dev, fcfg, world) -> dict:
     version on one more macro alone; then every dp shard on whole grids in
     turn (the reference), and the comparisons."""
     import torch.distributed as dist
-    from slam_tpu_torch.ops import icp_fused, nn, particle
+    from slam_tpu_torch.ops import particle
     from slam_tpu_torch.parallel.mesh import shard_fleet, tree_map
     from slam_tpu_torch.parallel.shared_map import (add_grids,
                                                     fleet_rollout_shared,
@@ -3820,7 +3960,7 @@ def sp_config5(me, mesh, dev, fcfg, world) -> dict:
     prints, est, true = [], [], []
     torch.cuda.synchronize()
     dist.barrier()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     dist.all_reduce = event_timed(all_reduce, events)
     try:
         e0.record()
@@ -3835,8 +3975,8 @@ def sp_config5(me, mesh, dev, fcfg, world) -> dict:
     finally:
         dist.all_reduce = all_reduce
     ticks = 4 * MESH_PF_MACROS
-    out = dict(ms_tick=e0.elapsed_time(e1) / ticks, k5=particle.launches,
-               packs=particle.pack_launches,
+    out = dict(ms_tick=e0.elapsed_time(e1) / ticks, k5=counter("k5.launches"),
+               packs=counter("k5.pack_launches"),
                all_reduce_ms=sum(a.elapsed_time(b) for a, b in events)
                / len(events),
                peak_mb=torch.cuda.max_memory_allocated(dev) / 1e6,
@@ -3952,7 +4092,6 @@ def sp_path(me, mesh, dev, case):
     kernels' last calls (case["keep"]) are held to their plain versions
     by case["check"] on rank 0."""
     import torch.distributed as dist
-    from slam_tpu_torch.ops import icp_fused, nn, particle
     i, j = mesh.coords()
     rows = mesh.rows(case["H"])
     macros, ticks = case["macros"], case["macros"] * case["ticks"]
@@ -3981,7 +4120,7 @@ def sp_path(me, mesh, dev, case):
         setattr(cmod, cfn, counting)
     torch.cuda.synchronize()
     dist.barrier()
-    reset_counts(icp_fused, nn, particle)
+    reset_counts()
     try:
         with sp_timing(comm) as tm:
             e0.record()
@@ -4004,8 +4143,8 @@ def sp_path(me, mesh, dev, case):
             setattr(mod, fn, saved[name])
         if "count" in case:
             setattr(cmod, cfn, counted)
-    launches = {"K1": icp_fused.launches, "K2": icp_fused.packed_launches,
-                "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K2": counter("k2.launches"),
+                "K4": counter("k4.launches")}
     out = dict(ms_tick=e0.elapsed_time(e1) / ticks, launches=launches,
                exchange_ms=sum(a.elapsed_time(b) for a, b in tm.events)
                / macros, exchanges=len(tm.events) // macros,
@@ -4877,7 +5016,6 @@ def main(argv=None) -> int:
     from slam_tpu_torch.ops import icp_fused, nn, particle
     from slam_tpu_torch.pipeline import slam2d
     from slam_tpu_torch.sim import world2d
-    kernel_modules = (icp_fused, nn, particle)
 
     t0 = time.perf_counter()
     lib = cuda_build.build()
@@ -4936,17 +5074,17 @@ def main(argv=None) -> int:
                               generator=gen.manual_seed(0))
     torch.cuda.synchronize()
 
-    reset_counts(*kernel_modules)
+    reset_counts()
     est, true = [], []
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for m in range(TICKS // field_every):
-        before = icp_fused.launches
+        before = counter("k1.launches")
         state, (e, t) = slam2d.rollout(state, world, cfg, field_every, gen)
-        if icp_fused.launches - before < field_every:
-            raise RuntimeError(f"macro {m}: K1 launched "
-                               f"{icp_fused.launches - before} times in "
+        launched = counter("k1.launches") - before
+        if launched < field_every:
+            raise RuntimeError(f"macro {m}: K1 launched {launched} times in "
                                f"{field_every} ticks")
         est.append(e)
         true.append(t)
@@ -4977,7 +5115,7 @@ def main(argv=None) -> int:
         pstate, _ = slam2d.rollout(pstate, world, pcfg, field_every, gen)
     finally:
         icp_mod.nearest_neighbor = nn_call
-    launches = {"K1": icp_fused.launches, "K4": nn.launches}
+    launches = {"K1": counter("k1.launches"), "K4": counter("k4.launches")}
 
     est = torch.cat(est, 1)
     true = torch.cat(true, 1)
@@ -5102,6 +5240,22 @@ def main(argv=None) -> int:
           f"(B={GRAPH3D_FLEET}): {ops_text(g3_ops)}; [se3] device ops a "
           f"6-DoF graph tick (B={SE3_FLEET}): {ops_text(se3_ops)} | {card}",
           flush=True)
+    # after every device_ops count: once a GraphedStep exists or a
+    # profiler session has run with the fit counters set, a later
+    # session can miss the ctypes-launched canaries
+    fc = check_fit_counters()
+    print("[fit counters] counter set vs null, equal bits; fit iterations "
+          "counted / each robot's own / the plain version's: " + "; ".join(
+              f"{k} {v['counted']} / {v['own']} / {v['plain']} over "
+              f"{v['problems']} robots" for k, v in fc.items()), flush=True)
+    sc = check_sync_counts()
+    print("[sync counts] host syncs seen by set_sync_debug_mode / counted "
+          "by the program (host_syncs): " + "; ".join(
+              f"{k} {v['outside']} / {v['counted']} ({v['sites']})"
+              for k, v in sc.items()), flush=True)
+    if any(v["outside"] != v["counted"] for v in sc.values()):
+        raise RuntimeError(f"[sync counts] a sync the program does not "
+                           f"count, or a count without a sync: {sc}")
     # K3 at the reference scale's shapes, on the [K3] phase's problem
     ops3 = fused_operands(registration_problem(FLEET_REF, REF_S, REF_C,
                                                seed=11, span=100.0,

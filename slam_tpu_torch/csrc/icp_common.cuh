@@ -294,17 +294,19 @@ struct Grouped {
 // its tasks), R or fewer a lane, and walks that class's model segment once
 // per iteration. carry (shared, 8 floats) holds the pose and the converged
 // flag and is ready on entry; red holds (blockDim.x / 32) * kMoments
-// floats, tot kMoments. Ends after a __syncthreads with the result in carry.
+// floats, tot kMoments. Ends after a __syncthreads with the result in carry;
+// returns the fit iterations it ran (the same in every thread).
 template <int R>
-__device__ __forceinline__ void resident_fit(const Grouped& g, float* carry, float* red,
-                                             float* tot, int max_iter, float inlier_dist,
-                                             float min_delta) {
+__device__ __forceinline__ int resident_fit(const Grouped& g, float* carry, float* red,
+                                            float* tot, int max_iter, float inlier_dist,
+                                            float min_delta) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int t1 = (g.n1 + 32 * R - 1) / (32 * R);
   const int t0 = (g.n0 + 32 * R - 1) / (32 * R);
-  for (int it = 0; it < max_iter && carry[4] == 0.f; ++it) {
+  int it = 0;
+  for (; it < max_iter && carry[4] == 0.f; ++it) {
     const float tx = carry[0], ty = carry[1], cth = carry[2], sth = carry[3];
     float acc[kMoments];
 #pragma unroll
@@ -342,6 +344,7 @@ __device__ __forceinline__ void resident_fit(const Grouped& g, float* carry, flo
     if (threadIdx.x == 0) pose_update(tot, carry, min_delta);
     __syncthreads();
   }
+  return it;
 }
 
 }  // namespace slam_icp

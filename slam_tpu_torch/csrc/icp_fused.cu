@@ -62,8 +62,8 @@ icp_fused_planes_kernel(const float* __restrict__ sx, const float* __restrict__ 
                         const float* __restrict__ sc, const float* __restrict__ mx,
                         const float* __restrict__ my, const float* __restrict__ mc,
                         const float* __restrict__ init4, float* __restrict__ out,
-                        int S, int C, int max_iter, float inlier_dist,
-                        float min_delta, int min_scene) {
+                        unsigned long long* __restrict__ iters, int S, int C, int max_iter,
+                        float inlier_dist, float min_delta, int min_scene) {
   extern __shared__ float2 points[];   // C model points, then S scene points
   float2* model = points;
   float2* rows = points + C;
@@ -113,9 +113,10 @@ icp_fused_planes_kernel(const float* __restrict__ sx, const float* __restrict__ 
   g.m0 = m_tot[1];
   g.n1 = m_tot[0] > 3 ? s_tot[0] : 0;   // a class is on with > 3 model points
   g.n0 = m_tot[1] > 3 ? s_tot[1] : 0;
-  resident_fit<R>(g, carry, red, tot, max_iter, inlier_dist, min_delta);
+  const int n_iter = resident_fit<R>(g, carry, red, tot, max_iter, inlier_dist, min_delta);
 
   if (threadIdx.x == 0) {
+    if (iters != nullptr && n_iter > 0) atomicAdd(iters, (unsigned long long)n_iter);
     float* o = out + 8 * (size_t)b;
     o[0] = ok ? carry[0] : i_tx;
     o[1] = ok ? carry[1] : i_ty;
@@ -130,9 +131,9 @@ icp_fused_planes_kernel(const float* __restrict__ sx, const float* __restrict__ 
 
 template <int R>
 int launch(const float* sx, const float* sy, const float* sc, const float* mx,
-           const float* my, const float* mc, const float* init4, float* out, int B, int S,
-           int C, int max_iter, float inlier_dist, float min_delta, int min_scene,
-           cudaStream_t stream) {
+           const float* my, const float* mc, const float* init4, float* out,
+           unsigned long long* iters, int B, int S, int C, int max_iter, float inlier_dist,
+           float min_delta, int min_scene, cudaStream_t stream) {
   // one warp a task of 32 R scene points; the two classes round up apart
   const int warps = min(kMaxWarps, (S + 32 * R - 1) / (32 * R) + 1);
   const size_t smem = (size_t)(S + C) * sizeof(float2);
@@ -142,7 +143,8 @@ int launch(const float* sx, const float* sy, const float* sc, const float* mx,
     if (e != cudaSuccess) return (int)e;
   }
   icp_fused_planes_kernel<R><<<B, 32 * warps, smem, stream>>>(
-      sx, sy, sc, mx, my, mc, init4, out, S, C, max_iter, inlier_dist, min_delta, min_scene);
+      sx, sy, sc, mx, my, mc, init4, out, iters, S, C, max_iter, inlier_dist, min_delta,
+      min_scene);
   return (int)cudaGetLastError();
 }
 
@@ -150,18 +152,21 @@ int launch(const float* sx, const float* sy, const float* sc, const float* mx,
 
 // Plain C entry point (bound with ctypes). Planes are contiguous (B, S) and
 // (B, C) f32; init4 is (B, 4) [x, y, cos, sin]; out is (B, 8)
-// [tx, ty, cos, sin, ok, ncorr, mres, delta]. Scene points a thread by the
-// scene's size: 1 up to S = 1024, else 2. Returns cudaGetLastError().
+// [tx, ty, cos, sin, ok, ncorr, mres, delta]. iters, when not null, is one
+// counter to which each robot adds the fit iterations it ran. Scene points a
+// thread by the scene's size: 1 up to S = 1024, else 2. Returns
+// cudaGetLastError().
 extern "C" int slam_icp_fused_planes(const float* sx, const float* sy, const float* sc,
                                      const float* mx, const float* my, const float* mc,
-                                     const float* init4, float* out, int B, int S, int C,
+                                     const float* init4, float* out,
+                                     unsigned long long* iters, int B, int S, int C,
                                      int max_iter, float inlier_dist, float min_delta,
                                      int min_scene, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (S <= 32 * kMaxWarps)
-    return launch<1>(sx, sy, sc, mx, my, mc, init4, out, B, S, C, max_iter, inlier_dist,
-                     min_delta, min_scene, st);
-  return launch<2>(sx, sy, sc, mx, my, mc, init4, out, B, S, C, max_iter, inlier_dist,
-                   min_delta, min_scene, st);
+    return launch<1>(sx, sy, sc, mx, my, mc, init4, out, iters, B, S, C, max_iter,
+                     inlier_dist, min_delta, min_scene, st);
+  return launch<2>(sx, sy, sc, mx, my, mc, init4, out, iters, B, S, C, max_iter,
+                   inlier_dist, min_delta, min_scene, st);
 }

@@ -96,7 +96,8 @@ k3_setup(const float* __restrict__ sx, const float* __restrict__ sy,
          const float* __restrict__ my, const float* __restrict__ mc,
          const float* __restrict__ init4, float* __restrict__ out,
          float* __restrict__ state, int* __restrict__ plan, float2* __restrict__ grouped,
-         int S, int C, int max_iter, float inlier_dist, float min_delta, int min_scene) {
+         unsigned long long* __restrict__ iters, int S, int C, int max_iter,
+         float inlier_dist, float min_delta, int min_scene) {
   __shared__ float2 s_model[kResModel];
   __shared__ float2 s_rows[kResRows];
   __shared__ int wcnt[2 * kMaxWarps * kCounts];
@@ -144,8 +145,9 @@ k3_setup(const float* __restrict__ sx, const float* __restrict__ sy,
     __syncthreads();  // the grouped points and the carry are ready
     g.rows = s_rows;
     g.model = s_model;
-    resident_fit<1>(g, carry, red, tot, max_iter, inlier_dist, min_delta);
+    const int n_iter = resident_fit<1>(g, carry, red, tot, max_iter, inlier_dist, min_delta);
     if (threadIdx.x == 0) {
+      if (iters != nullptr && n_iter > 0) atomicAdd(iters, (unsigned long long)n_iter);
       write_out(o, carry, ok ? 1.f : 0.f);
       st[4] = 1.f;  // nothing left for the match launches
       pl[kItems] = 0;
@@ -167,6 +169,7 @@ k3_setup(const float* __restrict__ sx, const float* __restrict__ sy,
       float zero[kMoments];
       for (int k = 0; k < kMoments; ++k) zero[k] = 0.f;
       pose_update(zero, carry, min_delta);
+      if (iters != nullptr) atomicAdd(iters, 1ull);
     }
     pl[kN1] = g.n1;
     pl[kN0] = g.n0;
@@ -215,8 +218,9 @@ __device__ __forceinline__ void merge_splits(const float4* __restrict__ part, in
 
 __global__ void __launch_bounds__(kMatchThreads)
 k3_match(float* __restrict__ out, float* __restrict__ state, int* __restrict__ plan,
-         const float2* __restrict__ grouped, float4* __restrict__ partial, int S, int C,
-         int max_splits, float inlier_dist, float min_delta) {
+         const float2* __restrict__ grouped, float4* __restrict__ partial,
+         unsigned long long* __restrict__ iters, int S, int C, int max_splits,
+         float inlier_dist, float min_delta) {
   __shared__ float2 tile[kSplit];
   __shared__ float red[kMatchThreads / 32 * kMoments];
   __shared__ float tot[kMoments];
@@ -309,6 +313,7 @@ k3_match(float* __restrict__ out, float* __restrict__ state, int* __restrict__ p
     for (int k = 0; k < 8; ++k) st[k] = carry[k];
     write_out(out + 8 * (size_t)b, carry, 1.f);
     pl[kDone] = 0;
+    if (iters != nullptr) atomicAdd(iters, 1ull);  // one iteration of a streamed fit
   }
 }
 
@@ -319,19 +324,21 @@ k3_match(float* __restrict__ out, float* __restrict__ state, int* __restrict__ p
 // is (B, 8) [tx, ty, cos, sin, ok, ncorr, mres, delta]. Scratch, which the
 // caller allocates and need not clear: state (B, 8) f32, plan (B, 12) i32,
 // grouped (B, S + C, 2) f32, partial (B, ceil(C / 2048), S, 4) f32 (kSplit).
-// Queues the set-up kernel and max_iter match launches on `stream` and
-// returns the first cudaGetLastError() that is not 0.
+// iters, when not null, is one counter to which each robot adds the fit
+// iterations it ran. Queues the set-up kernel and max_iter match launches on
+// `stream` and returns the first cudaGetLastError() that is not 0.
 extern "C" int slam_icp_tiled_planes(const float* sx, const float* sy, const float* sc,
                                      const float* mx, const float* my, const float* mc,
                                      const float* init4, float* out, float* state, int* plan,
-                                     float* grouped, float* partial, int B, int S, int C,
+                                     float* grouped, float* partial,
+                                     unsigned long long* iters, int B, int S, int C,
                                      int max_iter, float inlier_dist, float min_delta,
                                      int min_scene, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   k3_setup<<<B, kSetupThreads, 0, st>>>(sx, sy, sc, mx, my, mc, init4, out, state, plan,
-                                        (float2*)grouped, S, C, max_iter, inlier_dist,
-                                        min_delta, min_scene);
+                                        (float2*)grouped, iters, S, C, max_iter,
+                                        inlier_dist, min_delta, min_scene);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // the most items a robot can have: its two classes round up apart
@@ -340,8 +347,8 @@ extern "C" int slam_icp_tiled_planes(const float* sx, const float* sy, const flo
   const dim3 grid(max_chunks * (max_splits + 1), B);
   for (int it = 0; it < max_iter; ++it) {
     k3_match<<<grid, kMatchThreads, 0, st>>>(out, state, plan, (const float2*)grouped,
-                                             (float4*)partial, S, C, max_splits, inlier_dist,
-                                             min_delta);
+                                             (float4*)partial, iters, S, C, max_splits,
+                                             inlier_dist, min_delta);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

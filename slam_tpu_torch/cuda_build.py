@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "slam_icp_fused_planes": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
-    "slam_icp_tiled_planes": [_P] * 12 + [_I] * 4 + [_F, _F, _I, _P],
+    "slam_icp_fused_planes": [_P] * 9 + [_I] * 4 + [_F, _F, _I, _P],
+    "slam_icp_tiled_planes": [_P] * 13 + [_I] * 4 + [_F, _F, _I, _P],
     "slam_nn": [_P] * 9 + [_I] * 5 + [_P, _I, _I, _P],
     "slam_pf_pack": [_P, _L, _L, _L, _I, _I, _P, _P],
     "slam_pf_score": [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_F, _P, _I, _I,

@@ -64,6 +64,7 @@ from slam_tpu_torch.ops.nn import nearest_neighbor
 from slam_tpu_torch.ops.scatter2d import index_add
 from slam_tpu_torch.ops.voxel import compact, voxel_downsample
 from slam_tpu_torch.types import PointCloud, PoseGraph
+from slam_tpu_torch.utils.profiling import stage
 
 
 def init_graph(cfg, batch: int, device=None,
@@ -203,10 +204,12 @@ def _edge_measurement(graph: PoseGraph, src: torch.Tensor, dst: torch.Tensor,
                 ga.expand(B, K, P).reshape(B * K, P))
     s_xy, s_valid, s_ga = cloud(dst[:, None])
     m_xy, m_valid, m_ga = cloud(src)
-    res = icp_fused(s_xy, s_valid, s_ga, m_xy, m_valid, m_ga, init_rel,
-                    icp_cfg)
-    info3, w = _edge_information(res.pose, s_xy, s_valid, m_xy, m_valid,
-                                 gcfg.edge_max_corr)
+    with stage("graph.edge_icp"):
+        res = icp_fused(s_xy, s_valid, s_ga, m_xy, m_valid, m_ga, init_rel,
+                        icp_cfg)
+    with stage("graph.edge_information"):
+        info3, w = _edge_information(res.pose, s_xy, s_valid, m_xy, m_valid,
+                                     gcfg.edge_max_corr)
 
     x_diff = (init_rel[:, 0] - res.pose[:, 0]).abs()
     y_diff = (init_rel[:, 1] - res.pose[:, 1]).abs()

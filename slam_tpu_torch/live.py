@@ -47,6 +47,7 @@ from slam_tpu_torch.ops.voxel import crop_box
 from slam_tpu_torch.pipeline import slam2d
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import make_cloud
+from slam_tpu_torch.utils import profiling
 
 
 def init_carry(cfg, device=None):
@@ -106,7 +107,9 @@ def split_frame(frame: torch.Tensor, num_beams: int):
 
 
 class EagerStep:
-    """step(frame) -> fused pose (1, 3): consume over a carry it keeps."""
+    """step(frame) -> fused pose (1, 3): consume over a carry it keeps
+    (its fit is icp_fit's, counted there: `icp.fit_iterations`,
+    `host_syncs`)."""
 
     def __init__(self, carry, cfg):
         self.carry, self.cfg = carry, cfg
@@ -145,7 +148,12 @@ class GraphedStep:
     update. That is icp_fit's "while" form whatever cfg.icp.loop says:
     the loop is this class's own, and its early exit is what keeps a
     frame short. The same kernels on the same values as consume (but for
-    the order of the map fold's float atomics)."""
+    the order of the map fold's float atomics).
+
+    A call's spans (utils/profiling.py) go around the replays: `live.pre`,
+    one `live.iteration` a pass of the loop (the converged read, K4 and
+    the update's replay) and `live.post`; the loop's steps count as
+    `icp.fit_iterations`, its reads as `host_syncs`, as icp_fit's do."""
 
     def __init__(self, carry, cfg, frame: torch.Tensor):
         self.cfg = cfg
@@ -217,10 +225,13 @@ class GraphedStep:
     def _iterate(self, place, update):
         """icp_fit's loop over the loop state in self.pre."""
         for _ in range(self.cfg.icp.max_iterations):
-            if bool(self.pre["loop"].converged.all()):
-                break
-            q = place()
-            update(q, *self._nearest(q))
+            with profiling.stage("live.iteration"):
+                profiling.count("host_syncs")
+                if bool(self.pre["loop"].converged.all()):
+                    break
+                profiling.count("icp.fit_iterations")
+                q = place()
+                update(q, *self._nearest(q))
 
     def _post(self):
         """The fit's result and consume's stages after it."""
@@ -237,15 +248,17 @@ class GraphedStep:
         self.g_update.replay()
 
     def __call__(self, frame: torch.Tensor) -> torch.Tensor:
-        self.frame.copy_(frame)
-        self.g_pre.replay()
+        with profiling.stage("live.pre"):
+            self.frame.copy_(frame)
+            self.g_pre.replay()
 
         def place():
             self.g_place.replay()
             return self.q
         self._iterate(place, self._replayed_update)
-        self.g_post.replay()
-        return self.fused.clone()
+        with profiling.stage("live.post"):
+            self.g_post.replay()
+            return self.fused.clone()
 
 
 def make_step(cfg, device, frame: torch.Tensor):
@@ -261,7 +274,8 @@ class Staging:
     """Two host buffers the ring pops into and their device copies. On the
     card the host buffers are pinned and each copy is asynchronous, with an
     event that must have completed before its buffer is refilled; on the
-    CPU the popped buffer is used as it is."""
+    CPU the popped buffer is used as it is. A refill that waits for its
+    copy counts as `live.staging_waits` and `host_syncs`."""
 
     def __init__(self, floats: int, device):
         self.device = torch.device(device)
@@ -271,7 +285,6 @@ class Staging:
         self.dev = [torch.empty(floats, device=self.device)
                     for _ in range(2)] if self.cuda else self.host
         self.events = [None, None]
-        self.waits = 0      # refills that found their copy still running
         self.i = 0
 
     def pop(self, ring):
@@ -279,7 +292,8 @@ class Staging:
         i = self.i
         ev = self.events[i]
         if ev is not None and not ev.query():
-            self.waits += 1
+            profiling.count("live.staging_waits")
+            profiling.count("host_syncs")
             ev.synchronize()
         if not ring.pop_into(self.host[i].numpy()):
             return None
@@ -295,7 +309,10 @@ def drain(ring, step, n: int, prof, staging: Staging,
           feed_alive=lambda: False, timeout: float = 120.0):
     """Run step (EagerStep, GraphedStep) on up to n frames from the ring.
     Stops early when the ring is empty and feed_alive() is False, or after
-    `timeout` seconds. Returns (fused poses (k, 3) on the device, k)."""
+    `timeout` seconds. Returns (fused poses (k, 3) on the device, k).
+    `prof` times each pop and step (scopes "pop" and "device_step"); a
+    poll of an empty ring counts as `live.empty_polls`
+    (utils/profiling.py)."""
     fused = []
     t0 = time.perf_counter()
     # no cyclic garbage collection while frames arrive: a full collection
@@ -307,6 +324,7 @@ def drain(ring, step, n: int, prof, staging: Staging,
             with prof.scope("pop"):
                 frame = staging.pop(ring)
             if frame is None:
+                profiling.count("live.empty_polls")
                 if not feed_alive() and ring.available == 0:
                     break
                 time.sleep(0.0005)
@@ -379,6 +397,8 @@ def main(argv=None):
     print(f"consumed {done} live frames; pose={pose.round(2)}; "
           f"ring dropped={ring.dropped}")
     print(prof.report().strip())
+    print("counters:", " ".join(f"{k}={v}" for k, v in
+                                sorted(profiling.counters().items())))
 
 
 if __name__ == "__main__":

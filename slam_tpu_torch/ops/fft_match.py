@@ -31,6 +31,7 @@ from slam_tpu_torch import true_div
 from slam_tpu_torch.geometry import angle_wrap, rot2
 from slam_tpu_torch.ops.icp import icp_fit
 from slam_tpu_torch.types import PointCloud
+from slam_tpu_torch.utils.profiling import stage
 
 
 class MatchResult(NamedTuple):
@@ -129,7 +130,8 @@ def global_match(scene: PointCloud, map_cloud: PointCloud,
     if icp_cfg is not None:
         off_s = torch.zeros_like(scene.valid)
         off_m = torch.zeros_like(map_cloud.valid)
-        res = icp_fit(sxy, scene.valid, off_s, map_cloud.xyz[..., :2],
-                      map_cloud.valid, off_m, coarse, icp_cfg)
+        with stage("reloc.polish"):
+            res = icp_fit(sxy, scene.valid, off_s, map_cloud.xyz[..., :2],
+                          map_cloud.valid, off_m, coarse, icp_cfg)
         pose = torch.where(res.ok[:, None], res.pose, coarse)
     return MatchResult(pose=pose, score=score, ok=score > cfg.accept_score)

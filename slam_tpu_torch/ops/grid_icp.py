@@ -31,6 +31,7 @@ from slam_tpu_torch.ops.stencil import neighbor_sum_2d
 from slam_tpu_torch.parallel.rows import (all_sum, owner_of, owner_select,
                                           row_index)
 from slam_tpu_torch.types import Replaceable
+from slam_tpu_torch.utils import profiling
 
 BIG = 1e30
 
@@ -253,8 +254,10 @@ def icp_fit_grid(scene_xyz, scene_valid, scene_ga, field: NearestField,
     delta = torch.full((B,), float("inf"), dtype=dt, device=dev)
     early_exit = cfg.loop == "while"
     for _ in range(cfg.max_iterations):
-        if early_exit and bool(converged.all()):
-            break
+        if early_exit:
+            profiling.count("host_syncs")
+            if bool(converged.all()):
+                break
         new_pose, d, nc, mr = fit_step_grid(table, G, field, scene_xyz,
                                             participate, ga, pose,
                                             cfg.inlier_dist)

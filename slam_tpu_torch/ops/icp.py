@@ -20,6 +20,7 @@ import torch
 from slam_tpu_torch.geometry import angle_wrap, rot2
 from slam_tpu_torch.ops.linalg import inv3
 from slam_tpu_torch.ops.nn import nearest_neighbor
+from slam_tpu_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=None)
@@ -157,15 +158,19 @@ def icp_fit(scene_xyz, scene_valid, scene_ga, model_xyz, model_valid,
             model_ga, init_pose, cfg) -> IcpResult:
     """Full ICP fit (<= cfg.max_iterations steps, min_delta convergence).
     Robots that converge are frozen. cfg.loop "while" stops once all have
-    (reading that flag is a host sync an iteration); "scan" runs exactly
-    cfg.max_iterations steps and never waits for the card. Both give the
-    same result."""
+    (reading that flag is a host sync an iteration, counted as
+    `host_syncs`); "scan" runs exactly cfg.max_iterations steps and never
+    waits for the card. Both give the same result. The steps run count as
+    `icp.fit_iterations` (utils/profiling.py), one a step of the batch."""
     ok, participate, loop = icp_start(scene_valid, scene_ga, model_valid,
                                       model_ga, init_pose, cfg)
     early_exit = cfg.loop == "while"
     for _ in range(cfg.max_iterations):
-        if early_exit and bool(loop.converged.all()):
-            break
+        if early_exit:
+            profiling.count("host_syncs")
+            if bool(loop.converged.all()):
+                break
+        profiling.count("icp.fit_iterations")
         q = transform(scene_xyz, loop.pose)
         idx, d2 = nearest_neighbor(q, model_xyz, model_valid, q_class=scene_ga,
                                    m_class=model_ga)

@@ -23,6 +23,7 @@ import torch
 from slam_tpu_torch.ops.align import rigid_transform_3d
 from slam_tpu_torch.ops.linalg import inv3
 from slam_tpu_torch.ops.nn import nearest_neighbor
+from slam_tpu_torch.utils import profiling
 
 
 class Icp3dResult(NamedTuple):
@@ -135,8 +136,10 @@ def icp3d_fit(scene_xyz, scene_valid, scene_class, model_xyz, model_valid,
     delta = torch.full((n,), float("inf"), dtype=dt, device=dev)
     early_exit = cfg.loop == "while"
     for _ in range(iters):
-        if early_exit and bool(converged.all()):
-            break
+        if early_exit:
+            profiling.count("host_syncs")
+            if bool(converged.all()):
+                break
         nt, nR, d, nc, mr = fit_step_3d(
             scene_xyz, scene_valid, scene_class, model_xyz, model_valid,
             model_class, t, R, cfg.inlier_dist)

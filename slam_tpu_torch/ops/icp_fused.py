@@ -38,6 +38,7 @@ import torch
 
 from slam_tpu_torch import cuda_build
 from slam_tpu_torch.ops.icp import IcpResult
+from slam_tpu_torch.utils import profiling
 
 BIG = 1e30
 
@@ -55,14 +56,6 @@ TILE_C = 2048
 _K3_STATE = 8
 _K3_PLAN = 12
 K3_SPLIT_LEN = 2048
-
-# kernel launches made by icp_fused_planes (K1), icp_fused (K2) and
-# icp_fused_planes_tiled (K3), the card path only; a K3 launch is one call,
-# which queues its kernels' whole fit loop. A K2 call above
-# RESIDENT_TILE_LIMIT launches K3 and counts in both.
-launches = 0
-packed_launches = 0
-tiled_launches = 0
 
 # K1 stages S + C packed (x, y) points in dynamic shared memory; 4 KB stay
 # for its static part (warp counts, reduction slots, the carry)
@@ -348,9 +341,24 @@ def k3_scratch_shapes(B, S, C):
             "partial": (B, -(-C // K3_SPLIT_LEN), S, 4)}
 
 
+def _fit_counter(kernel: str, B: int, dev):
+    """The address K1 / K3 add their robots' fit iterations to: the device
+    counter `<kernel>.fit_iterations` while a profiler records, its
+    `<kernel>.fit_problems` counting the B robots on the host; None (the
+    kernel counts nothing) otherwise. The counter is made at the first
+    call, so that no fill of it lands in a profiled slice."""
+    ctr = profiling.device_counter(f"{kernel}.fit_iterations", dev)
+    if not profiling.recording():
+        return None
+    profiling.count(f"{kernel}.fit_problems", B)
+    return ctr.data_ptr()
+
+
 def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
-    """Launch K1; `packed` counts the launch as K2's (icp_fused)."""
-    global launches, packed_launches
+    """Launch K1; `packed` counts the launch as K2's (icp_fused), whose
+    fit iterations are not counted. Launches count in the registry
+    (utils/profiling.py) as `k1.launches` / `k2.launches`: the card path
+    only."""
     dev = sx.device
     B, S = sx.shape
     C = mx.shape[1]
@@ -364,13 +372,11 @@ def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):
     err = lib.slam_icp_fused_planes(
         sx.data_ptr(), sy.data_ptr(), sc.data_ptr(), mx.data_ptr(),
         my.data_ptr(), mc.data_ptr(), init4.data_ptr(), out.data_ptr(),
+        None if packed else _fit_counter("k1", B, dev),
         B, S, C, cfg.max_iterations, cfg.inlier_dist, cfg.min_delta,
         cfg.min_scene_points, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "slam_icp_fused_planes")
-    if packed:
-        packed_launches += 1
-    else:
-        launches += 1
+    profiling.count("k2.launches" if packed else "k1.launches")
     return out
 
 
@@ -401,8 +407,8 @@ def fit_iterations(sx, sy, sc, mx, my, mc, init, cfg) -> torch.Tensor:
 def _slab(sx, sy, sc, mx, my, mc, init, cfg, packed=False):
     """The (B, 8) slab: the kernel for CUDA tensors, the plain version for
     CPU tensors. K1 (`packed` False) takes problems up to
-    RESIDENT_TILE_LIMIT; K2 (`packed`) sends larger ones to K3."""
-    global packed_launches
+    RESIDENT_TILE_LIMIT; K2 (`packed`) sends larger ones to K3, which
+    counts as a launch of both."""
     tiled = sx.shape[-1] * mx.shape[-1] > RESIDENT_TILE_LIMIT
     if not packed:
         _check_resident(sx.shape[-1], mx.shape[-1])
@@ -416,7 +422,7 @@ def _slab(sx, sy, sc, mx, my, mc, init, cfg, packed=False):
     if not tiled:
         return _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed)
     out = _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg)
-    packed_launches += 1
+    profiling.count("k2.launches")
     return out
 
 
@@ -436,8 +442,8 @@ def icp_fused_planes_tiled_reference(sx, sy, sc, mx, my, mc, init,
 
 def _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
     """Launch K3: one call queues its set-up kernel and max_iterations
-    match kernels on the current stream, no host sync."""
-    global tiled_launches
+    match kernels on the current stream, no host sync; it counts as one
+    `k3.launches`."""
     dev = sx.device
     B, S = sx.shape
     C = mx.shape[1]
@@ -455,10 +461,11 @@ def _tiled_kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg):
         my.data_ptr(), mc.data_ptr(), init4.data_ptr(), out.data_ptr(),
         scratch["state"].data_ptr(), scratch["plan"].data_ptr(),
         scratch["grouped"].data_ptr(), scratch["partial"].data_ptr(),
+        _fit_counter("k3", B, dev),
         B, S, C, cfg.max_iterations, cfg.inlier_dist, cfg.min_delta,
         cfg.min_scene_points, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "slam_icp_tiled_planes")
-    tiled_launches += 1
+    profiling.count("k3.launches")
     return out
 
 

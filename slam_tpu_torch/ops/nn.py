@@ -28,11 +28,9 @@ import ctypes
 import torch
 
 from slam_tpu_torch import cuda_build
+from slam_tpu_torch.utils import profiling
 
 BIG = 1e30
-
-# kernel launches made by K4's wrapper (the card path only)
-launches = 0
 
 MAX_QCHUNK = 2048     # queries a block stages (24 bytes each)
 
@@ -78,8 +76,8 @@ def _launch(qx, qy, qc, mx, my, mv, mc, tile=None):
     """K4 on (B, S) query and (B, C) model planes of any strides. qc / mc:
     class planes (f32 or bool; None: unconstrained when both are);
     mv: bool validity or None; model classes >= 2 are invalid. `tile` caps
-    the model points staged at once (default: what shared memory holds)."""
-    global launches
+    the model points staged at once (default: what shared memory holds).
+    Each launch counts as `k4.launches` (utils/profiling.py)."""
     if qx.dim() != 2 or mx.dim() != 2 or qx.shape[0] != mx.shape[0]:
         raise ValueError(f"expected (B, S) and (B, C) planes, got "
                          f"{tuple(qx.shape)} and {tuple(mx.shape)}")
@@ -114,7 +112,7 @@ def _launch(qx, qy, qc, mx, my, mv, mc, tile=None):
         dist.data_ptr(), B, S, C, *kinds, strides, tile, qchunk,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "slam_nn")
-    launches += 1
+    profiling.count("k4.launches")
     return idx, dist
 
 

@@ -34,14 +34,10 @@ import torch
 from slam_tpu_torch import cuda_build
 from slam_tpu_torch.geometry import angle_wrap
 from slam_tpu_torch.mapping.point_map import PointMapGrid
+from slam_tpu_torch.utils import profiling
 
 KERNEL_SCORERS = ("auto", "pallas", "kernel")
 PLAIN_SCORERS = ("gather", "dense")
-
-# kernel launches made on the card path: scoring calls, and bit tables
-# packed (one a score_particles call, one a pf_match)
-launches = 0
-pack_launches = 0
 
 
 class PFConfig(NamedTuple):
@@ -128,8 +124,8 @@ def _hits_reference(grid, sx, sy, valid, px, py, c, s, resolution,
 
 def _pack_kernel(count: torch.Tensor, G: int, strides) -> torch.Tensor:
     """One launch of K5's table packing over (Bg, G, G) cells read at
-    element `strides` -> (Bg, ceil(G*G / 32)) words."""
-    global pack_launches
+    element `strides` -> (Bg, ceil(G*G / 32)) words; counts as
+    `k5.pack_launches` (one a score_particles call, one a pf_match)."""
     Bg = count.shape[0]
     bits = torch.empty((Bg, (G * G + 31) // 32), dtype=torch.int32,
                        device=count.device)
@@ -137,7 +133,7 @@ def _pack_kernel(count: torch.Tensor, G: int, strides) -> torch.Tensor:
         count.data_ptr(), *strides, Bg, G, bits.data_ptr(),
         torch.cuda.current_stream(count.device).cuda_stream)
     cuda_build.check(err, "slam_pf_pack")
-    pack_launches += 1
+    profiling.count("k5.pack_launches")
     return bits
 
 
@@ -180,8 +176,8 @@ def occupancy_bits(grid: PointMapGrid) -> torch.Tensor:
 
 def _score_kernel(bits, grid, scan_xy, valid, particles, resolution):
     """K5 on the card: (B, P) hit fractions from the bit table `bits` of
-    `grid`, reading the other operands through their strides."""
-    global launches
+    `grid`, reading the other operands through their strides; counts as
+    `k5.launches`."""
     B, N = valid.shape
     P = particles.shape[1]
     Bg, G = grid.count.shape[0], grid.count.shape[-1]
@@ -208,7 +204,7 @@ def _score_kernel(bits, grid, scan_xy, valid, particles, resolution):
         out.data_ptr(), B, N, P, cell_scale(resolution), layout, int(warp),
         smem, torch.cuda.current_stream(valid.device).cuda_stream)
     cuda_build.check(err, "slam_pf_score")
-    launches += 1
+    profiling.count("k5.launches")
     return out
 
 

@@ -33,6 +33,7 @@ from slam_tpu_torch.mapping.point_map import (PointMapGrid,
                                               update_point_map_xy)
 from slam_tpu_torch.pipeline import slam2d
 from slam_tpu_torch.utils import metrics
+from slam_tpu_torch.utils.profiling import stage
 
 CHANNELS = ("count", "sum_x", "sum_y", "sum_z")
 
@@ -134,10 +135,11 @@ def shared_macro(states, shared: PointMapGrid, world, cfg, ticks: int,
         qv.append(sc.valid)
         est.append(states.pose[:, :3])
         true.append(states.true_pose[:, :3])
-    zero = shared.replace(**{n: torch.zeros_like(getattr(shared, n))
-                             for n in CHANNELS})
-    delta = fold_scans(zero, torch.stack(qx, 1), torch.stack(qy, 1),
-                       torch.stack(qv, 1))
+    with stage("map_macro"):
+        zero = shared.replace(**{n: torch.zeros_like(getattr(shared, n))
+                                 for n in CHANNELS})
+        delta = fold_scans(zero, torch.stack(qx, 1), torch.stack(qy, 1),
+                           torch.stack(qv, 1))
     return states, delta, (torch.stack(est, 1), torch.stack(true, 1))
 
 
@@ -171,7 +173,9 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
     the card (the states must then lie there). Returns (final_states,
     shared, (est, true)) with trajectories (B, num_macro * ticks_per_macro,
     3), this rank's robots under a mesh. Under metrics.nan_debug the
-    states and the shared grid are checked finite after every tick."""
+    states and the shared grid are checked finite after every tick.
+    Spans: `shared_map.fleet_rollout_shared`, the ticks', `map_macro` (the
+    fold and the sum) and `shared_map.merge` (the all-reduce)."""
     group, contributes = None, True
     if mesh is not None:
         group = mesh.group()
@@ -187,16 +191,19 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
         raise ValueError("fleet_rollout_shared takes a batch-1 shared grid")
     states = states.replace(map_grid=None)
     est, true = [], []
-    for m in range(num_macro):
-        states, delta, (e, t) = shared_macro(
-            states, shared, world, cfg, ticks_per_macro, generator,
-            m * ticks_per_macro)
-        if group is not None:
-            if not contributes:
-                delta = delta.replace(**{n: torch.zeros_like(getattr(
-                    delta, n)) for n in CHANNELS})
-            delta = _sum_over_ranks(delta, group)[0]
-        shared = add_grids(shared, delta)
-        est.append(e)
-        true.append(t)
-    return states, shared, (torch.cat(est, 1), torch.cat(true, 1))
+    with stage("shared_map.fleet_rollout_shared"):
+        for m in range(num_macro):
+            states, delta, (e, t) = shared_macro(
+                states, shared, world, cfg, ticks_per_macro, generator,
+                m * ticks_per_macro)
+            if group is not None:
+                with stage("shared_map.merge"):
+                    if not contributes:
+                        delta = delta.replace(**{n: torch.zeros_like(getattr(
+                            delta, n)) for n in CHANNELS})
+                    delta = _sum_over_ranks(delta, group)[0]
+            with stage("map_macro"):
+                shared = add_grids(shared, delta)
+            est.append(e)
+            true.append(t)
+        return states, shared, (torch.cat(est, 1), torch.cat(true, 1))

@@ -30,6 +30,7 @@ from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.fft_match import MatchResult, global_match
 from slam_tpu_torch.types import PointCloud, SlamState, select_cloud
+from slam_tpu_torch.utils import profiling
 
 
 def relocalize(state: SlamState, scene: PointCloud, cfg) -> MatchResult:
@@ -106,7 +107,11 @@ def fleet_relocalize_if_lost(states: SlamState, cfg,
     (~scan_reg_ok)."""
     if lost is None:
         lost = ~states.scan_reg_ok
-    if not bool(lost.any()):
-        return states
-    m = relocalize(states, states.prev_scene, cfg)
-    return apply_relocalization(states, m._replace(ok=m.ok & lost))
+    with profiling.stage("reloc.gate"):
+        profiling.count("host_syncs")
+        if not bool(lost.any()):
+            return states
+    with profiling.stage("reloc.search"):
+        m = relocalize(states, states.prev_scene, cfg)
+    with profiling.stage("reloc.apply"):
+        return apply_relocalization(states, m._replace(ok=m.ok & lost))

@@ -63,6 +63,7 @@ from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import (PointCloud, SlamState, make_cloud,
                                   select_cloud)
 from slam_tpu_torch.utils import metrics
+from slam_tpu_torch.utils.profiling import stage
 
 MATCHERS = ("fused", "points", "grid", "particle")
 
@@ -299,41 +300,44 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
     scan_x = torch.where(hit, scan_x, 0.0)
     scan_y = torch.where(hit, scan_y, 0.0)
 
-    ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
-    ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
-    pred = ekf_mod.pose_xyyaw(ekf)
+    with stage("ekf"):
+        ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
+        ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
+        pred = ekf_mod.pose_xyyaw(ekf)
 
     # robots whose grids are split by rows are stepped alike on every rank
     # of their sp group: the scene's sums must not depend on atomic order
-    sx, sy, sga, skeep = build_scene_planes(
-        scan_x, scan_y, hit, cfg,
-        deterministic=state.local_map.rows is not None)
+    with stage("scene_build"):
+        sx, sy, sga, skeep = build_scene_planes(
+            scan_x, scan_y, hit, cfg,
+            deterministic=state.local_map.rows is not None)
     scene = planes_to_cloud(sx, sy, sga, skeep)
-    if matcher == "grid":
-        if field is None:
-            field = nearest_point_field(state.map_grid,
-                                        cfg.icp.voxel_leaf_obs[0],
-                                        cfg.icp.ga_threshold)
-        icp = icp_fit_grid(scene.xyz[..., :2], skeep, sga, field, pred,
-                           cfg.icp)
-    elif matcher == "particle":
-        icp = _pf_register(state, scene, skeep, pred, cfg, pf_target,
-                           generator)
-    elif matcher == "fused":
-        tp = target_planes
-        if not incremental_map:
-            mc = state.map_cloud
-            mpx, mpy = mc.xyz[..., 0], mc.xyz[..., 1]
-            mga = classify_ga_planes(mpx, mpy, mc.valid, pred[:, :2],
-                                     cfg.icp.ga_num_bins,
-                                     cfg.icp.ga_resolution,
-                                     cfg.icp.ga_threshold)
-            tp = (mpx, mpy, mga, mc.valid)
-        icp = fused_register(sx, sy, skeep, sga, tp, state.map_cloud, pred,
-                             cfg.icp)
-    else:
-        icp = register_scan(scene, state.map_cloud, pred, cfg,
-                            reclassify=not incremental_map)
+    with stage("registration"):
+        if matcher == "grid":
+            if field is None:
+                field = nearest_point_field(state.map_grid,
+                                            cfg.icp.voxel_leaf_obs[0],
+                                            cfg.icp.ga_threshold)
+            icp = icp_fit_grid(scene.xyz[..., :2], skeep, sga, field, pred,
+                               cfg.icp)
+        elif matcher == "particle":
+            icp = _pf_register(state, scene, skeep, pred, cfg, pf_target,
+                               generator)
+        elif matcher == "fused":
+            tp = target_planes
+            if not incremental_map:
+                mc = state.map_cloud
+                mpx, mpy = mc.xyz[..., 0], mc.xyz[..., 1]
+                mga = classify_ga_planes(mpx, mpy, mc.valid, pred[:, :2],
+                                         cfg.icp.ga_num_bins,
+                                         cfg.icp.ga_resolution,
+                                         cfg.icp.ga_threshold)
+                tp = (mpx, mpy, mga, mc.valid)
+            icp = fused_register(sx, sy, skeep, sga, tp, state.map_cloud,
+                                 pred, cfg.icp)
+        else:
+            icp = register_scan(scene, state.map_cloud, pred, cfg,
+                                reclassify=not incremental_map)
 
     metrics.emit("slam_step", icp_ok=icp.ok, num_corr=icp.num_corr,
                  mean_residual=icp.mean_residual)
@@ -342,27 +346,37 @@ def process_frame_planes(state: SlamState, scan_x, scan_y, hit, gyro, cmd,
                               num_corr=icp.num_corr,
                               mean_residual=icp.mean_residual,
                               scene_points=skeep.sum(-1))
-    ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
-    fused = ekf_mod.pose_xyyaw(ekf)
+    with stage("ekf"):
+        ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
+        fused = ekf_mod.pose_xyyaw(ekf)
 
+    # map_update spans the grids' adds, map_macro their shifts and export
+    # (once a macro in the rollouts, which pass shift_maps and refresh_map
+    # False)
     mg, map_cloud = state.map_grid, state.map_cloud
     if incremental_map:
         res = cfg.icp.voxel_leaf_obs[0]
         map_pose = torch.where(icp.ok[:, None], icp.pose, pred)
         qx, qy = se2_apply_xy(map_pose, sx, sy)
         if shift_maps:
-            mg = shift_point_map(mg, fused[:, :2], res)
-        mg = update_point_map_xy(mg, qx, qy, None, skeep, res)
+            with stage("map_macro"):
+                mg = shift_point_map(mg, fused[:, :2], res)
+        with stage("map_update"):
+            mg = update_point_map_xy(mg, qx, qy, None, skeep, res)
         if refresh_map:
-            map_cloud = export_points(mg, map_cloud.capacity,
-                                      ga_threshold=cfg.icp.ga_threshold)
+            with stage("map_macro"):
+                map_cloud = export_points(mg, map_cloud.capacity,
+                                          ga_threshold=cfg.icp.ga_threshold)
 
-    grid = shift_origin(state.local_map, fused[:, :2], cfg.mls) \
-        if shift_maps else state.local_map
+    grid = state.local_map
+    if shift_maps:
+        with stage("map_macro"):
+            grid = shift_origin(grid, fused[:, :2], cfg.mls)
     yaw_only = torch.stack([fused[:, 0] - grid.center[:, 0],
                             fused[:, 1] - grid.center[:, 1], fused[:, 2]], -1)
     lx, ly = se2_apply_xy(yaw_only, sx, sy)
-    grid = add_to_occupancy_xy(grid, lx, ly, skeep, cfg.mls)
+    with stage("map_update"):
+        grid = add_to_occupancy_xy(grid, lx, ly, skeep, cfg.mls)
 
     z = torch.zeros_like(fused[:, :1])
     return state.replace(
@@ -401,22 +415,30 @@ def slam_step(state: SlamState, world: world2d.World2D, cfg,
               target_planes=None, pf_target=None) -> SlamState:
     """One simulated tick: drive, sense (range and gyro noise drawn from
     `generator`), then process the frame (the particle matcher draws from
-    `generator` too)."""
-    dt = cfg.sim.dt
-    cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
-    true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
-    ranges, hit = world2d.raycast(world, true2, cfg.sim, generator=generator)
-    scan_x, scan_y, hit = world2d.scan_to_planes(ranges, hit)
-    gyro = cmd[:, 2] + cfg.sim.gyro_bias + cfg.sim.gyro_noise * torch.randn(
-        cmd.shape[0], generator=generator, device=cmd.device)
-    state = process_frame_planes(state, scan_x, scan_y, hit, gyro, cmd, cfg,
-                                 incremental_map=incremental_map,
-                                 field=field, refresh_map=refresh_map,
-                                 shift_maps=shift_maps,
-                                 target_planes=target_planes,
-                                 pf_target=pf_target, generator=generator)
-    return state.replace(true_pose=torch.cat(
-        [true2, torch.zeros_like(true2[:, :1])], -1))
+    `generator` too). Its span is `slam2d.tick`, the stages' spans
+    (raycast, ekf, scene_build, registration, map_update, map_macro)
+    inside it."""
+    with stage("slam2d.tick"):
+        dt = cfg.sim.dt
+        cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
+        true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
+        with stage("raycast"):
+            ranges, hit = world2d.raycast(world, true2, cfg.sim,
+                                          generator=generator)
+        scan_x, scan_y, hit = world2d.scan_to_planes(ranges, hit)
+        gyro = cmd[:, 2] + cfg.sim.gyro_bias + \
+            cfg.sim.gyro_noise * torch.randn(cmd.shape[0],
+                                             generator=generator,
+                                             device=cmd.device)
+        state = process_frame_planes(state, scan_x, scan_y, hit, gyro, cmd,
+                                     cfg, incremental_map=incremental_map,
+                                     field=field, refresh_map=refresh_map,
+                                     shift_maps=shift_maps,
+                                     target_planes=target_planes,
+                                     pf_target=pf_target,
+                                     generator=generator)
+        return state.replace(true_pose=torch.cat(
+            [true2, torch.zeros_like(true2[:, :1])], -1))
 
 
 def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
@@ -430,33 +452,42 @@ def rollout(state: SlamState, world: world2d.World2D, cfg, num_steps: int,
     robot moves about a cell per macro); its ticks then register against
     that target and skip the shifts. Returns (final_state, (est, true)),
     trajectories (B, num_steps, 3). Under metrics.nan_debug the state is
-    checked finite after every tick."""
+    checked finite after every tick. Spans: `slam2d.rollout`, the macro's
+    `map_macro` (export and shifts) or `registration` (the field), and the
+    ticks'."""
     num_macro = -(-num_steps // field_every)
     est, true = [], []
     s = state
-    for _ in range(num_macro):
-        planes = field = None
-        if cfg.icp.matcher == "grid":
-            field = nearest_point_field(s.map_grid, cfg.icp.voxel_leaf_obs[0],
-                                        cfg.icp.ga_threshold)
-        elif cfg.icp.matcher != "particle":
-            ex, ey, ez, ega, evalid = export_point_planes(
-                s.map_grid, s.map_cloud.capacity,
-                ga_threshold=cfg.icp.ga_threshold)
-            planes = (ex, ey, ega, evalid)
-            s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
-        s = s.replace(
-            map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
-            local_map=shift_origin(s.local_map, s.pose[:, :2], cfg.mls))
-        for _ in range(field_every):
-            s = slam_step(s, world, cfg, generator, field=field,
-                          refresh_map=False, shift_maps=False,
-                          target_planes=planes)
-            metrics.check_finite(len(est), state=s)
-            est.append(s.pose[:, :3])
-            true.append(s.true_pose[:, :3])
-    return s, (torch.stack(est, 1)[:, :num_steps],
-               torch.stack(true, 1)[:, :num_steps])
+    with stage("slam2d.rollout"):
+        for _ in range(num_macro):
+            planes = field = None
+            if cfg.icp.matcher == "grid":
+                with stage("registration"):
+                    field = nearest_point_field(
+                        s.map_grid, cfg.icp.voxel_leaf_obs[0],
+                        cfg.icp.ga_threshold)
+            if cfg.icp.matcher not in ("grid", "particle"):
+                with stage("map_macro"):
+                    ex, ey, ez, ega, evalid = export_point_planes(
+                        s.map_grid, s.map_cloud.capacity,
+                        ga_threshold=cfg.icp.ga_threshold)
+                planes = (ex, ey, ega, evalid)
+                s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid,
+                                                        ez))
+            with stage("map_macro"):
+                s = s.replace(
+                    map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
+                    local_map=shift_origin(s.local_map, s.pose[:, :2],
+                                           cfg.mls))
+            for _ in range(field_every):
+                s = slam_step(s, world, cfg, generator, field=field,
+                              refresh_map=False, shift_maps=False,
+                              target_planes=planes)
+                metrics.check_finite(len(est), state=s)
+                est.append(s.pose[:, :3])
+                true.append(s.true_pose[:, :3])
+        return s, (torch.stack(est, 1)[:, :num_steps],
+                   torch.stack(true, 1)[:, :num_steps])
 
 
 def graph_update(state: SlamState, cfg) -> SlamState:
@@ -499,12 +530,13 @@ def graph_update_delta(state: SlamState, cfg):
                                    min_points=gcfg.min_keyframe_points,
                                    attitude=state.attitude)
     opt = added & (graph.num_edges > 0)
-    if gcfg.engine == "se3" and gcfg.edge_registration == "3d":
-        optimized, delta = pg3.optimize_native(graph, gcfg, split)
-    elif gcfg.engine == "se3":
-        optimized, delta = pg3.optimize_planar(graph, gcfg, split)
-    else:
-        optimized, delta = pg.optimize(graph, gcfg, split)
+    with stage("graph.optimize"):
+        if gcfg.engine == "se3" and gcfg.edge_registration == "3d":
+            optimized, delta = pg3.optimize_native(graph, gcfg, split)
+        elif gcfg.engine == "se3":
+            optimized, delta = pg3.optimize_planar(graph, gcfg, split)
+        else:
+            optimized, delta = pg.optimize(graph, gcfg, split)
     graph = graph.replace(node_pose=torch.where(
         opt[:, None, None], optimized.node_pose, graph.node_pose))
     if graph.node_rp is not None:
@@ -512,21 +544,25 @@ def graph_update_delta(state: SlamState, cfg):
             opt[:, None, None], optimized.node_rp, graph.node_rp))
     delta = torch.where(opt[:, None], delta, 0.0)
     capacity = state.map_cloud.capacity
-    if gcfg.map_regen == "grid":
-        # cfg.cloud.export_recall is passed as slam_tpu passes it; the
-        # port's export is always the exact top-k, which is what slam_tpu's
-        # approx_max_k gives off the TPU, so the knob has no effect here
-        regen = pg.regenerate_map_grid(
-            graph, capacity, resolution=cfg.icp.voxel_leaf_obs[0],
-            grid_bins=gcfg.regen_grid_bins,
-            ga_threshold=cfg.icp.ga_threshold,
-            recall=cfg.cloud.export_recall, deterministic=split)
-    elif gcfg.map_regen == "mls":
-        # the 2D path has no ground class: the obstacle export is the
-        # whole target
-        regen = pg.regenerate_map_mls(graph, cfg.mls, capacity, split)[0]
-    else:
-        regen = pg.regenerate_map(graph, capacity, cfg.icp.voxel_leaf_obs)
+    with stage("graph.regenerate"):
+        if gcfg.map_regen == "grid":
+            # cfg.cloud.export_recall is passed as slam_tpu passes it; the
+            # port's export is always the exact top-k, which is what
+            # slam_tpu's approx_max_k gives off the TPU, so the knob has no
+            # effect here
+            regen = pg.regenerate_map_grid(
+                graph, capacity, resolution=cfg.icp.voxel_leaf_obs[0],
+                grid_bins=gcfg.regen_grid_bins,
+                ga_threshold=cfg.icp.ga_threshold,
+                recall=cfg.cloud.export_recall, deterministic=split)
+        elif gcfg.map_regen == "mls":
+            # the 2D path has no ground class: the obstacle export is the
+            # whole target
+            regen = pg.regenerate_map_mls(graph, cfg.mls, capacity,
+                                          split)[0]
+        else:
+            regen = pg.regenerate_map(graph, capacity,
+                                      cfg.icp.voxel_leaf_obs)
     map_cloud = select_cloud(added, regen, state.map_cloud)
     full = graph.num_nodes >= gcfg.max_nodes
     metrics.emit("graph_update", added=added, num_nodes=graph.num_nodes,
@@ -546,21 +582,27 @@ def rollout_with_graph(state: SlamState, world: world2d.World2D, cfg,
     regenerated target (incremental_map=False: the robots keep no map
     grid), then a graph tick. Returns (final_state, (est, true)),
     trajectories (B, num_macro * graph_every, 3). Under metrics.nan_debug
-    the state is checked finite after every tick and graph tick."""
+    the state is checked finite after every tick and graph tick. Spans:
+    `slam2d.rollout_with_graph`, `map_macro`, the ticks' and
+    `graph_update` (holding graph.edge_icp, graph.edge_information,
+    graph.optimize, graph.regenerate)."""
     est, true = [], []
     s = state
-    for _ in range(num_macro):
-        s = s.replace(local_map=shift_origin(s.local_map, s.pose[:, :2],
-                                             cfg.mls))
-        for _ in range(graph_every):
-            s = slam_step(s, world, cfg, generator, incremental_map=False,
-                          shift_maps=False)
-            metrics.check_finite(len(est), state=s)
-            est.append(s.pose[:, :3])
-            true.append(s.true_pose[:, :3])
-        s = graph_update(s, cfg)
-        metrics.check_finite(len(est) - 1, state=s)
-    return s, (torch.stack(est, 1), torch.stack(true, 1))
+    with stage("slam2d.rollout_with_graph"):
+        for _ in range(num_macro):
+            with stage("map_macro"):
+                s = s.replace(local_map=shift_origin(
+                    s.local_map, s.pose[:, :2], cfg.mls))
+            for _ in range(graph_every):
+                s = slam_step(s, world, cfg, generator,
+                              incremental_map=False, shift_maps=False)
+                metrics.check_finite(len(est), state=s)
+                est.append(s.pose[:, :3])
+                true.append(s.true_pose[:, :3])
+            with stage("graph_update"):
+                s = graph_update(s, cfg)
+            metrics.check_finite(len(est) - 1, state=s)
+        return s, (torch.stack(est, 1), torch.stack(true, 1))
 
 
 def ate(est: torch.Tensor, true: torch.Tensor) -> torch.Tensor:

@@ -69,6 +69,7 @@ from slam_tpu_torch.sim import world2d, world3d
 from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
     make_cloud
 from slam_tpu_torch.utils import metrics
+from slam_tpu_torch.utils.profiling import stage
 
 MATCHERS = ("fused", "points", "grid")
 
@@ -124,7 +125,9 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg,
     `deterministic`: the scene grid's sums the same on every run, which
     the ranks of an sp group need to hold the same scene bit for bit (the
     other stages are exact in any order)."""
-    seg = segment_ground(cloud_from_xyz(scan_xyz, valid=hit), cfg.ground)
+    cloud = cloud_from_xyz(scan_xyz, valid=hit)
+    with stage("ground_seg"):
+        seg = segment_ground(cloud, cfg.ground)
     obstacle, ground, _ = split_ground_obstacle(seg.cloud)
     x, y, z = scan_xyz.unbind(-1)
     drv = ((seg.cloud.flags & PointCloud.FLAG_DRIVABLE) != 0).to(x.dtype)
@@ -239,38 +242,44 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     scan_xyz = rp_compensate(torch.where(hit[..., None], scan_tilted, 0.0),
                              roll, pitch)
 
-    ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
-    ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
-    pred = ekf_mod.pose_xyyaw(ekf)
+    with stage("ekf"):
+        ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
+        ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
+        pred = ekf_mod.pose_xyyaw(ekf)
 
-    (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
-        build_scene_3d_planes(scan_xyz, hit, cfg,
-                              deterministic=state.local_map.rows is not None)
-    if matcher == "grid":
-        if field is None:
-            field = nearest_point_field(state.map_grid,
-                                        cfg.icp.voxel_leaf_obs[0],
-                                        cfg.icp.ga_threshold)
-        icp = icp_fit_grid(torch.stack([ox, oy], -1), ovalid, oga, field,
-                           pred, cfg.icp)
-    elif matcher == "fused":
-        if not incremental_map:
-            target_planes = _reclassified_target_planes(state.map_cloud,
-                                                        pred, cfg)
-        icp = fused_register(ox, oy, ovalid, oga, target_planes,
-                             state.map_cloud, pred, cfg.icp)
-    elif not incremental_map:
-        target = crop_box(state.map_cloud, pred[:, :2], cfg.icp.crop_dist)
-        mpx, mpy, mga, mvalid = _reclassified_target_planes(state.map_cloud,
-                                                            pred, cfg)
-        icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
-                      torch.stack([mpx, mpy], -1), target.valid & mvalid,
-                      mga, pred, cfg.icp)
-    else:
-        target = crop_box(state.map_cloud, pred[:, :2], cfg.icp.crop_dist)
-        icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
-                      target.xyz[..., :2], target.valid, target.is_ga(),
-                      pred, cfg.icp)
+    with stage("scene_build"):
+        (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
+            build_scene_3d_planes(
+                scan_xyz, hit, cfg,
+                deterministic=state.local_map.rows is not None)
+    with stage("registration"):
+        if matcher == "grid":
+            if field is None:
+                field = nearest_point_field(state.map_grid,
+                                            cfg.icp.voxel_leaf_obs[0],
+                                            cfg.icp.ga_threshold)
+            icp = icp_fit_grid(torch.stack([ox, oy], -1), ovalid, oga,
+                               field, pred, cfg.icp)
+        elif matcher == "fused":
+            if not incremental_map:
+                target_planes = _reclassified_target_planes(
+                    state.map_cloud, pred, cfg)
+            icp = fused_register(ox, oy, ovalid, oga, target_planes,
+                                 state.map_cloud, pred, cfg.icp)
+        elif not incremental_map:
+            target = crop_box(state.map_cloud, pred[:, :2],
+                              cfg.icp.crop_dist)
+            mpx, mpy, mga, mvalid = _reclassified_target_planes(
+                state.map_cloud, pred, cfg)
+            icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
+                          torch.stack([mpx, mpy], -1), target.valid & mvalid,
+                          mga, pred, cfg.icp)
+        else:
+            target = crop_box(state.map_cloud, pred[:, :2],
+                              cfg.icp.crop_dist)
+            icp = icp_fit(torch.stack([ox, oy], -1), ovalid, oga,
+                          target.xyz[..., :2], target.valid, target.is_ga(),
+                          pred, cfg.icp)
 
     scene_points = ovalid.sum(-1)
     metrics.emit("slam_step_3d", icp_ok=icp.ok, num_corr=icp.num_corr,
@@ -280,55 +289,72 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                               num_corr=icp.num_corr,
                               mean_residual=icp.mean_residual,
                               scene_points=scene_points)
-    ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
-    fused = ekf_mod.pose_xyyaw(ekf)
+    with stage("ekf"):
+        ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
+        fused = ekf_mod.pose_xyyaw(ekf)
     z_prev = state.pose[:, 3:4]
     pose4_pre = torch.cat([fused, z_prev], -1)
     map_pose = torch.cat([torch.where(icp.ok[:, None], icp.pose, pred),
                           z_prev], -1)
-    if cfg.height.source == "grid":
-        new_z = height_interpolate_grid(ground_map.grid, pose4_pre,
-                                        cfg.height)
-        have_map = occupied_cells(ground_map.grid) >= \
-            cfg.height.min_corr_points
-    else:
-        new_z = height_interpolate(ground_map.cloud, pose4_pre, cfg.height)
-        have_map = ground_map.cloud.valid.sum(-1) >= \
-            cfg.height.min_corr_points
-    # with no ground map yet, this scan's own ground points at the pose
-    gwx, gwy = se2_apply_xy(map_pose[:, :3], gx, gy)
-    z_scan = height_interpolate_planes(gwx, gwy, gz + map_pose[:, 3:4],
-                                       gvalid, pose4_pre, cfg.height)
-    z = torch.where(have_map, new_z, z_scan)[:, None]
+    with stage("height"):
+        if cfg.height.source == "grid":
+            new_z = height_interpolate_grid(ground_map.grid, pose4_pre,
+                                            cfg.height)
+            have_map = occupied_cells(ground_map.grid) >= \
+                cfg.height.min_corr_points
+        else:
+            new_z = height_interpolate(ground_map.cloud, pose4_pre,
+                                       cfg.height)
+            have_map = ground_map.cloud.valid.sum(-1) >= \
+                cfg.height.min_corr_points
+        # with no ground map yet, this scan's own ground points at the pose
+        gwx, gwy = se2_apply_xy(map_pose[:, :3], gx, gy)
+        z_scan = height_interpolate_planes(gwx, gwy, gz + map_pose[:, 3:4],
+                                           gvalid, pose4_pre, cfg.height)
+        z = torch.where(have_map, new_z, z_scan)[:, None]
     pose4 = torch.cat([fused, z], -1)
     map_pose = torch.cat([map_pose[:, :3], z], -1)
     gwz = gz + z
 
+    # map_update spans the grids' adds, map_macro their shifts and exports
+    # (once a macro in the rollouts, which pass shift_maps and refresh_map
+    # False)
     res = cfg.icp.voxel_leaf_obs[0]
     mg = state.map_grid
     if incremental_map:
         owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
+        owz = oz + z
         if shift_maps:
-            mg = shift_point_map(mg, fused[:, :2], res)
-        mg = update_point_map_xy(mg, owx, owy, oz + z, ovalid, res)
-    gg = shift_point_map(ground_map.grid, fused[:, :2], res) \
-        if shift_maps else ground_map.grid
-    gg = update_point_map_xy(gg, gwx, gwy, gwz, gvalid, res)
+            with stage("map_macro"):
+                mg = shift_point_map(mg, fused[:, :2], res)
+        with stage("map_update"):
+            mg = update_point_map_xy(mg, owx, owy, owz, ovalid, res)
+    gg = ground_map.grid
+    if shift_maps:
+        with stage("map_macro"):
+            gg = shift_point_map(gg, fused[:, :2], res)
+    with stage("map_update"):
+        gg = update_point_map_xy(gg, gwx, gwy, gwz, gvalid, res)
     map_cloud, gnd_cloud = state.map_cloud, ground_map.cloud
     if refresh_map and incremental_map:
-        map_cloud = export_points(mg, map_cloud.capacity,
-                                  ga_threshold=cfg.icp.ga_threshold)
-        if cfg.height.source != "grid":
-            gnd_cloud = export_points(gg, gnd_cloud.capacity)
+        with stage("map_macro"):
+            map_cloud = export_points(mg, map_cloud.capacity,
+                                      ga_threshold=cfg.icp.ga_threshold)
+            if cfg.height.source != "grid":
+                gnd_cloud = export_points(gg, gnd_cloud.capacity)
 
-    grid = shift_origin(state.local_map, fused[:, :2], cfg.mls) \
-        if shift_maps else state.local_map
+    grid = state.local_map
+    if shift_maps:
+        with stage("map_macro"):
+            grid = shift_origin(grid, fused[:, :2], cfg.mls)
     rel = torch.stack([fused[:, 0] - grid.center[:, 0],
                        fused[:, 1] - grid.center[:, 1], fused[:, 2]], -1)
     olx, oly = se2_apply_xy(rel, ox, oy)
     glx, gly = se2_apply_xy(rel, gx, gy)
-    grid = add_to_occupancy_xy2(grid, olx, oly, ovalid & ~odrv, glx, gly,
-                                gvalid, cfg.mls)
+    obstacle = ovalid & ~odrv
+    with stage("map_update"):
+        grid = add_to_occupancy_xy2(grid, olx, oly, obstacle, glx, gly,
+                                    gvalid, cfg.mls)
 
     # both scene builders fill cfg.cloud.scene_capacity slots, the
     # capacity of state.prev_scene
@@ -364,25 +390,33 @@ def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
                  incremental_map: bool = True):
     """One simulated tick: drive on the terrain, sense (the robot tilts
     with the surface; range and IMU noise drawn from `generator`, none
-    without one), then process the frame. Returns (state, ground_map)."""
-    dt = cfg.sim.dt
-    cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
-    true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
-    true_z = world3d.terrain_height(world, true2[:, :2]) + cfg.sim.sensor_height
-    roll, pitch = world3d.terrain_attitude(world, true2[:, :2])
-    scan, hit = world3d.raycast(world, true2, cfg.sim, generator=generator,
-                                roll=roll, pitch=pitch)
-    imu = torch.zeros_like(true2) if generator is None else \
-        cfg.sim.gyro_noise * torch.randn(true2.shape, generator=generator,
-                                         device=true2.device)
-    gyro = cmd[:, 2] + cfg.sim.gyro_bias + imu[:, 2]
-    state, gm = process_frame_3d(
-        state, ground_map, scan, hit, roll + imu[:, 0],
-        pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
-        refresh_map=refresh_map, shift_maps=shift_maps,
-        target_planes=target_planes, field=field,
-        incremental_map=incremental_map)
-    return state.replace(true_pose=torch.cat([true2, true_z[:, None]], -1)), gm
+    without one), then process the frame. Returns (state, ground_map).
+    Its span is `slam3d.tick`, the stages' spans (raycast, ekf,
+    ground_seg, scene_build, registration, height, map_update, map_macro)
+    inside it."""
+    with stage("slam3d.tick"):
+        dt = cfg.sim.dt
+        cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
+        true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
+        true_z = world3d.terrain_height(world, true2[:, :2]) + \
+            cfg.sim.sensor_height
+        roll, pitch = world3d.terrain_attitude(world, true2[:, :2])
+        with stage("raycast"):
+            scan, hit = world3d.raycast(world, true2, cfg.sim,
+                                        generator=generator, roll=roll,
+                                        pitch=pitch)
+        imu = torch.zeros_like(true2) if generator is None else \
+            cfg.sim.gyro_noise * torch.randn(true2.shape, generator=generator,
+                                             device=true2.device)
+        gyro = cmd[:, 2] + cfg.sim.gyro_bias + imu[:, 2]
+        state, gm = process_frame_3d(
+            state, ground_map, scan, hit, roll + imu[:, 0],
+            pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
+            refresh_map=refresh_map, shift_maps=shift_maps,
+            target_planes=target_planes, field=field,
+            incremental_map=incremental_map)
+        return state.replace(true_pose=torch.cat([true2, true_z[:, None]],
+                                                 -1)), gm
 
 
 def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
@@ -398,37 +432,48 @@ def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
     state, final ground map, (est, true, reg_ok)): trajectories (B,
     num_steps, 4) [x, y, yaw, z] and each tick's registration flag (B,
     num_steps) (slam_tpu returns the first two). Under metrics.nan_debug
-    the state and ground map are checked finite after every tick."""
+    the state and ground map are checked finite after every tick. Spans:
+    `slam3d.rollout_3d`, the macro's `map_macro` (shifts and exports) and
+    `registration` (the field), and the ticks'."""
     num_macro = -(-num_steps // field_every)
     s, gm = state, ground_map
     est, true, reg_ok = [], [], []
-    for _ in range(num_macro):
-        s = s.replace(map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
-                      local_map=shift_origin(s.local_map, s.pose[:, :2],
-                                             cfg.mls))
-        gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
-        planes = field = None
-        if cfg.icp.matcher == "grid":
-            field = nearest_point_field(s.map_grid, cfg.icp.voxel_leaf_obs[0],
-                                        cfg.icp.ga_threshold)
-        else:
-            ex, ey, ez, ega, evalid = export_point_planes(
-                s.map_grid, s.map_cloud.capacity,
-                ga_threshold=cfg.icp.ga_threshold)
-            planes = (ex, ey, ega, evalid)
-            s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid, ez))
-        if cfg.height.source != "grid":
-            gm = gm.replace(cloud=export_points(gm.grid, gm.cloud.capacity))
-        for _ in range(field_every):
-            s, gm = slam_step_3d(s, world, gm, cfg, generator,
-                                 refresh_map=False, shift_maps=False,
-                                 target_planes=planes, field=field)
-            metrics.check_finite(len(est), state=s, ground_map=gm)
-            est.append(s.pose)
-            true.append(s.true_pose)
-            reg_ok.append(s.scan_reg_ok)
-    return s, gm, tuple(torch.stack(t, 1)[:, :num_steps]
-                        for t in (est, true, reg_ok))
+    with stage("slam3d.rollout_3d"):
+        for _ in range(num_macro):
+            with stage("map_macro"):
+                s = s.replace(
+                    map_grid=shift_point_map(s.map_grid, s.pose[:, :2]),
+                    local_map=shift_origin(s.local_map, s.pose[:, :2],
+                                           cfg.mls))
+                gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
+            planes = field = None
+            if cfg.icp.matcher == "grid":
+                with stage("registration"):
+                    field = nearest_point_field(
+                        s.map_grid, cfg.icp.voxel_leaf_obs[0],
+                        cfg.icp.ga_threshold)
+            if cfg.icp.matcher != "grid":
+                with stage("map_macro"):
+                    ex, ey, ez, ega, evalid = export_point_planes(
+                        s.map_grid, s.map_cloud.capacity,
+                        ga_threshold=cfg.icp.ga_threshold)
+                planes = (ex, ey, ega, evalid)
+                s = s.replace(map_cloud=planes_to_cloud(ex, ey, ega, evalid,
+                                                        ez))
+            if cfg.height.source != "grid":
+                with stage("map_macro"):
+                    gm = gm.replace(cloud=export_points(gm.grid,
+                                                        gm.cloud.capacity))
+            for _ in range(field_every):
+                s, gm = slam_step_3d(s, world, gm, cfg, generator,
+                                     refresh_map=False, shift_maps=False,
+                                     target_planes=planes, field=field)
+                metrics.check_finite(len(est), state=s, ground_map=gm)
+                est.append(s.pose)
+                true.append(s.true_pose)
+                reg_ok.append(s.scan_reg_ok)
+        return s, gm, tuple(torch.stack(t, 1)[:, :num_steps]
+                            for t in (est, true, reg_ok))
 
 
 def apply_graph_offset(gm: GroundMap, delta: torch.Tensor) -> GroundMap:
@@ -454,21 +499,27 @@ def rollout_3d_with_graph(state, world: world3d.World3D,
     cfg.height.source "cloud", one ground export), graph_every ticks in
     graph mode (incremental_map=False) and a graph tick, whose newest-node
     z offset shifts the ground map. Returns (final state, final ground
-    map, (est, true)), trajectories (B, num_macro * graph_every, 4)."""
+    map, (est, true)), trajectories (B, num_macro * graph_every, 4).
+    Spans: `slam3d.rollout_3d_with_graph`, `map_macro`, the ticks' and
+    `graph_update` (the ground map's offset included)."""
     s, gm = state, ground_map
     est, true = [], []
-    for _ in range(num_macro):
-        if cfg.height.source != "grid":
-            gm = gm.replace(cloud=export_points(gm.grid, gm.cloud.capacity))
-        gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
-        s = s.replace(local_map=shift_origin(s.local_map, s.pose[:, :2],
-                                             cfg.mls))
-        for _ in range(graph_every):
-            s, gm = slam_step_3d(s, world, gm, cfg, generator,
-                                 refresh_map=False, shift_maps=False,
-                                 incremental_map=False)
-            est.append(s.pose)
-            true.append(s.true_pose)
-        s, delta = graph_update_delta(s, cfg)
-        gm = apply_graph_offset(gm, delta)
-    return s, gm, (torch.stack(est, 1), torch.stack(true, 1))
+    with stage("slam3d.rollout_3d_with_graph"):
+        for _ in range(num_macro):
+            with stage("map_macro"):
+                if cfg.height.source != "grid":
+                    gm = gm.replace(cloud=export_points(gm.grid,
+                                                        gm.cloud.capacity))
+                gm = gm.replace(grid=shift_point_map(gm.grid, s.pose[:, :2]))
+                s = s.replace(local_map=shift_origin(
+                    s.local_map, s.pose[:, :2], cfg.mls))
+            for _ in range(graph_every):
+                s, gm = slam_step_3d(s, world, gm, cfg, generator,
+                                     refresh_map=False, shift_maps=False,
+                                     incremental_map=False)
+                est.append(s.pose)
+                true.append(s.true_pose)
+            with stage("graph_update"):
+                s, delta = graph_update_delta(s, cfg)
+                gm = apply_graph_offset(gm, delta)
+        return s, gm, (torch.stack(est, 1), torch.stack(true, 1))

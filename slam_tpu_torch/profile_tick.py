@@ -20,25 +20,25 @@ graph tick whose 2,048-point keyframe edges go to K3 as well).
     python3 -m slam_tpu_torch.profile_tick --config 5
     # or 1, 1points, 1grid, 5, 2, ref, refgrid, 4, 3, 3d-graph
 
-The package carries no spans; this script wraps the pipeline's stage
-functions in torch.profiler.record_function ranges for the run (a kernel
-counts toward the innermost stage it was launched in). It prints the
-unprofiled ms/tick of three windows, then per stage the kernel time
-(kernels launched inside the stage's range) per tick, the top kernels by
-name, and the device's idle share two ways: against the profiled window's
-timeline (first kernel start to last kernel end), which the profiler's
-own host cost lengthens, and against the median unprofiled ms/tick
-(1 - busy / wall), which assumes the profiler leaves the kernels' own
-times alone. The chrome trace and a JSON summary go to chiprun_out/.
+The stages are the package's own spans (utils/profiling.stage: raycast,
+ekf, ground_seg, scene_build, registration, height, map_update,
+map_macro, the graph tick's graph.*, the relocalization's reloc.*, and
+the tick's and the rollout's own spans for the glue between them), which
+profiling.attribute reduces: a kernel counts toward the innermost span it
+was launched in. It prints the unprofiled ms/tick of three windows, then
+per span the kernel time per tick and the device's idle gaps per tick
+under it, the top kernels by name, and the device's idle share two ways:
+against the profiled window's timeline (first kernel start to last kernel
+end), which the profiler's own host cost lengthens, and against the
+median unprofiled ms/tick (1 - busy / wall), which assumes the profiler
+leaves the kernels' own times alone. The chrome trace and a JSON summary
+go to chiprun_out/.
 """
 
 from __future__ import annotations
 
 import argparse
-import bisect
-import collections
 import dataclasses
-import functools
 import json
 import os
 import subprocess
@@ -48,81 +48,18 @@ import torch
 
 from slam_tpu_torch import config as cfg_mod
 from slam_tpu_torch.geometry import se2_apply
-from slam_tpu_torch.graph import pose_graph as pg
 from slam_tpu_torch.mapping import mls as mls_mod
 from slam_tpu_torch.mapping.point_map import init_point_map
-from slam_tpu_torch.models import ekf as ekf_mod
-from slam_tpu_torch.ops import fft_match
 from slam_tpu_torch.parallel import shared_map
 from slam_tpu_torch.pipeline import relocalize, slam2d, slam3d
 from slam_tpu_torch.sim import world2d, world3d
+from slam_tpu_torch.utils import profiling
 
 MACROS = 2          # profiled macros, and each timed window's (a macro is
                     # 4 ticks; 8 and a graph tick for config 4); config 3
                     # takes 4, the third kidnapping robot 0
 KIDNAP_AT = 2       # config 3: the macro of a window that kidnaps robot 0
 KIDNAP = (8.0, -5.0, 1.2)
-
-_EKF = ((ekf_mod, "motion_update", "EKF predict"),
-        (ekf_mod, "yaw_rate_update", "EKF gyro"),
-        (ekf_mod, "slam_update", "EKF slam"))
-
-# (module, function name, stage label); each module's own global is wrapped
-STAGES_2D = ((world2d, "raycast", "raycast"),) + _EKF + (
-    (slam2d, "build_scene_planes", "scene build"),
-    (slam2d, "fused_register", "registration, K1"),
-    (slam2d, "register_scan", "registration, icp_fit (K4)"),
-    (slam2d, "icp_fit_grid", "registration, grid"),
-    (slam2d, "nearest_point_field", "nearest-centroid field (once per macro)"),
-    (slam2d, "pf_match", "registration, particle filter (K5)"),
-    (slam2d, "update_point_map_xy", "point-map update"),
-    (slam2d, "export_point_planes", "map export"),
-    (slam2d, "shift_point_map", "point-map shift"),
-    (slam2d, "shift_origin", "occupancy shift"),
-    (slam2d, "add_to_occupancy_xy", "occupancy update"),
-    (shared_map, "fold_scans", "shared-map fold (once per macro)"),
-)
-STAGES_4 = STAGES_2D + (
-    (slam2d, "classify_ga_planes", "target GA reclassification"),
-    (slam2d, "graph_update", "graph tick: gate, insert, select"),
-    (pg, "icp_fused", "graph tick: edge ICP, K2"),
-    (pg, "_edge_information", "graph tick: edge information (K4 NN, LUM)"),
-    (pg, "optimize", "graph tick: optimise"),
-    (pg, "regenerate_map_grid", "graph tick: regenerate target"),
-)
-STAGES_3 = STAGES_2D + (
-    (mls_mod, "add_to_mls", "MLS fold (once per macro)"),
-    (relocalize, "fleet_relocalize_if_lost",
-     "relocalization gate (one flag read a macro)"),
-    (relocalize, "global_match", "relocalization: FFT search"),
-    (fft_match, "icp_fit", "relocalization: ICP polish (K4)"),
-    (relocalize, "apply_relocalization", "relocalization: EKF shift"),
-)
-STAGES_3D = ((world3d, "raycast", "raycast"),) + _EKF + (
-    (slam3d, "segment_ground", "ground segmentation"),
-    (slam3d, "build_scene_3d_planes", "obstacle scene (besides ground)"),
-    (slam3d, "fused_register", "registration, K1 / K3"),
-    (slam3d, "icp_fit_grid", "registration, grid"),
-    (slam3d, "nearest_point_field", "nearest-centroid field (once per macro)"),
-    (slam3d, "height_interpolate_grid", "height interpolation"),
-    (slam3d, "height_interpolate", "height interpolation"),
-    (slam3d, "height_interpolate_planes", "height interpolation"),
-    (slam3d, "update_point_map_xy", "point-map updates (obstacle, ground)"),
-    (slam3d, "export_point_planes", "map export (once per macro)"),
-    (slam3d, "shift_point_map", "point-map shifts (once per macro)"),
-    (slam3d, "shift_origin", "occupancy shift (once per macro)"),
-    (slam3d, "add_to_occupancy_xy2", "occupancy update"),
-)
-STAGES_3D_GRAPH = STAGES_3D + (
-    (slam3d, "classify_ga_planes", "target GA reclassification"),
-    (slam3d, "graph_update_delta", "graph tick: keyframe gate and insert"),
-    (pg, "icp_fused", "graph tick: edge ICP (K3 for K2)"),
-    (pg, "_edge_information", "graph tick: edge information (K4, LUM)"),
-    (pg, "optimize", "graph tick: optimise"),
-    (pg, "regenerate_map", "graph tick: regenerate target"),
-    (slam3d, "apply_graph_offset", "graph tick: ground-map z offset"),
-)
-
 
 def kidnap(state, robot: int = 0):
     """The state with one robot's belief (EKF mean and pose) moved by
@@ -145,67 +82,15 @@ def mls_macro(state, grid, world, cfg, gen, kidnap_robot0=False):
     state, traj = slam2d.rollout(state, world, cfg, 4, gen)
     scene = state.prev_scene
     xy = se2_apply(state.pose[:, :3], scene.xyz[..., :2])
-    grid = mls_mod.add_to_mls(grid, scene.replace(
-        xyz=torch.cat([xy, scene.xyz[..., 2:]], -1)), cfg.mls)
+    with profiling.stage("mls_fold"):
+        grid = mls_mod.add_to_mls(grid, scene.replace(
+            xyz=torch.cat([xy, scene.xyz[..., 2:]], -1)), cfg.mls)
     lost = ~state.scan_reg_ok
     if kidnap_robot0:
         lost = lost.clone()
         lost[0] = True
     return (relocalize.fleet_relocalize_if_lost(state, cfg, lost=lost), grid,
             traj, state, lost)
-
-
-def _wrap_stages(stages):
-    for mod, fn, label in stages:
-        orig = getattr(mod, fn)
-
-        @functools.wraps(orig)
-        def wrapped(*a, _orig=orig, _label=label, **k):
-            with torch.profiler.record_function(_label):
-                return _orig(*a, **k)
-        setattr(mod, fn, wrapped)
-
-
-def _attribute(trace: dict, labels) -> dict:
-    """Kernel microseconds by stage label, by kernel name, the busy union
-    and the timeline of the device events."""
-    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    launch = {e["args"]["correlation"]: e["ts"] for e in ev
-              if e.get("cat") == "cuda_runtime" and "correlation" in
-              e.get("args", {})}
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
-                   if e.get("cat") == "user_annotation"
-                   and e["name"] in labels)
-    starts = [s[0] for s in spans]
-    gpu = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
-                                            "gpu_memset")]
-    by_stage = collections.Counter()
-    by_name = collections.Counter()
-    for e in gpu:
-        t = launch.get(e.get("args", {}).get("correlation"))
-        stage = "other"
-        if t is not None:
-            best = None
-            for s0, s1, name in spans[:bisect.bisect_right(starts, t)]:
-                if s0 <= t <= s1 and (best is None or s1 - s0 < best[0]):
-                    best = (s1 - s0, name)
-            stage = best[1] if best else "other"
-        by_stage[stage] += e["dur"]
-        by_name[e["name"][:80]] += e["dur"]
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
-    busy, cur0, cur1 = 0.0, None, None
-    for a, b in iv:
-        if cur1 is None or a > cur1:
-            if cur1 is not None:
-                busy += cur1 - cur0
-            cur0, cur1 = a, b
-        else:
-            cur1 = max(cur1, b)
-    if cur1 is not None:
-        busy += cur1 - cur0
-    timeline = (iv[-1][1] - iv[0][0]) if iv else 0.0
-    return dict(by_stage=by_stage, by_name=by_name, busy_us=busy,
-                timeline_us=timeline, kernels=len(gpu))
 
 
 def main(argv=None) -> int:
@@ -229,14 +114,12 @@ def main(argv=None) -> int:
     if args.config == "3":
         cfg = cfg_mod.sim2d_reloc_config()
         batch = 128
-        stages = STAGES_3
         world = world2d.make_world(gen, cfg.sim, device=dev)
         state = slam2d.init_state(cfg, batch, device=dev, generator=gen)
         aux = mls_mod.init_mls(cfg.mls, batch, device=dev)
     elif args.config == "4":
         cfg = cfg_mod.sim2d_graph_config()
         batch = 256
-        stages = STAGES_4
         world = world2d.make_world(gen, cfg.sim, device=dev)
         state = slam2d.init_state(cfg, batch, device=dev, generator=gen,
                                   with_graph=True)
@@ -244,7 +127,6 @@ def main(argv=None) -> int:
     elif args.config == "3d-graph":
         cfg = cfg_mod.ref_scale_graph_config()
         batch = 16
-        stages = STAGES_3D_GRAPH
         world = world3d.make_world(gen, cfg.sim, device=dev)
         state = slam3d.init_state_3d(cfg, batch, world, device=dev,
                                      generator=gen, with_graph=True)
@@ -256,7 +138,6 @@ def main(argv=None) -> int:
             cfg = cfg.replace(icp=dataclasses.replace(cfg.icp,
                                                       matcher="grid"))
         batch = 128 if args.config == "2" else 16
-        stages = STAGES_3D
         world = world3d.make_world(gen, cfg.sim, device=dev)
         state = slam3d.init_state_3d(cfg, batch, world, device=dev,
                                      generator=gen)
@@ -271,7 +152,6 @@ def main(argv=None) -> int:
                 cfg, icp=dataclasses.replace(cfg.icp, matcher="particle"),
                 pf=dataclasses.replace(cfg.pf, score_stride=4))
         batch = 1024
-        stages = STAGES_2D
         world = world2d.make_world(gen, cfg.sim, device=dev)
         state = slam2d.init_state(cfg, batch, device=dev, generator=gen)
         aux = init_point_map(1, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
@@ -309,7 +189,6 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         windows.append(e0.elapsed_time(e1) / (per_macro * macros))
 
-    _wrap_stages(stages)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -326,7 +205,7 @@ def main(argv=None) -> int:
     with open(path, "w") as f:
         json.dump(trace, f)
     ticks = per_macro * macros
-    r = _attribute(trace, {label for _, _, label in stages})
+    r = profiling.attribute(trace)
     kern_ms = r["busy_us"] / 1e3 / ticks
     line_ms = r["timeline_us"] / 1e3 / ticks
     wall_ms = sorted(windows)[len(windows) // 2]
@@ -337,21 +216,27 @@ def main(argv=None) -> int:
           f"ms/tick device busy, idle share "
           f"{1 - kern_ms / line_ms if line_ms else float('nan'):.3f} of the "
           f"timeline, {1 - kern_ms / wall_ms:.3f} of the unprofiled "
-          f"{wall_ms:.3f} ms/tick, {r['kernels'] / ticks:.2f} device ops "
+          f"{wall_ms:.3f} ms/tick, {r['ops'] / ticks:.2f} device ops "
           f"per tick")
-    print("stage | kernel ms/tick")
-    for stage, us in r["by_stage"].most_common():
-        print(f"  {stage} | {us / 1e3 / ticks:.3f}")
+    print("span | kernel ms/tick | idle ms/tick")
+    for span, us in sorted(r["kernel_us"].items(), key=lambda kv: -kv[1]):
+        print(f"  {span} | {us / 1e3 / ticks:.3f} | "
+              f"{r['gaps_us'].get(span, 0.0) / 1e3 / ticks:.3f}")
+    for span in sorted(set(r["gaps_us"]) - set(r["kernel_us"])):
+        print(f"  {span} | 0.000 | {r['gaps_us'][span] / 1e3 / ticks:.3f}")
     print("kernel | ms/tick")
-    for name, us in r["by_name"].most_common(15):
-        print(f"  {name} | {us / 1e3 / ticks:.3f}")
+    for name, us in sorted(r["by_name_us"].items(),
+                           key=lambda kv: -kv[1])[:15]:
+        print(f"  {name[:80]} | {us / 1e3 / ticks:.3f}")
     summary = dict(config=args.config, batch=batch, card=card,
                    unprofiled_ms_per_tick=windows,
                    timeline_ms_per_tick=line_ms, busy_ms_per_tick=kern_ms,
                    idle_share_timeline=1 - kern_ms / line_ms,
                    idle_share_unprofiled=1 - kern_ms / wall_ms,
                    stages_ms_per_tick={k: v / 1e3 / ticks
-                                       for k, v in r["by_stage"].items()})
+                                       for k, v in r["kernel_us"].items()},
+                   idle_ms_per_tick={k: v / 1e3 / ticks
+                                     for k, v in r["gaps_us"].items()})
     with open(os.path.join(args.out, f"profile_config{args.config}.json"),
               "w") as f:
         json.dump(summary, f, indent=1)

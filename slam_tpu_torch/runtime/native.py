@@ -19,10 +19,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from slam_tpu_torch.utils import profiling
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCES = (_ROOT / "runtime" / "src" / "slamrt.cpp",
@@ -145,14 +148,21 @@ class FrameRing:
     def pop_into(self, out: np.ndarray) -> int:
         """Pop the next frame into `out` (a C-contiguous float32 array of
         the frame's size, e.g. a pinned host buffer); returns its sequence
-        id, or 0 when the ring is empty (out untouched)."""
+        id, or 0 when the ring is empty (out untouched). A popped frame
+        counts as `live.frames`, and its time from publish to this pop (the
+        ring's steady clock, which time.monotonic_ns reads) as
+        `live.ring_wait_ns` (utils/profiling.py)."""
         if (out.dtype != np.float32 or out.size != self._floats
                 or not out.flags.c_contiguous):
             raise ValueError(f"pop_into takes a contiguous float32 array of "
                              f"{self._floats} floats")
         t = C.c_uint64(0)
-        return lib().slamrt_ring_pop(
+        seq = lib().slamrt_ring_pop(
             self._r, out.ctypes.data_as(C.POINTER(C.c_float)), C.byref(t))
+        if seq:
+            profiling.count("live.frames")
+            profiling.count("live.ring_wait_ns", time.monotonic_ns() - t.value)
+        return seq
 
     def pop(self):
         """Returns (seq, frame) or (0, None)."""

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch import default_device
+from slam_tpu_torch.utils import profiling
 
 _lock = threading.Lock()
 _enabled = False
@@ -75,8 +76,11 @@ def clear() -> None:
 def _record(name: str, **scalars) -> None:
     rec = {"name": name}
     for k, v in scalars.items():
-        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
-            else np.asarray(v)
+        if isinstance(v, torch.Tensor):
+            profiling.count("host_syncs")
+            a = v.detach().cpu().numpy()
+        else:
+            a = np.asarray(v)
         rec[k] = float(a.mean()) if a.ndim else float(a)
         if a.ndim:
             rec.setdefault("batch", int(a.shape[0]))
@@ -222,10 +226,13 @@ def check_finite(tick: int, **trees) -> None:
         return
     fields = [f for name, tree in trees.items()
               for f in _float_fields(tree, name)]
-    if not fields or bool(torch.stack(
-            [torch.isfinite(t).all() for _, t in fields]).all()):
+    if not fields:
+        return
+    profiling.count("host_syncs")
+    if bool(torch.stack([torch.isfinite(t).all() for _, t in fields]).all()):
         return
     for name, t in fields:
+        profiling.count("host_syncs")
         if not bool(torch.isfinite(t).all()):
             raise FloatingPointError(
                 f"nan_debug: tick {tick}: {name} is not finite")

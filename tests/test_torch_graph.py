@@ -43,7 +43,7 @@ from slam_tpu.types import PointCloud as JCloud
 from slam_tpu.utils import metrics as jmetrics
 from slam_tpu_torch import geometry as tgeo, interop
 from slam_tpu_torch.graph import pose_graph as tpg
-from slam_tpu_torch.ops import icp_fused, nn as tnn
+from slam_tpu_torch.ops import icp_fused
 from slam_tpu_torch.ops.icp import edge_information_2d as t_edge_info
 from slam_tpu.pipeline import relocalize as jrel
 from slam_tpu.ops.fft_match import MatchResult as JMatch
@@ -53,6 +53,7 @@ from slam_tpu_torch.ops.voxel import (compact, voxel_downsample,
 from slam_tpu_torch.pipeline import relocalize as trel
 from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import PointCloud
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
                                 pallas_interpret, to_np, to_torch)
 
@@ -287,7 +288,8 @@ def test_add_keyframe_matches_jax(sequence, stop, what):
         assert (n == GCFG.max_nodes).all()
         # a slot was reused: the newest stamp sits in an old slot
         assert (np.asarray(want.node_stamp).max(-1) >= GCFG.max_nodes).all()
-    assert icp_fused.packed_launches == 0 and tnn.launches == 0
+    assert tprof.count_of("k2.launches") == 0
+    assert tprof.count_of("k4.launches") == 0
 
 
 def test_add_keyframe_too_close_adds_nothing(sequence):

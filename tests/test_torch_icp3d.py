@@ -42,6 +42,7 @@ from slam_tpu_torch.ops import align as talign
 from slam_tpu_torch.ops import icp3d as ticp3d
 from slam_tpu_torch.ops import icp_fused
 from slam_tpu_torch.ops import nn as tnn
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import assert_close, assert_equal, to_np, to_torch
 
 torch.set_num_threads(1)
@@ -380,4 +381,5 @@ def test_k2_above_the_resident_limit_runs_k3_plain():
     assert_close(got.pose, resident.pose, atol=1e-5)
     assert_equal(got.num_corr, resident.num_corr)
     assert abs(float(got.pose[0, 2]) - th) < 1e-3
-    assert icp_fused.packed_launches == 0 and icp_fused.tiled_launches == 0
+    assert tprof.count_of("k2.launches") == 0
+    assert tprof.count_of("k3.launches") == 0

@@ -27,6 +27,7 @@ from slam_tpu_torch import interop
 from slam_tpu_torch.ops import icp_fused as tip
 from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import PointCloud
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
                                 pallas_interpret, to_torch)
 
@@ -93,7 +94,8 @@ def test_k2_plain_matches_pallas_interpret():
     assert_close(got.mean_residual, want.mean_residual, atol=1e-5)
     assert got.ok[:-1].all() and not got.ok[-1]
     assert_equal(tip.icp_fused_reference(*args, CFG).pose, got.pose)
-    assert tip.packed_launches == 0 and tip.launches == 0
+    assert tprof.count_of("k2.launches") == 0
+    assert tprof.count_of("k1.launches") == 0
 
 
 def _consecutive_scenes(cfg):
@@ -203,8 +205,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         tip.icp_fused_planes_tiled(z, z, z, z, z, z,
                                    torch.zeros(1, 3, device="meta"), CFG)
-    assert tip.launches == 0 and tnn.launches == 0
-    assert tip.tiled_launches == 0
+    assert tprof.count_of("k1.launches") == 0
+    assert tprof.count_of("k4.launches") == 0
+    assert tprof.count_of("k3.launches") == 0
 
 
 def test_k1_shared_memory_follows_the_packed_layout():

@@ -21,6 +21,7 @@ from slam_tpu.config import IcpConfig
 from slam_tpu.ops import icp_pallas as jip
 from slam_tpu_torch import cuda_build
 from slam_tpu_torch.ops import icp_fused as tip
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, pallas_interpret,
                                 to_torch)
 
@@ -93,7 +94,7 @@ def test_k3_wrapper_runs_plain_version_on_cpu(pallas_tiled):
     got = tip.icp_fused_planes_tiled(*map(to_torch, ops), CFG)
     assert_close(got.pose, want.pose, atol=1e-4)
     assert_equal(got.num_corr, want.num_corr)
-    assert tip.tiled_launches == 0
+    assert tprof.count_of("k3.launches") == 0
 
 
 def test_k3_plain_matches_k1_plain():

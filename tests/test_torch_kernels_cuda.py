@@ -34,12 +34,11 @@ def test_k4_matches_plain(card):
     shapes (model strided from (B, C, 3)), the planes form with class -1
     pads, ties, special robots (a class nearly empty, empty, no model),
     unconstrained classes, model tiles."""
-    from slam_tpu_torch.ops import nn
     r = card.check_k4()
     assert r["idx_mismatch"] == 0 and r["max_abs_err"] == 0.0
     assert set(r["cases"]) == {"main", "planes", "ties", "special",
                                "unconstrained", "tiles of 100"}
-    assert nn.launches >= len(r["cases"])
+    assert card.counter("k4.launches") >= len(r["cases"])
 
 
 def test_k1_matches_icp_fit_on_k4(card):
@@ -60,7 +59,8 @@ def test_k5_matches_plain(card, table):
         want = particle.score_particles_reference(grid, pf["scan"],
                                                   pf["valid"], parts, 0.5)
         assert card.same_bits(got, want)
-    assert particle.launches > 0 and particle.pack_launches > 0
+    assert card.counter("k5.launches") > 0
+    assert card.counter("k5.pack_launches") > 0
 
 
 def test_k5_cases_match_plain(card):
@@ -92,7 +92,7 @@ def test_k2_matches_plain(card):
     assert float((got.pose - want.pose).abs().max()) <= card.POSE_TOL
     assert torch.equal(got.ok, want.ok)
     assert int((got.num_corr - want.num_corr).abs().max()) <= card.NCORR_TOL
-    assert icp_fused.packed_launches > 0
+    assert card.counter("k2.launches") > 0
 
 
 def test_k3_matches_plain_and_k1(card):
@@ -101,13 +101,12 @@ def test_k3_matches_plain_and_k1(card):
     and K3 vs K1's plain version: pose <= POSE_TOL, ok exact, num_corr
     +-NCORR_TOL; check_k3 also holds two calls to the same bits."""
     from slam_tpu_torch.config import ref_scale_config
-    from slam_tpu_torch.ops import icp_fused
     r = card.check_k3(ref_scale_config().icp)
     assert set(r) == {"ref", "sparse", "scattered", "ties", "vs K1"}
     for v in r.values():
         assert v["pose_err"] <= card.POSE_TOL and v["ok_mismatch"] == 0
         assert v["dcorr"] <= card.NCORR_TOL
-    assert icp_fused.tiled_launches >= 10
+    assert card.counter("k3.launches") >= 10
 
 
 @pytest.mark.parametrize("B,S", [(64, 384), (16, 2048)])
@@ -155,3 +154,13 @@ def test_kabsch_on_the_card_needs_no_host_sync(card):
     rotations within 1e-4 of the f64 SVD Kabsch, 0 host syncs."""
     r = card.kabsch_on_card()
     assert r["err"] <= 1e-4 and r["syncs"] == 0
+
+
+def test_fit_counters_count_each_robots_iterations(card):
+    """K1 and K3 with their fit-iteration counter set and null give the
+    same bits, and count each robot's own fit iterations on the kernel
+    table's shapes."""
+    r = card.check_fit_counters()
+    assert set(r) == {"K1", "K3 full", "K3 sparse"}
+    for v in r.values():
+        assert v["same_bits"] and v["counted"] == v["own"] > 0

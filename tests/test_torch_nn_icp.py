@@ -23,6 +23,7 @@ from slam_tpu.ops import nn as jnn
 from slam_tpu.ops import nn_pallas as jnnp
 from slam_tpu_torch.ops import icp as ticp
 from slam_tpu_torch.ops import nn as tnn
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, pallas_interpret,
                                 to_torch)
 
@@ -94,7 +95,7 @@ def test_nn_unconstrained_and_2d_only():
                                    torch.ones(1, 5, dtype=torch.bool))
     assert_equal(idx, torch.zeros(1, 4, dtype=torch.int32))
     assert_equal(d2, torch.full((1, 4), 3.0))
-    assert tnn.launches == 0
+    assert tprof.count_of("k4.launches") == 0
     with pytest.raises(ValueError, match="D=3"):
         tnn.nearest_neighbor(torch.zeros(1, 4, 3), torch.zeros(1, 5, 2),
                              torch.ones(1, 5, dtype=torch.bool))

@@ -37,6 +37,7 @@ from slam_tpu_torch.mapping.point_map import PointMapGrid
 from slam_tpu_torch.ops import particle as tpart
 from slam_tpu_torch.pipeline import slam2d as tslam
 from slam_tpu_torch.types import PointCloud
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
                                 pallas_interpret, to_np, to_torch)
 
@@ -128,7 +129,7 @@ def test_scores_match_jax(engine, shared):
         assert_equal(tpart.score_particles(
             grid, to_torch(scans), to_torch(valid), to_torch(parts), RES,
             PfConfig(scorer=scorer)), got)
-    assert tpart.launches == 0
+    assert tprof.count_of("k5.launches") == 0
 
 
 def test_score_pose_matches_jax():
@@ -287,7 +288,7 @@ def test_config5_tick_matches_jax():
     assert_close(got.ekf.sigma, want.ekf.sigma, atol=1e-5)
     assert_equal(got.local_map.counts, want.local_map.counts)
     assert got.map_grid is None and want.map_grid is None
-    assert tpart.launches == 0
+    assert tprof.count_of("k5.launches") == 0
 
 
 def test_rollout_particle_form_tracks():
@@ -303,7 +304,7 @@ def test_rollout_particle_form_tracks():
     assert (tslam.ate(est, true) < 0.1).all()
     assert fin.scan_reg_ok.all() and (fin.map_grid.count > 0).any()
     assert not fin.map_cloud.valid.any()   # the particle form never exports
-    assert tpart.launches == 0
+    assert tprof.count_of("k5.launches") == 0
 
 
 # ---- K5's pieces: the bit table, the scale, the strided reads --------------
@@ -331,7 +332,7 @@ def test_occupancy_bits_packing(G):
     grid = PointMapGrid(count=to_torch(count), sum_x=None, sum_y=None,
                         sum_z=None, center=torch.zeros(2, 2))
     assert_equal(tpart.occupancy_bits(grid), words)
-    assert tpart.pack_launches == 0
+    assert tprof.count_of("k5.pack_launches") == 0
 
 
 def test_scale_power_of_two_identity():

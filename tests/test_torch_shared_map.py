@@ -33,9 +33,9 @@ from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu.sim import world2d as jw
 from slam_tpu_torch import interop
 from slam_tpu_torch.mapping.point_map import PointMapGrid, init_point_map
-from slam_tpu_torch.ops import particle as tpart
 from slam_tpu_torch.parallel import shared_map as tsm
 from slam_tpu_torch.pipeline import slam2d as tslam
+from slam_tpu_torch.utils import profiling as tprof
 from tests.torch_parity import (assert_close, assert_equal, numpy_tree,
                                 to_torch)
 
@@ -148,7 +148,7 @@ def test_fleet_rollout_tracks_on_shared_map():
     assert np.isfinite(ate) and ate < 0.5, ate
     assert states.map_grid is None
     assert float(shared.count.sum()) >= 4 * 8
-    assert tpart.launches == 0
+    assert tprof.count_of("k5.launches") == 0
     with pytest.raises(ValueError, match="batch-1"):
         tsm.fleet_rollout_shared(
             states, init_point_map(2, 8, device="cpu"), world, cfg, 1,

@@ -29,8 +29,8 @@ from slam_tpu.ops import icp_pallas as jip, nn as jnn
 from slam_tpu.pipeline import slam2d as jslam
 from slam_tpu.sim import world2d as jw
 from slam_tpu_torch import interop
-from slam_tpu_torch.ops import icp_fused, nn as tnn
 from slam_tpu_torch.pipeline import slam2d as tslam
+from slam_tpu_torch.utils import profiling as tprof
 from tests.golden_cache import cached_oracle
 from tests.test_reference_parity import (_render_frames, oracle_slam,
                                          ours_slam, parity_cfg)
@@ -110,7 +110,7 @@ def test_fused_slice_matches_oracle():
     dyaw = np.abs(np.arctan2(np.sin(got[:, 2] - ref[:, 2]),
                              np.cos(got[:, 2] - ref[:, 2])))
     assert dyaw[5:].max() < 0.01
-    assert icp_fused.launches == 0        # the CPU ran the plain version
+    assert tprof.count_of("k1.launches") == 0  # the CPU ran the plain version
 
 
 def _noise_free_cfg(matcher="points"):
@@ -153,7 +153,8 @@ def test_fused_rollout_on_cpu_uses_plain_kernels():
     assert est.shape == (2, 8, 3) and torch.isfinite(est).all()
     assert (tslam.ate(est, true) < 0.05).all()
     assert fin.scan_reg_ok.all() and (fin.map_grid.count > 0).any()
-    assert icp_fused.launches == 0 and tnn.launches == 0
+    assert tprof.count_of("k1.launches") == 0
+    assert tprof.count_of("k4.launches") == 0
 
 
 @pytest.mark.parametrize("matcher", ["points", "particle", "fused"])

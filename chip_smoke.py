@@ -47,6 +47,16 @@ non-zero:
              robot's own (read from runs cut at every max_iterations),
              beside the plain version's count, at config 1's and
              the reference scale's shapes ([fit counters])
+7b. raycast3d — the 3D simulator's raycast kernel (world3d.raycast) vs
+             its plain version (raycast_reference) at the HDL-32E fleet's
+             shapes (B=64, 32 x 2,170 = 69,440 rays, tilted, with noise):
+             hit flags equal off grazing rays (a march margin within 1e-5
+             of 0, or a circle's discriminant where the ray meets that wall
+             within its height; at most 1e-4 of the rays),
+             points within 1e-4 m, each one's ms and peak memory, the
+             kernel's bound from the instructions the rays need; and at 8
+             HDL-32E robots and 128 sim3d robots, with and without tilt
+             and noise, one counted launch a call
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
@@ -322,6 +332,19 @@ TICKS_REF = 16
 REF_S, REF_C = 4096, 40960   # ref_scale_config's scene and map capacities
 REF_SCENE, REF_TARGET = 70, 140   # valid points a robot holds on [ref]'s path
 CROSSOVER_C = (256, 512, 2048)    # K1 vs K3 at B=16, S=4096: S*C = 1M, 2M, 8M
+RAY_FLEET = 64        # [raycast3d]: the HDL-32E fleet's rovers (the
+RAY_AZIMUTH = 2170    # benchmark's hdl32e cell): 32 x 2,170 = 69,440 rays
+RAY_CHECK_FLEET = 8   # robots of each agreement case at the HDL-32E scan
+GRAZE = 1e-5          # a march sample's height margin (m), or the
+                      # discriminant of a circle whose wall the ray meets
+                      # within its height, this close to 0: a grazing ray,
+                      # whose hit may flip on the last bit
+GRAZE_SHARE = 1e-4    # grazing rays: at most this share of the rays
+RANGE_TOL = 1e-4      # m: the kernel's points against the plain version's
+SAMPLE_INSTR = 31     # instructions a terrain sine takes at a sample (sinf's
+                      # fast path, its argument and term: 124 a 4-sine
+                      # sample), and a circle test takes; the raycast's
+CIRCLE_INSTR = 25     # bound counts them at one a lane a clock
 GRAPH_FLEET = 256     # config 4: robots
 GRAPH_EVERY = 8       # config 4: scan ticks per graph tick
 GRAPH_MACROS = 12     # config 4: timed macros, after a warm-up macro
@@ -458,7 +481,8 @@ KERNEL_NAMES = {"icp_fused_planes_kernelILi1E": "icp_fused_planes_kernel<1>",
                 "nn_kernel": "nn_kernel",
                 "pf_pack_kernel": "pf_pack_kernel",
                 "pf_score_kernel": "pf_score_kernel",
-                "pf_score_warp_kernel": "pf_score_warp_kernel"}
+                "pf_score_warp_kernel": "pf_score_warp_kernel",
+                "raycast3d_kernel": "raycast3d_kernel"}
 
 
 def ptxas_summary(path) -> list:
@@ -1083,6 +1107,187 @@ def check_k2_tiled(cfg, B=16, P=2048, seed=12) -> dict:
     return agreement("K2 on K3", got, icp_fused.icp_fused_reference(*args))
 
 
+def hdl32e_sim():
+    """The benchmark's hdl32e scan: ref_scale_config's sensor with the
+    HDL-32E's 2,170 azimuths."""
+    from slam_tpu_torch.config import ref_scale_config
+    return dataclasses.replace(ref_scale_config().sim,
+                               num_azimuth=RAY_AZIMUTH)
+
+
+def raycast_problem(sim, B, seed, tilt=True, noise=True) -> dict:
+    """A world from `seed` on the card and B robots anywhere in it at any
+    yaw, tilted by the terrain under them (`tilt`), with a standard normal
+    range noise draw (`noise`): world3d.raycast's arguments."""
+    from slam_tpu_torch.sim import world3d
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    world = world3d.make_world(gen, sim, device=dev)
+    lim = 0.8 * sim.world_extent
+    xy = (torch.rand(B, 2, generator=gen, device=dev) * 2 - 1) * lim
+    yaw = (torch.rand(B, generator=gen, device=dev) * 2 - 1) * np.pi
+    pose = torch.cat([xy, yaw[:, None]], -1)
+    roll, pitch = world3d.terrain_attitude(world, xy) if tilt else (None,
+                                                                    None)
+    N = sim.num_rings * sim.num_azimuth
+    return dict(world=world, pose=pose, cfg=sim, roll=roll, pitch=pitch,
+                noise=torch.randn(B, N, generator=gen, device=dev)
+                if noise else None)
+
+
+def raycast_work(p, march_steps=16, refine_steps=5) -> dict:
+    """What the plain version computes that the kernel's work and its
+    grazing rays depend on: each ray's terrain samples the kernel takes
+    (the march to the first crossing's far end, then refine_steps, or the
+    whole march), and the grazing rays: a march margin within GRAZE of 0,
+    or a circle's discriminant within GRAZE of 0 where the ray would meet
+    that wall within its height (a tangent to a cylinder it passes over
+    or under cannot flip its hit)."""
+    from slam_tpu_torch.sim import world3d
+    world, sim = p["world"], p["cfg"]
+    o, _, d = world3d.sensor_rays(world, p["pose"], sim, p["roll"],
+                                  p["pitch"])
+    ts = torch.linspace(0.0, sim.beam_max_range, march_steps,
+                        device=d.device)
+    ground = world3d.terrain_height(world, world.centers)
+    grazing = torch.zeros(d.shape[:2], dtype=torch.bool, device=d.device)
+    samples = torch.zeros(d.shape[:2], dtype=torch.int64, device=d.device)
+    for b in range(d.shape[0]):   # a robot at a time: (N, T) and (N, M)
+        pts = o[b, None, None, :] + ts[:, None] * d[b, :, None, :]
+        marg = pts[..., 2] - world3d.terrain_height(world, pts[..., :2])
+        above = marg > 0
+        crossed = above[:, :-1] & ~above[:, 1:]
+        first = torch.argmax(crossed.to(torch.int8), -1)
+        samples[b] = torch.where(crossed.any(-1),
+                                 first + 2 + refine_steps, march_steps)
+        oc = o[b, None, :2] - world.centers
+        dxy = d[b, :, :2]
+        a = (dxy * dxy).sum(-1)[:, None]
+        bh = dxy @ oc.T
+        disc = bh * bh - a * ((oc * oc).sum(-1)[None] - world.radii ** 2)
+        # a tangent matters only where the wall would be met in its height
+        tc = (-bh - torch.sqrt(torch.clamp(disc, min=0.0))) / \
+            torch.clamp(a, min=1e-9)
+        pz = o[b, 2] + tc * d[b, :, 2:3]
+        wall = (tc > 1e-3) & (pz > ground) & (pz < ground + world.heights)
+        grazing[b] = (marg.abs() < GRAZE).any(-1) | \
+            ((disc.abs() < GRAZE) & wall).any(-1)
+    return dict(samples=samples, grazing=grazing)
+
+
+def raycast_agreement(p, got, want, grazing) -> dict:
+    """The kernel's scan against the plain version's: hit flags differing
+    off the grazing rays and on them, the grazing rays' share, and the
+    largest point difference (m) where both hit off the grazing rays."""
+    (gp, gh), (wp, wh) = got, want
+    torch.cuda.synchronize()
+    off = ~grazing
+    both = off & gh & wh
+    err = float((gp - wp).abs().amax(-1)[both].max()) if bool(
+        both.any()) else 0.0
+    return dict(rays=gh.numel(), hits=int(wh.sum()),
+                hit_mismatch=int(((gh != wh) & off).sum()),
+                grazing=int(grazing.sum()),
+                grazing_mismatch=int(((gh != wh) & grazing).sum()),
+                range_err=err,
+                finite=bool(torch.isfinite(gp).all()))
+
+
+def raycast_ok(a) -> bool:
+    return (a["hit_mismatch"] == 0 and a["range_err"] <= RANGE_TOL
+            and a["grazing"] <= GRAZE_SHARE * a["rays"] and a["finite"])
+
+
+def check_raycast3d(sim, B, seed, tilt=True, noise=True) -> dict:
+    """world3d.raycast (one kernel launch, counted) against
+    raycast_reference on one problem: raycast_agreement's numbers and the
+    launches the call counted."""
+    from slam_tpu_torch.sim import world3d
+    p = raycast_problem(sim, B, seed, tilt, noise)
+    args = (p["world"], p["pose"], sim, p["noise"])
+    kw = dict(roll=p["roll"], pitch=p["pitch"])
+    before = counter("raycast3d.launches")
+    got = world3d.raycast(*args, **kw)
+    launches = counter("raycast3d.launches") - before
+    want = world3d.raycast_reference(*args, **kw)
+    out = raycast_agreement(p, got, want, raycast_work(p)["grazing"])
+    out["launches"] = launches
+    return out
+
+
+def raycast_cases() -> dict:
+    """check_raycast3d at the HDL-32E scan (RAY_CHECK_FLEET robots) and at
+    sim3d_config's (128 robots), with and without tilt and noise."""
+    from slam_tpu_torch.config import sim3d_config
+    out = {}
+    for label, sim, B in (("hdl32e", hdl32e_sim(), RAY_CHECK_FLEET),
+                          ("sim3d", sim3d_config().sim, FLEET_3D)):
+        for i, (tilt, noise) in enumerate(((True, True), (False, False),
+                                           (True, False), (False, True))):
+            out[f"{label} tilt={int(tilt)} noise={int(noise)}"] = \
+                check_raycast3d(sim, B, 40 + i, tilt, noise)
+    return out
+
+
+def raycast_phase() -> dict:
+    """[raycast3d]: the kernel and the plain version at the HDL-32E
+    fleet's shapes (RAY_FLEET robots, 69,440 rays, tilted, with noise):
+    agreement, each one's time (CUDA events, whole calls; and the kernel's
+    C entry point alone) and peak memory over what the problem holds, and
+    the kernel's bound from the instructions these rays need; then
+    raycast_cases, gated."""
+    from slam_tpu_torch.sim import world3d
+    sim = hdl32e_sim()
+    p = raycast_problem(sim, RAY_FLEET, 31)
+    args = (p["world"], p["pose"], sim, p["noise"])
+    kw = dict(roll=p["roll"], pitch=p["pitch"])
+    out = {}
+    for name, fn in (("kernel", world3d.raycast),
+                     ("plain", world3d.raycast_reference)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_peak"] = torch.cuda.max_memory_allocated() - base
+        out[f"{name}_ms"] = cuda_ms(lambda: fn(*args, **kw), reps=10 if
+                                    name == "kernel" else 3)
+        out[name] = res
+    # the C entry point alone, on the operands the wrapper checked (kept
+    # alive for the replay)
+    from slam_tpu_torch import cuda_build
+    kept, check = [], cuda_build.check_operands
+    cuda_build.check_operands = lambda name, t, *a, **k: (
+        kept.append(t), check(name, t, *a, **k))[1]
+    try:
+        res, alone = replay(cuda_build.library(), "slam_raycast3d",
+                            lambda: world3d.raycast(*args, **kw))
+    finally:
+        cuda_build.check_operands = check
+    out["alone_ms"] = kernel_ms(alone)
+    del res, kept
+    work = raycast_work(p)
+    out["agreement"] = a = raycast_agreement(p, out.pop("kernel"),
+                                             out.pop("plain"),
+                                             work["grazing"])
+    K, M = p["world"].terrain.shape[0], p["world"].centers.shape[0]
+    rays = a["rays"]
+    instr = float(work["samples"].sum()) * SAMPLE_INSTR * K + \
+        rays * M * CIRCLE_INSTR
+    # read d, the noise and the pattern; write points and hit flags
+    moved = rays * (3 * 4 + 4 + 3 * 4 + 1) + sim.num_rings * \
+        sim.num_azimuth * 3 * 4
+    out["bound"] = bound(moved, 2.0 * instr)
+    out["samples"] = float(work["samples"].float().mean())
+    out["cases"] = raycast_cases()
+    bad = {k: v for k, v in [("fleet", a), *out["cases"].items()]
+           if not raycast_ok(v) or v.get("launches", 1) != 1}
+    if bad:
+        raise RuntimeError(f"[raycast3d] the kernel disagrees with its plain "
+                           f"version: {bad}")
+    return out
+
+
 def check_fit_counters() -> dict:
     """K1 and K3 with their fit-iteration counter set (under a profiler,
     which is when utils/profiling passes its address) against the same
@@ -1317,8 +1522,9 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     map). Gates: median
     per-robot xy ATE over ticks >= skip, mean |z error| over ticks >=
     z_skip, the fused matcher's kernel launched every tick, and (ref) the
-    share of (robot, tick) registrations that succeeded. Returns the
-    kernel's launch count."""
+    share of (robot, tick) registrations that succeeded, and the raycast
+    kernel launched once a tick. Returns the fused matcher's kernel's and
+    the raycast kernel's launch counts."""
     from slam_tpu_torch.pipeline import slam2d, slam3d
     from slam_tpu_torch.sim import world3d
     dev = torch.device("cuda")
@@ -1337,7 +1543,8 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     e1.record()
     torch.cuda.synchronize()
     counts = {"K1": counter("k1.launches"), "K3": counter("k3.launches"),
-              "K4": counter("k4.launches")}
+              "K4": counter("k4.launches"),
+              "raycast3d": counter("raycast3d.launches")}
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (fleet, ticks, 4):
         raise RuntimeError(f"{label} trajectory shape {tuple(est.shape)}")
@@ -1352,9 +1559,11 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     ok_share = float(reg_ok.float().mean())
     scene_pts = float(state.prev_scene.valid.sum(-1).float().mean())
     map_pts = float(state.map_cloud.valid.sum(-1).float().mean())
-    if counts[kernel] < ticks:
+    if counts[kernel] < ticks or counts["raycast3d"] != ticks:
         raise RuntimeError(f"{label}: {kernel} launched {counts[kernel]} "
-                           f"times in {ticks} ticks ({counts})")
+                           f"times and the raycast kernel "
+                           f"{counts['raycast3d']} in {ticks} ticks "
+                           f"({counts})")
     if not med < ate_limit or not z_err < z_limit:
         raise RuntimeError(f"{label}: median ATE {med} m (limit {ate_limit}),"
                            f" mean |z error| {z_err} m (limit {z_limit})")
@@ -1371,7 +1580,7 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
           f"{state.prev_scene.capacity} points and target {map_pts:.1f} of "
           f"{state.map_cloud.capacity} (robot mean); launches {counts} | "
           f"{card}", flush=True)
-    return counts[kernel]
+    return counts[kernel], counts["raycast3d"]
 
 
 def count_syncs(fn):
@@ -5061,6 +5270,24 @@ def main(argv=None) -> int:
           f"plain: max pose err {k2t['pose_err']:.3g}, ok mismatches "
           f"{k2t['ok_mismatch']}, max |d num_corr| {k2t['dcorr']}",
           flush=True)
+    ray = raycast_phase()
+    ra = ray["agreement"]
+    print(f"[raycast3d] B={RAY_FLEET} x {ra['rays'] // RAY_FLEET} rays "
+          f"(HDL-32E, tilted, with noise): call {ray['kernel_ms']:.4f} ms, "
+          f"kernel alone {ray['alone_ms']:.4f} ms, plain "
+          f"{ray['plain_ms']:.4f} ms, bound {ray['bound'][0]:.6f} ms "
+          f"({ray['bound'][1]}; {ray['samples']:.2f} terrain samples a ray);"
+          f" peak memory over the inputs: kernel "
+          f"{ray['kernel_peak'] / 1e9:.3f} GB, plain "
+          f"{ray['plain_peak'] / 1e9:.3f} GB; {ra['hits']} hits, hit "
+          f"mismatches {ra['hit_mismatch']} off {ra['grazing']} grazing rays"
+          f" ({ra['grazing_mismatch']} on them), max point err "
+          f"{ra['range_err']:.3g} m (bound {RANGE_TOL}); hit mismatches off "
+          f"/ grazing / mismatches on them, max point err, launches: " +
+          "; ".join(f"{k} {v['hit_mismatch']} / {v['grazing']} / "
+                    f"{v['grazing_mismatch']}, {v['range_err']:.3g} m, "
+                    f"{v['launches']}" for k, v in ray["cases"].items()) +
+          f" | {card}", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -5162,12 +5389,13 @@ def main(argv=None) -> int:
     # [time]'s required device-op counts, before any large profiler
     # session can leave torch.profiler blind (device_ops)
     ops_a_call = call_ops(pf, fcfg.pf)
-    launches["K1 (config 2)"] = rollout_3d_phase(
+    launches["K1 (config 2)"], ray3d = rollout_3d_phase(
         cfg_mod.sim3d_config(), FLEET_3D, TICKS_3D, gen, card, "3d", "K1",
         10, ATE_3D_LIMIT, 15, Z_3D_LIMIT)
-    launches["K3"] = rollout_3d_phase(
+    launches["K3"], ray_ref = rollout_3d_phase(
         ref_cfg, FLEET_REF, TICKS_REF, gen, card, "ref", "K3", 4,
         ATE_REF_LIMIT, 4, Z_REF_LIMIT, OK_REF_SHARE)
+    launches["raycast3d"] = ray3d + ray_ref
     graph = graph_phase(world, gen, card)
     launches["K2"] += graph["launches"]["K2"]
     launches["K4"] += graph["launches"]["K4"]
@@ -5368,6 +5596,10 @@ def main(argv=None) -> int:
                "slam_tpu_torch/csrc/particle.cu",
                "slam_tpu/ops/particle.py:160", "K5 table", k5["bits_err"],
                pack["alone"], pack["plain"], pack["bound"]),
+        record("world3d.raycast (the 3D simulator's raycast)",
+               "slam_tpu_torch/csrc/raycast3d.cu", None, "raycast3d",
+               max(v["range_err"] for v in (ra, *ray["cases"].values())),
+               ray["kernel_ms"], ray["plain_ms"], ray["bound"]),
     ]}))
     print(device_json(name))
     return 0

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "slam_pf_pack": [_P, _L, _L, _L, _I, _I, _P, _P],
     "slam_pf_score": [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_F, _P, _I, _I,
                                                            _P],
+    "slam_raycast3d": [_P, _L, _L, _L] + [_P] * 10 + [_I] * 6 + [_F, _F,
+                                                                  _P],
 }
 
 # dynamic shared memory one block may use on sm_90

@@ -6,7 +6,9 @@ crosses zero: a fixed bracketing march, then regula falsi, for every ray of
 every robot at once. Obstacles are vertical cylinders with closed-form
 intersections. One world is shared by the fleet; poses are (B, 3). Random
 draws come from an explicit torch.Generator, so tests hand both packages
-the same world arrays and noise-free scans.
+the same world arrays and noise-free scans. On the card `raycast` is one
+launch of a hand-written kernel (csrc/raycast3d.cu); `raycast_reference`
+is its plain version, which CPU tensors run.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ import math
 
 import torch
 
-from slam_tpu_torch import default_device
+from slam_tpu_torch import cuda_build, default_device
 from slam_tpu_torch.geometry import rot3_from_rpy
 from slam_tpu_torch.sim.world2d import place_obstacles
+from slam_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -86,16 +89,12 @@ def terrain_attitude(world: World3D, xy: torch.Tensor, eps: float = 0.25):
     return torch.atan(gy), -torch.atan(gx)
 
 
-def raycast(world: World3D, pose: torch.Tensor, cfg, noise=None,
-            generator: torch.Generator | None = None, march_steps: int = 16,
-            refine_steps: int = 5, roll=None, pitch=None):
-    """Cast the ring pattern from sensors at height cfg.sensor_height above
-    the terrain under poses (B, 3), tilted by roll / pitch (B,).
-
-    Returns (points (B, R*A, 3) in the tilted sensor frame, hit (B, R*A)).
-    Range noise is `noise` (standard normal, (B, R*A)) or, when only
-    `generator` is given, drawn from it; with neither the ranges are exact.
-    """
+def sensor_rays(world: World3D, pose: torch.Tensor, cfg, roll=None,
+                pitch=None):
+    """The scan's geometry for sensors cfg.sensor_height above the terrain
+    under poses (B, 3), tilted by roll / pitch (B,): origins (B, 3), the
+    untilted sensor-frame pattern d_local (N, 3) and the world-frame ray
+    directions d (B, N, 3)."""
     x, y, yaw = pose[:, 0], pose[:, 1], pose[:, 2]
     zero = torch.zeros_like(yaw)
     roll = zero if roll is None else roll
@@ -105,6 +104,69 @@ def raycast(world: World3D, pose: torch.Tensor, cfg, noise=None,
     d_local = ray_directions(cfg, zero[:1])[0]                     # (N, 3)
     Rt = rot3_from_rpy(roll, pitch, yaw)                           # (B, 3, 3)
     d = torch.einsum("bij,nj->bni", Rt, d_local)                   # (B, N, 3)
+    return o, d_local, d
+
+
+def raycast(world: World3D, pose: torch.Tensor, cfg, noise=None,
+            generator: torch.Generator | None = None, march_steps: int = 16,
+            refine_steps: int = 5, roll=None, pitch=None):
+    """Cast the ring pattern from sensors at height cfg.sensor_height above
+    the terrain under poses (B, 3), tilted by roll / pitch (B,).
+
+    Returns (points (B, R*A, 3) in the tilted sensor frame, hit (B, R*A)).
+    Range noise is `noise` (standard normal, (B, R*A)) or, when only
+    `generator` is given, drawn from it; with neither the ranges are exact.
+    On the card one launch of the raycast kernel (counted as
+    `raycast3d.launches`); CPU tensors run raycast_reference.
+    """
+    if pose.device.type == "cpu":
+        return raycast_reference(world, pose, cfg, noise, generator,
+                                 march_steps, refine_steps, roll, pitch)
+    o, d_local, d = sensor_rays(world, pose, cfg, roll, pitch)
+    B, N = d.shape[:2]
+    ts = torch.linspace(0.0, cfg.beam_max_range, march_steps,
+                        device=pose.device)
+    if noise is None and generator is not None:
+        noise = torch.randn((B, N), generator=generator, device=d.device)
+    cyl = (world.centers.contiguous(), world.radii.contiguous(),
+           world.heights.contiguous())
+    terrain = world.terrain.contiguous()
+    M, K = cyl[0].shape[0], terrain.shape[0]
+    ops = (d, d_local, o, ts, *cyl, terrain)
+    shapes = [(B, N, 3), (N, 3), (B, 3), (march_steps,), (M, 2), (M,), (M,),
+              (K, 4)]
+    if noise is not None:
+        noise = noise.contiguous()
+        ops, shapes = ops + (noise,), shapes + [(B, N)]
+    cuda_build.check_operands("raycast3d", ops, shapes,
+                              contiguous=(False,) + (True,) * (len(ops) - 1))
+    smem = 4 * (4 * K + 5 * M + march_steps)
+    if not 1 <= K <= 8 or B > 65535 or smem > cuda_build.MAX_SMEM:
+        raise ValueError(f"the raycast kernel takes 1 to 8 terrain sines, at "
+                         f"most 65,535 robots and {cuda_build.MAX_SMEM} bytes "
+                         f"of cylinders and march steps: got {K} sines, {B} "
+                         f"robots, {smem} bytes")
+    points = torch.empty((B, N, 3), dtype=torch.float32, device=d.device)
+    hit = torch.empty((B, N), dtype=torch.bool, device=d.device)
+    err = cuda_build.library().slam_raycast3d(
+        d.data_ptr(), *d.stride(), d_local.data_ptr(), o.data_ptr(),
+        ts.data_ptr(), *(t.data_ptr() for t in cyl), terrain.data_ptr(),
+        None if noise is None else noise.data_ptr(), points.data_ptr(),
+        hit.data_ptr(), B, N, march_steps, M, K, refine_steps,
+        cfg.beam_max_range, cfg.range_noise,
+        torch.cuda.current_stream(d.device).cuda_stream)
+    cuda_build.check(err, "slam_raycast3d")
+    profiling.count("raycast3d.launches")
+    return points, hit
+
+
+def raycast_reference(world: World3D, pose: torch.Tensor, cfg, noise=None,
+                      generator: torch.Generator | None = None,
+                      march_steps: int = 16, refine_steps: int = 5, roll=None,
+                      pitch=None):
+    """raycast's plain version: the march and the cylinder tests as
+    (B, N, T) and (B, N, M) tensors."""
+    o, d_local, d = sensor_rays(world, pose, cfg, roll, pitch)
     tmax = cfg.beam_max_range
 
     # terrain: a march brackets the first crossing of the height margin,

@@ -26,7 +26,8 @@ The port's spans and counters, in one place:
     return before they finish
 
 Counter names: `k1.launches`, `k2.launches`, `k3.launches`, `k4.launches`,
-`k5.launches`, `k5.pack_launches` (kernel launches on the card path);
+`k5.launches`, `k5.pack_launches`, `raycast3d.launches` (kernel launches
+on the card path);
 `k1.fit_iterations` / `k3.fit_iterations` (device: every robot's fit
 iterations, added by K1 and K3 while a profiler records) and
 `k1.fit_problems` / `k3.fit_problems` (robots in those calls);

@@ -32,7 +32,7 @@ from slam_tpu_torch.geometry import se2_apply_xy
 from slam_tpu_torch.mapping.point_map import (PointMapGrid,
                                               update_point_map_xy)
 from slam_tpu_torch.pipeline import slam2d
-from slam_tpu_torch.utils import metrics
+from slam_tpu_torch.utils import metrics, profiling
 from slam_tpu_torch.utils.profiling import stage
 
 CHANNELS = ("count", "sum_x", "sum_y", "sum_z")
@@ -70,10 +70,15 @@ def fold_scans(shared: PointMapGrid, qx: torch.Tensor, qy: torch.Tensor,
 def _sum_over_ranks(grid: PointMapGrid, group, flag=None):
     """grid's four channels summed over `group` in one all_reduce of one
     flat buffer (with `flag`, a 0-dim tensor summed in the same buffer).
-    Returns (the summed grid, the summed flag)."""
+    Returns (the summed grid, the summed flag). Counts
+    `shared_map.merges` (one an all_reduce) and `shared_map.merge_bytes`
+    (the buffer's bytes) on the host."""
     chans = [getattr(grid, n) for n in CHANNELS]
     extra = [] if flag is None else [flag.reshape(1).to(grid.count.dtype)]
     flat = torch.cat([c.reshape(-1) for c in chans] + extra)
+    profiling.count("shared_map.merges")
+    profiling.count("shared_map.merge_bytes",
+                    flat.numel() * flat.element_size())
     dist.all_reduce(flat, group=group)
     parts = flat.split([c.numel() for c in chans] + [1] * len(extra))
     out = grid.replace(**{n: p.view_as(c)
@@ -175,7 +180,9 @@ def fleet_rollout_shared(states, shared: PointMapGrid, world, cfg,
     3), this rank's robots under a mesh. Under metrics.nan_debug the
     states and the shared grid are checked finite after every tick.
     Spans: `shared_map.fleet_rollout_shared`, the ticks', `map_macro` (the
-    fold and the sum) and `shared_map.merge` (the all-reduce)."""
+    fold and the sum) and `shared_map.merge` (the all-reduce); counters
+    `shared_map.merges` and `shared_map.merge_bytes` (_sum_over_ranks:
+    one whole-grid all-reduce a macro under a mesh, none without)."""
     group, contributes = None, True
     if mesh is not None:
         group = mesh.group()

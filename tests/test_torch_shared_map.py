@@ -153,3 +153,22 @@ def test_fleet_rollout_tracks_on_shared_map():
         tsm.fleet_rollout_shared(
             states, init_point_map(2, 8, device="cpu"), world, cfg, 1,
             generator=gen)
+
+
+def test_rollout_without_mesh_counts_no_merge():
+    """A single process reduces nothing: fleet_rollout_shared with mesh=None
+    leaves the merge counters where they were."""
+    cfg = _pf_cfg()
+    gen = torch.Generator().manual_seed(11)
+    world = interop.world_from_numpy(numpy_tree(jw.make_world(
+        jax.random.PRNGKey(42), cfg.sim)), "cpu")
+    states = tslam.init_state(cfg, 2, device="cpu", generator=gen)
+    shared = init_point_map(1, cfg.mls.size_x, cfg.icp.voxel_leaf_obs[0],
+                            device="cpu")
+    names = ("shared_map.merges", "shared_map.merge_bytes")
+    before = [tprof.count_of(n) for n in names]
+    _, shared, _ = tsm.fleet_rollout_shared(
+        states, shared, world, cfg, num_macro=2, ticks_per_macro=2,
+        generator=gen, mesh=None)
+    assert float(shared.count.sum()) > 0
+    assert [tprof.count_of(n) for n in names] == before

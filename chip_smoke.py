@@ -57,6 +57,19 @@ non-zero:
              kernel's bound from the instructions the rays need; and at 8
              HDL-32E robots and 128 sim3d robots, with and without tilt
              and noise, one counted launch a call
+7c. ground — ground segmentation's GP sector kernel (ops/ground.py
+             gp_sectors) vs its plain version (gp_sectors_reference) at
+             the HDL-32E fleet's shapes (B=64 upright scans, 72 x 200
+             bins, C=64, 10 sweeps): the call and the C entry point alone,
+             each in ms, beside the plain version's and the bound of the
+             work these bins need (the sweeps the plain version's runs
+             cut at 0..10 sweeps show), segment_ground whole with each
+             stage (ms, device operations), one counted launch a call;
+             slots and bins that differ, at near-ties of an inlier gate
+             and not; the sweeps the kernel counts equal to the plain
+             version's; and at 8 HDL-32E and 16 sim3d robots and on ramp
+             clouds that adopt over several sweeps (72 x 200 with 64 and
+             128 slots, sim3d's grid), gated
 8. main    — config 1: slam2d.rollout at sim2d_config for a fleet of 1024
              robots, 40 ticks with the default "fused" matcher (K1), and a
              fresh fleet for 8 ticks with the "points" matcher (K4), after
@@ -345,6 +358,17 @@ SAMPLE_INSTR = 31     # instructions a terrain sine takes at a sample (sinf's
                       # fast path, its argument and term: 124 a 4-sine
                       # sample), and a circle test takes; the raycast's
 CIRCLE_INSTR = 25     # bound counts them at one a lane a clock
+GROUND_FLEET = 64     # [ground]: the HDL-32E fleet's rovers, 72 x 200 bins, C = 64
+GROUND_CHECKS = (("hdl32e", 8), ("sim3d", 16))   # robots of the scan cases
+RAMP_CHECKS = (("ref", 64, 8), ("ref", 128, 4), ("sim3d", 32, 16))   # (grid,
+                      # signal slots, robots) of the ramp cases: sectors that
+                      # adopt over several sweeps
+GP_F_TOL = 1e-4       # m: the GP kernel's f_s against the plain version's
+GP_TIE = 1e-4         # an inlier test this close to its gate (|met| to
+                      # gp_data_confidence, v to gp_model_confidence) is a
+                      # near-tie: the two versions' sums may round across it
+GP_EXP_OPS = 5        # operations of a kernel entry (a difference, two
+                      # products, expf, the variance's product)
 GRAPH_FLEET = 256     # config 4: robots
 GRAPH_EVERY = 8       # config 4: scan ticks per graph tick
 GRAPH_MACROS = 12     # config 4: timed macros, after a warm-up macro
@@ -482,7 +506,8 @@ KERNEL_NAMES = {"icp_fused_planes_kernelILi1E": "icp_fused_planes_kernel<1>",
                 "pf_pack_kernel": "pf_pack_kernel",
                 "pf_score_kernel": "pf_score_kernel",
                 "pf_score_warp_kernel": "pf_score_warp_kernel",
-                "raycast3d_kernel": "raycast3d_kernel"}
+                "raycast3d_kernel": "raycast3d_kernel",
+                "ground_gp_kernel": "ground_gp_kernel"}
 
 
 def ptxas_summary(path) -> list:
@@ -1288,6 +1313,293 @@ def raycast_phase() -> dict:
     return out
 
 
+def ground_scans(sim, B, seed) -> tuple:
+    """B robots' upright scans (tilted by the terrain under them, with range
+    noise, compensated by the true attitude, as the 3D tick's ground stage
+    sees them): raycast_problem's world and poses through world3d.raycast."""
+    from slam_tpu_torch.geometry import rp_compensate
+    from slam_tpu_torch.sim import world3d
+    p = raycast_problem(sim, B, seed)
+    pts, hit = world3d.raycast(p["world"], p["pose"], sim, p["noise"],
+                               roll=p["roll"], pitch=p["pitch"])
+    xyz = rp_compensate(torch.where(hit[..., None], pts, 0.0), p["roll"],
+                        p["pitch"])
+    return xyz, hit
+
+
+def ramp_scans(gcfg, B, seed, device="cuda", per_bin=8) -> tuple:
+    """Clouds on which INSAC adopts over several sweeps: each robot's
+    sector a ramp of its own slope (0.02 to 0.25 m a metre) with a 0.5 m
+    swell, seen from 1.45 m up; each bin 0 to per_bin points (some below
+    the bin gate), a sixth of the bins raised 1 to 3 m as obstacles, and
+    heights on a 1 cm raster, so that prototypes tie. A ramp's far bins
+    stand above the gate of a model that does not yet reach them, and are
+    adopted as the model grows toward them. Made with numpy from `seed`:
+    the same points on every device. Returns (xyz (B, N, 3), valid (B, N)),
+    N = S * L * per_bin."""
+    rng = np.random.default_rng(seed)
+    S, L = gcfg.num_sectors, gcfg.num_range_bins
+    shape = (B, S, L, per_bin)
+    width = gcfg.r_max / L
+    r = (np.arange(L)[None, None, :, None] + rng.uniform(0.05, 0.95, shape)) \
+        * width
+    phi = (np.arange(S)[None, :, None, None] + rng.uniform(0.05, 0.95, shape)
+           ) * (2 * np.pi / S)
+    slope = rng.uniform(0.02, 0.25, (B, S, 1, 1))
+    z = slope * r + 0.5 * np.sin(r / 7.0) - 1.45
+    z = z + np.where(rng.random((B, S, L, 1)) < 1 / 6,
+                     rng.uniform(1.0, 3.0, (B, S, L, 1)), 0.0)
+    z = np.round(z, 2)
+    valid = np.arange(per_bin) < rng.integers(0, per_bin + 1, (B, S, L, 1))
+    xyz = np.stack([r * np.cos(phi), r * np.sin(phi), z], -1)
+    return (torch.as_tensor(xyz.reshape(B, -1, 3), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(valid.reshape(B, -1), device=device))
+
+
+def ground_operands(xyz, valid, gcfg) -> tuple:
+    """segment_ground's sector-stage operands (count, proto_r, proto_h) on
+    the clouds, as its call passes them."""
+    from slam_tpu_torch.ops import ground
+    from slam_tpu_torch.types import cloud_from_xyz
+    seen, stage = [], ground.gp_sectors
+    ground.gp_sectors = lambda *a: seen.append(a[:3]) or stage(*a)
+    try:
+        ground.segment_ground(cloud_from_xyz(xyz, valid=valid), gcfg)
+    finally:
+        ground.gp_sectors = stage
+    return seen[-1]
+
+
+def gp_slots(count, proto_r, proto_h, gcfg, C):
+    """The plain version's slots: (heights, ranges, valid) (B, S, C)."""
+    valid = count > gcfg.min_bin_points
+    order = torch.argsort(torch.where(valid, proto_h, float("inf")), -1,
+                          stable=True)[..., :C]
+    return (torch.gather(proto_h, -1, order), torch.gather(proto_r, -1, order),
+            torch.gather(valid, -1, order))
+
+
+def gp_gate_margins(ops, m, gcfg):
+    """Each slot's distance from its inlier gates in one plain sweep on the
+    model m (B, S, C): min(||met| - data_confidence|, |v -
+    model_confidence|), the system as gp_sectors_reference builds it."""
+    from slam_tpu_torch.ops import ground, linalg
+    count, proto_r, proto_h = ops
+    C = m.shape[-1]
+    h, r, _ = gp_slots(count, proto_r, proto_h, gcfg, C)
+    K = ground._gp_kernel(r, gcfg)
+    mf = m.to(K.dtype)
+    M = K * mf[..., :, None] * mf[..., None, :] + torch.diag_embed(
+        gcfg.gp_noise * mf + (1.0 - mf))
+    rhs = torch.cat([(h * mf)[..., None], (K * mf[..., None, :]).mT], -1)
+    Y = linalg.forward_substitute(linalg.cholesky(M), rhs)
+    f = (Y[..., 1:] * Y[..., :1]).sum(-2)
+    v = gcfg.gp_signal_var - (Y[..., 1:] ** 2).sum(-2)
+    met = (h - f) / torch.sqrt(gcfg.gp_noise + v * v)
+    return torch.minimum((met.abs() - gcfg.gp_data_confidence).abs(),
+                         (v - gcfg.gp_model_confidence).abs())
+
+
+def gp_plain_sweeps(ops, gcfg) -> dict:
+    """The plain version cut at 0, 1, ... max_insac_sweeps sweeps, and
+    from those runs alone the sweeps each sector needs ((B, S): the kernel's
+    own count where the two agree) and each needed sweep's model size (a
+    (B, S) tensor a sweep, 0 where the sector had stopped)."""
+    from slam_tpu_torch.ops import ground
+    count = ops[0]
+    B, S, L = count.shape
+    runs = [ground.gp_sectors_reference(*ops, dataclasses.replace(
+        gcfg, max_insac_sweeps=k)) for k in range(gcfg.max_insac_sweeps + 1)]
+    n_valid = runs[0].table[:, :-1, 0].reshape(B, S, L).sum(-1)
+    size = [r.model_mask.sum(-1) for r in runs]
+    active = runs[0].sector_sufficient & (n_valid > size[0])
+    sweeps = torch.zeros(B, S, dtype=torch.int64, device=count.device)
+    sizes = []
+    for k in range(1, len(runs)):
+        sizes.append(torch.where(active, size[k - 1], 0))
+        sweeps += active
+        active = active & (size[k] > size[k - 1]) & (n_valid > size[k])
+    return dict(runs=runs, sweeps=sweeps, sizes=sizes)
+
+
+def gp_work(ops, gcfg, sizes) -> tuple:
+    """(bytes, operations) the sector stage needs on these operands: the
+    bins read once and the table, masks and heights written once; a sweep
+    on n model slots factors n x n (n^3 / 3), substitutes C + 1 columns
+    ((C + 1) n^2), sums f and v (4 n C) and evaluates n (n + 1) / 2 + n (C +
+    1) kernel entries."""
+    count = ops[0]
+    B, S, L = count.shape
+    C = min(gcfg.signal_capacity, L)
+    moved = 3 * 4 * B * S * L + 4 * 5 * B * (S * L + 1) + 5 * B * S * C + \
+        B * S
+    ops_n = 0.0
+    for n in sizes:
+        n = n.double()
+        ops_n += float((n ** 3 / 3 + (C + 1) * n * n + 4 * n * C +
+                        GP_EXP_OPS * (n * (n + 1) / 2 + n * (C + 1))).sum())
+    return moved, ops_n
+
+
+def gp_agreement(ops, gcfg) -> dict:
+    """gp_sectors (the kernel, one counted launch) against the plain version
+    on the same operands: slots (model mask, or f_s beyond GP_F_TOL) and
+    bins (table rows: flags and prototype exact, f beyond GP_F_TOL) that
+    differ, in sectors whose first differing sweep was a near-tie (every
+    slot that differs there within GP_TIE of its gate) and in the others;
+    the largest f_s difference in sectors whose masks agree; the sweeps the
+    kernel counted (under a profiler) against those the plain version's
+    runs need."""
+    from slam_tpu_torch.ops import ground
+    from slam_tpu_torch.utils import profiling
+    plain = gp_plain_sweeps(ops, gcfg)
+    runs = plain["runs"]
+    want = runs[-1]
+    before = counter("ground.launches")
+    got = ground.gp_sectors(*ops, gcfg)
+    launches = counter("ground.launches") - before
+    ctr = profiling.device_counter("ground.gp_sweeps", ops[0].device)
+    start = int(ctr.item())
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        again = ground.gp_sectors(*ops, gcfg)
+    torch.cuda.synchronize()
+    counted = int(ctr.item()) - start
+    repeat_equal = all(same_bits(a.float(), b.float())
+                       for a, b in zip(got, again))
+    B, S, C = want.model_mask.shape
+    L = ops[0].shape[-1]
+    slot_bad = (got.model_mask != want.model_mask) | \
+        ((got.f_s - want.f_s).abs() > GP_F_TOL)
+    gt = got.table[:, :-1].reshape(B, S, L, 5)
+    wt = want.table[:, :-1].reshape(B, S, L, 5)
+    bin_bad = (gt[..., [0, 1, 2, 4]] != wt[..., [0, 1, 2, 4]]).any(-1) | \
+        ((gt[..., 3] - wt[..., 3]).abs() > GP_F_TOL)
+    sector_bad = slot_bad.any(-1) | bin_bad.any(-1) | \
+        (got.sector_sufficient != want.sector_sufficient)
+    tie = torch.zeros(B, S, dtype=torch.bool, device=sector_bad.device)
+    pending = sector_bad.clone()
+    for k in range(1, len(runs)):
+        if not bool(pending.any()):
+            break
+        cut = ground.gp_sectors(*ops, dataclasses.replace(
+            gcfg, max_insac_sweeps=k))
+        first = pending & (cut.model_mask != runs[k].model_mask).any(-1)
+        if bool(first.any()):
+            near = gp_gate_margins(ops, runs[k - 1].model_mask, gcfg) < GP_TIE
+            flipped = cut.model_mask != runs[k].model_mask
+            tie |= first & (~flipped | near).all(-1)
+            pending &= ~first
+    agree = (got.model_mask == want.model_mask).all(-1)
+    f_err = float((got.f_s - want.f_s).abs()[agree].max()) if bool(
+        agree.any()) else 0.0
+    return dict(
+        sectors=B * S, slots_tie=int((slot_bad & tie[..., None]).sum()),
+        slots_other=int((slot_bad & ~tie[..., None]).sum()),
+        bins_tie=int((bin_bad & tie[..., None]).sum()),
+        bins_other=int((bin_bad & ~tie[..., None]).sum()),
+        sufficient_mismatch=int((got.sector_sufficient !=
+                                 want.sector_sufficient).sum()),
+        f_err=f_err, launches=launches, repeat_equal=repeat_equal,
+        sweeps_counted=counted, sweeps_plain=int(plain["sweeps"].sum()),
+        sweeps_max=int(plain["sweeps"].max()),
+        model_slots=int(want.model_mask.sum()),
+        finite=bool(torch.isfinite(got.f_s).all()), plain=plain)
+
+
+def gp_ok(a) -> bool:
+    """No differing slot or bin outside a near-tie, sufficiency equal,
+    f_s within GP_F_TOL, one launch, the same bits on a repeat, and the
+    counted sweeps those the plain version's runs need where nothing
+    differs."""
+    clean = a["slots_tie"] == 0 and a["bins_tie"] == 0
+    return (a["slots_other"] == 0 and a["bins_other"] == 0
+            and a["sufficient_mismatch"] == 0 and a["f_err"] <= GP_F_TOL
+            and a["launches"] == 1 and a["repeat_equal"] and a["finite"]
+            and (not clean or a["sweeps_counted"] == a["sweeps_plain"]))
+
+
+def ground_cases() -> dict:
+    """gp_agreement on HDL-32E scans (GROUND_CHECKS robots, 72 x 200, C =
+    64, 10 sweeps) and sim3d's (16 x 32, C = 32, 8 sweeps), and on ramp
+    clouds at the reference grid with 64 and 128 slots and at sim3d's."""
+    from slam_tpu_torch.config import ref_scale_config, sim3d_config
+    grids = {"ref": ref_scale_config().ground, "hdl32e":
+             ref_scale_config().ground, "sim3d": sim3d_config().ground}
+    sims = {"hdl32e": hdl32e_sim(), "sim3d": sim3d_config().sim}
+    out = {}
+    for i, (label, B) in enumerate(GROUND_CHECKS):
+        xyz, valid = ground_scans(sims[label], B, 60 + i)
+        out[f"{label} scans B={B}"] = gp_agreement(
+            ground_operands(xyz, valid, grids[label]), grids[label])
+    for i, (label, C, B) in enumerate(RAMP_CHECKS):
+        gcfg = dataclasses.replace(grids[label], signal_capacity=C)
+        xyz, valid = ramp_scans(gcfg, B, 70 + i)
+        out[f"{label} ramps C={C} B={B}"] = gp_agreement(
+            ground_operands(xyz, valid, gcfg), gcfg)
+    return out
+
+
+def ground_phase() -> dict:
+    """[ground]: the sector stage at the HDL-32E fleet's shapes
+    (GROUND_FLEET robots, 72 x 200 bins, C = 64, 10 sweeps, its upright
+    scans): the kernel's call (gp_sectors) and its C entry point alone
+    against the plain version and the bound of the work these operands
+    need; segment_ground whole with each, its device operations and the
+    kernel's launches a call; agreement; then ground_cases, gated."""
+    from slam_tpu_torch import cuda_build
+    from slam_tpu_torch.config import ref_scale_config
+    from slam_tpu_torch.ops import ground
+    from slam_tpu_torch.types import cloud_from_xyz
+    gcfg = ref_scale_config().ground
+    xyz, valid = ground_scans(hdl32e_sim(), GROUND_FLEET, 51)
+    ops = ground_operands(xyz, valid, gcfg)
+    cloud = cloud_from_xyz(xyz, valid=valid)
+    out = {"agreement": gp_agreement(ops, gcfg)}
+    out["kernel_ms"] = cuda_ms(lambda: ground.gp_sectors(*ops, gcfg),
+                               reps=20)
+    out["plain_ms"] = cuda_ms(lambda: ground.gp_sectors_reference(*ops, gcfg),
+                              reps=5)
+    kept, check = [], cuda_build.check_operands
+    cuda_build.check_operands = lambda name, t, *a, **k: (
+        kept.append(t), check(name, t, *a, **k))[1]
+    try:
+        res, alone = replay(cuda_build.library(), "slam_ground_gp",
+                            lambda: ground.gp_sectors(*ops, gcfg))
+    finally:
+        cuda_build.check_operands = check
+    out["alone_ms"] = kernel_ms(alone)
+    del res, kept
+    stage = ground.gp_sectors
+    out["seg_ms"] = cuda_ms(lambda: ground.segment_ground(cloud, gcfg),
+                            reps=10)
+    before = counter("ground.launches")
+    ground.segment_ground(cloud, gcfg)
+    out["launches_a_call"] = counter("ground.launches") - before
+    out["seg_ops"] = device_ops(lambda: ground.segment_ground(cloud, gcfg))
+    ground.gp_sectors = ground.gp_sectors_reference
+    try:
+        out["seg_plain_ms"] = cuda_ms(
+            lambda: ground.segment_ground(cloud, gcfg), reps=5)
+        out["seg_plain_ops"] = device_ops(
+            lambda: ground.segment_ground(cloud, gcfg))
+    finally:
+        ground.gp_sectors = stage
+    moved, n_ops = gp_work(ops, gcfg, out["agreement"]["plain"]["sizes"])
+    out["bound"] = bound(moved, n_ops)
+    out["sweeps"] = out["agreement"]["plain"]["sweeps"].double().mean()
+    out["cases"] = ground_cases()
+    bad = {k: {x: y for x, y in v.items() if x != "plain"}
+           for k, v in [("fleet", out["agreement"]), *out["cases"].items()]
+           if not gp_ok(v)}
+    if bad or out["launches_a_call"] != 1:
+        raise RuntimeError(f"[ground] the GP kernel disagrees with its plain "
+                           f"version or did not launch once a call "
+                           f"({out['launches_a_call']}): {bad}")
+    return out
+
+
 def check_fit_counters() -> dict:
     """K1 and K3 with their fit-iteration counter set (under a profiler,
     which is when utils/profiling passes its address) against the same
@@ -1544,7 +1856,8 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     torch.cuda.synchronize()
     counts = {"K1": counter("k1.launches"), "K3": counter("k3.launches"),
               "K4": counter("k4.launches"),
-              "raycast3d": counter("raycast3d.launches")}
+              "raycast3d": counter("raycast3d.launches"),
+              "ground": counter("ground.launches")}
     ms = e0.elapsed_time(e1) / ticks
     if est.shape != (fleet, ticks, 4):
         raise RuntimeError(f"{label} trajectory shape {tuple(est.shape)}")
@@ -1559,11 +1872,12 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
     ok_share = float(reg_ok.float().mean())
     scene_pts = float(state.prev_scene.valid.sum(-1).float().mean())
     map_pts = float(state.map_cloud.valid.sum(-1).float().mean())
-    if counts[kernel] < ticks or counts["raycast3d"] != ticks:
+    if counts[kernel] < ticks or counts["raycast3d"] != ticks or \
+            counts["ground"] != ticks:
         raise RuntimeError(f"{label}: {kernel} launched {counts[kernel]} "
-                           f"times and the raycast kernel "
-                           f"{counts['raycast3d']} in {ticks} ticks "
-                           f"({counts})")
+                           f"times, the raycast kernel "
+                           f"{counts['raycast3d']} and the ground GP kernel "
+                           f"{counts['ground']} in {ticks} ticks ({counts})")
     if not med < ate_limit or not z_err < z_limit:
         raise RuntimeError(f"{label}: median ATE {med} m (limit {ate_limit}),"
                            f" mean |z error| {z_err} m (limit {z_limit})")
@@ -1580,7 +1894,7 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
           f"{state.prev_scene.capacity} points and target {map_pts:.1f} of "
           f"{state.map_cloud.capacity} (robot mean); launches {counts} | "
           f"{card}", flush=True)
-    return counts[kernel], counts["raycast3d"]
+    return counts[kernel], counts["raycast3d"], counts["ground"]
 
 
 def count_syncs(fn):
@@ -5288,6 +5602,28 @@ def main(argv=None) -> int:
                     f"{v['grazing_mismatch']}, {v['range_err']:.3g} m, "
                     f"{v['launches']}" for k, v in ray["cases"].items()) +
           f" | {card}", flush=True)
+    gnd = ground_phase()
+    ga = gnd["agreement"]
+    print(f"[ground] B={GROUND_FLEET} HDL-32E scans, 72 x 200 bins, C=64, "
+          f"{ga['sweeps_max']} sweeps at most ({float(gnd['sweeps']):.3f} a "
+          f"sector, kernel counted {ga['sweeps_counted']}, plain runs "
+          f"{ga['sweeps_plain']}; {ga['model_slots']} model slots): sector "
+          f"stage call {gnd['kernel_ms']:.4f} ms, kernel alone "
+          f"{gnd['alone_ms']:.4f} ms, plain {gnd['plain_ms']:.4f} ms, bound "
+          f"{gnd['bound'][0]:.6f} ms ({gnd['bound'][1]}); segment_ground "
+          f"{gnd['seg_ms']:.4f} ms ({ops_text(gnd['seg_ops']['n'])} device "
+          f"ops), with the plain stage {gnd['seg_plain_ms']:.4f} ms "
+          f"({ops_text(gnd['seg_plain_ops']['n'])}); ground.launches "
+          f"{gnd['launches_a_call']} a call; slots / bins differing off "
+          f"near-ties {ga['slots_other']} / {ga['bins_other']}, at near-ties "
+          f"{ga['slots_tie']} / {ga['bins_tie']}, max f_s err "
+          f"{ga['f_err']:.3g} m (bound {GP_F_TOL}); cases (slots / bins off "
+          f"near-ties, at near-ties, max f_s err, sweeps max, launches): " +
+          "; ".join(f"{k} {v['slots_other']} / {v['bins_other']}, "
+                    f"{v['slots_tie']} / {v['bins_tie']}, {v['f_err']:.3g}, "
+                    f"{v['sweeps_max']}, {v['launches']}"
+                    for k, v in gnd["cases"].items()) +
+          f" | {card}", flush=True)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -5389,13 +5725,14 @@ def main(argv=None) -> int:
     # [time]'s required device-op counts, before any large profiler
     # session can leave torch.profiler blind (device_ops)
     ops_a_call = call_ops(pf, fcfg.pf)
-    launches["K1 (config 2)"], ray3d = rollout_3d_phase(
+    launches["K1 (config 2)"], ray3d, gnd3d = rollout_3d_phase(
         cfg_mod.sim3d_config(), FLEET_3D, TICKS_3D, gen, card, "3d", "K1",
         10, ATE_3D_LIMIT, 15, Z_3D_LIMIT)
-    launches["K3"], ray_ref = rollout_3d_phase(
+    launches["K3"], ray_ref, gnd_ref = rollout_3d_phase(
         ref_cfg, FLEET_REF, TICKS_REF, gen, card, "ref", "K3", 4,
         ATE_REF_LIMIT, 4, Z_REF_LIMIT, OK_REF_SHARE)
     launches["raycast3d"] = ray3d + ray_ref
+    launches["ground"] = gnd3d + gnd_ref
     graph = graph_phase(world, gen, card)
     launches["K2"] += graph["launches"]["K2"]
     launches["K4"] += graph["launches"]["K4"]
@@ -5600,6 +5937,10 @@ def main(argv=None) -> int:
                "slam_tpu_torch/csrc/raycast3d.cu", None, "raycast3d",
                max(v["range_err"] for v in (ra, *ray["cases"].values())),
                ray["kernel_ms"], ray["plain_ms"], ray["bound"]),
+        record("ground.gp_sectors (GP-INSAC's sector stage)",
+               "slam_tpu_torch/csrc/ground_gp.cu", None, "ground",
+               max(v["f_err"] for v in (ga, *gnd["cases"].values())),
+               gnd["kernel_ms"], gnd["plain_ms"], gnd["bound"]),
     ]}))
     print(device_json(name))
     return 0

@@ -46,6 +46,8 @@ _SIGNATURES = {
                                                            _P],
     "slam_raycast3d": [_P, _L, _L, _L] + [_P] * 10 + [_I] * 6 + [_F, _F,
                                                                   _P],
+    "slam_ground_gp": [_P] * 3 + [_L] + [_P] * 5 + [_I] * 6 + [_F] * 8 +
+                      [_P],
 }
 
 # dynamic shared memory one block may use on sm_90

@@ -342,16 +342,11 @@ def k3_scratch_shapes(B, S, C):
 
 
 def _fit_counter(kernel: str, B: int, dev):
-    """The address K1 / K3 add their robots' fit iterations to: the device
-    counter `<kernel>.fit_iterations` while a profiler records, its
-    `<kernel>.fit_problems` counting the B robots on the host; None (the
-    kernel counts nothing) otherwise. The counter is made at the first
-    call, so that no fill of it lands in a profiled slice."""
-    ctr = profiling.device_counter(f"{kernel}.fit_iterations", dev)
-    if not profiling.recording():
-        return None
-    profiling.count(f"{kernel}.fit_problems", B)
-    return ctr.data_ptr()
+    """The address K1 / K3 add their robots' fit iterations to (the device
+    counter `<kernel>.fit_iterations`, `<kernel>.fit_problems` counting
+    the B robots) while a profiler records; None otherwise."""
+    return profiling.recorded_counter(f"{kernel}.fit_iterations",
+                                      f"{kernel}.fit_problems", B, dev)
 
 
 def _kernel_slab(sx, sy, sc, mx, my, mc, init4, cfg, packed):

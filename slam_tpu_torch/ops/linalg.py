@@ -1,8 +1,9 @@
 """Small-matrix linear algebra — counterpart of slam_tpu/ops/linalg.py:
 `inv3` for the EKF's 3x3 innovation covariance and the edge information,
-and the batched SPD solves of the ground segmentation's GP and the pose
-graph's Gauss-Newton step (`cholesky`, `forward_substitute`,
-`back_substitute`, `cho_solve`).
+and the batched SPD solves of the ground segmentation GP's plain version
+(`ops/ground.py` `gp_sectors_reference`; on the card the GP runs in its
+own kernel) and the pose graph's Gauss-Newton step (`cholesky`,
+`forward_substitute`, `back_substitute`, `cho_solve`).
 
 The JAX package unrolls Cholesky and substitution column by column because
 XLA's TPU lowering of small batched factorizations is slow; here each is one

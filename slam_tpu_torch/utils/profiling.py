@@ -26,11 +26,14 @@ The port's spans and counters, in one place:
     return before they finish
 
 Counter names: `k1.launches`, `k2.launches`, `k3.launches`, `k4.launches`,
-`k5.launches`, `k5.pack_launches`, `raycast3d.launches` (kernel launches
-on the card path);
+`k5.launches`, `k5.pack_launches`, `raycast3d.launches`,
+`ground.launches` (kernel launches on the card path);
 `k1.fit_iterations` / `k3.fit_iterations` (device: every robot's fit
 iterations, added by K1 and K3 while a profiler records) and
 `k1.fit_problems` / `k3.fit_problems` (robots in those calls);
+`ground.gp_sweeps` (device: the INSAC sweeps of every (robot, sector),
+added by the ground GP kernel while a profiler records) and
+`ground.gp_problems` (the sectors of those calls);
 `icp.fit_iterations` (steps of icp_fit's loop, one a step of the batch,
 and of the live consumer's loop); `live.frames` and `live.ring_wait_ns`
 (frames popped from a FrameRing and their time from publish to pop),
@@ -96,6 +99,19 @@ def device_counter(name: str, device) -> torch.Tensor:
     if t is None:
         t = _device[key] = torch.zeros(1, dtype=torch.int64, device=device)
     return t
+
+
+def recorded_counter(name: str, problems: str, n: int, device):
+    """The address a kernel adds its counts of `name` to: the device
+    counter `name` while a profiler records, with the host counter
+    `problems` counting the call's n problems; None (the kernel counts
+    nothing) otherwise. The device counter is made at the first call, so
+    that no fill of it lands in a profiled slice."""
+    ctr = device_counter(name, device)
+    if not recording():
+        return None
+    count(problems, n)
+    return ctr.data_ptr()
 
 
 def counters() -> dict:

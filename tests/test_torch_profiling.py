@@ -3,8 +3,9 @@ CPU: `stage` opens no range unless a profiler records; one 2D and one 3D
 macro under a CPU profile show every stage span, nested under their tick
 and rollout; the counter registry; the live consumer's counters (its fit
 iterations and host reads, the ring's frames and wait, drain's empty
-polls); and `attribute`, the chrome-trace reduction profile_tick prints,
-on a hand-built trace. On the card only: the counted host reads against
+polls); `recorded_counter`, the address a kernel counts into while a
+profiler records; and `attribute`, the chrome-trace reduction
+profile_tick prints, on a hand-built trace. On the card only: the counted host reads against
 the syncs torch.cuda.set_sync_debug_mode sees (K1's and K3's device
 counters: tests/test_torch_kernels_cuda.py)."""
 
@@ -83,6 +84,24 @@ def test_a_2d_and_a_3d_macro_show_every_span_nested(tmp_path):
     got = profiled_spans(lambda: slam3d.rollout_3d(s3, w3, gm, c3, 4, gen),
                          tmp_path)
     assert got == set(STAGES_3D.items())
+
+
+def test_recorded_counter_only_while_a_profiler_records():
+    """A kernel gets its device counter's address, and the call's problems
+    are counted, only inside a profiler session; the counter is made (and
+    zeroed) at the first call either way."""
+    before = profiling.count_of("test.problems")
+    assert profiling.recorded_counter("test.steps", "test.problems", 3,
+                                      "cpu") is None
+    assert profiling.count_of("test.problems") == before
+    ctr = profiling.device_counter("test.steps", "cpu")
+    assert int(ctr.item()) == 0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        ptr = profiling.recorded_counter("test.steps", "test.problems", 3,
+                                         "cpu")
+    assert ptr == ctr.data_ptr()
+    assert profiling.count_of("test.problems") == before + 3
 
 
 def test_counter_registry():

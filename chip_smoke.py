@@ -86,11 +86,17 @@ non-zero:
              tick)
 11. 3d     — config 2: slam3d.rollout_3d at sim3d_config, B=128, 40 ticks
              with the "fused" matcher (K1) after a warm-up macro; ms/tick,
-             robot-steps/s, K1 launches, median per-robot ATE, mean |z error|
+             robot-steps/s, K1 launches, median per-robot ATE, mean |z error|;
+             and the tick's CUDA graphs (graph_check): two macros graphed
+             against the plain stages, equal in bits on every tensor two
+             plain runs repeat in bits, poses within 6e-3 m; the host's
+             dispatches a tick with and without the graphs, peak memory,
+             capture time
 12. ref    — config 2 at ref_scale_config (20,480-ray scans, scene 4096,
              map 40,960: the "fused" matcher takes K3), B=16, 16 ticks after
              a warm-up macro; ms/tick, robot-steps/s, K3 launches, ATE, z
-             error and the share of ticks whose registration succeeded
+             error and the share of ticks whose registration succeeded;
+             graph_check as [3d]
 13. graph  — config 4: slam2d.rollout_with_graph at sim2d_graph_config
              (bench.py's config 4 shapes: 32 keyframes of 384 points, 128
              edges, "grid" regeneration on 256 x 256 cells), B=256, a
@@ -1886,15 +1892,107 @@ def rollout_3d_phase(cfg, fleet, ticks, gen, card, label, kernel, skip,
                            f"{ok_share} of ticks (want >= {ok_share_min})")
     if int((gm.grid.count > 0).sum()) < fleet * 100:
         raise RuntimeError(f"{label}: the ground maps stayed empty")
+    graphs = graph_check(label, cfg, world, state, gm, gen)
     print(f"[{label}] config 2 B={fleet} {ticks} ticks: {ms:.3f} ms/tick, "
           f"{fleet * 1000.0 / ms:.1f} robot-steps/s, median ATE {med:.4f} m "
           f"(ticks>={skip}, {float(ate.max()):.4f} max), mean |z error| "
           f"{z_err:.4f} m (ticks>={z_skip}), registration ok share "
           f"{ok_share:.4f}, last scene {scene_pts:.1f} of "
           f"{state.prev_scene.capacity} points and target {map_pts:.1f} of "
-          f"{state.map_cloud.capacity} (robot mean); launches {counts} | "
-          f"{card}", flush=True)
+          f"{state.map_cloud.capacity} (robot mean); launches {counts}; "
+          f"{graphs} | {card}", flush=True)
     return counts[kernel], counts["raycast3d"], counts["ground"]
+
+
+def graphed_3d_stages() -> dict:
+    """slam3d's names bound to graphed functions (utils/graphed.py)."""
+    from slam_tpu_torch.pipeline import slam3d
+    return {n: f for n, f in vars(slam3d).items() if hasattr(f, "graphs")}
+
+
+def plain_3d(fn):
+    """fn() with slam3d's graphed stages swapped for their plain
+    functions: the eager path the graphs are held to."""
+    from slam_tpu_torch.pipeline import slam3d
+    stages = graphed_3d_stages()
+    for n, f in stages.items():
+        setattr(slam3d, n, f.__wrapped__)
+    try:
+        return fn()
+    finally:
+        for n, f in stages.items():
+            setattr(slam3d, n, f)
+
+
+def host_dispatches(fn) -> int:
+    """The launches, graph launches, copies and fills the host dispatches
+    in fn(): CUDA runtime calls under torch.profiler."""
+    kinds = ("LaunchKernel", "GraphLaunch", "Memcpy", "Memset")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.name.startswith(("cuda", "cu"))
+               and any(k in e.name for k in kinds))
+
+
+def graph_check(label, cfg, world, state, gm, gen) -> str:
+    """[3d] / [ref]: two macros of slam3d.rollout_3d from (state, gm) and
+    one generator state, graphed and plain (twice). Every tensor of the
+    result that the two plain runs give alike in bits, the graphed run
+    gives alike too; the others hold the maps' float atomics, whose order
+    varies from run to run in both forms, and there the graphed poses stay
+    within 6e-3 m (the HDL-32E cell's pose_m limit) of the plain ones.
+    Readings: the elements that differ where the plain runs agree, the
+    host's dispatches a tick with and without the graphs, the peak memory
+    of graphed and plain macros, and the time the captures took."""
+    from slam_tpu_torch.pipeline import slam3d
+    from slam_tpu_torch.utils.graphed import flatten
+    start = gen.get_state()
+
+    def run(macros=2):
+        gen.set_state(start)
+        return slam3d.rollout_3d(state, world, gm, cfg, 4 * macros, gen)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    got = flatten(run())[0]
+    plain = [flatten(plain_3d(run))[0] for _ in range(2)]
+    differ = noisy = total = 0
+    for i, (g, a, b) in enumerate(zip(got, *plain)):
+        same = (a == b) | ((a != a) & (b != b))
+        g, a = g[same], a[same]
+        off = int(((g != a) & ~((g != g) & (a != a))).sum())
+        total += a.numel()
+        if bool(same.all()):
+            differ += off
+        else:
+            noisy += off
+    # the estimates (B, 8, 4) lead rollout_3d's (est, true, reg_ok)
+    pose_gap = float((got[-3] - plain[0][-3])[..., [0, 1, 3]].norm(
+        dim=-1).max())
+    if differ or not pose_gap <= 6e-3:
+        raise RuntimeError(f"{label}: graphed rollout_3d differs from the "
+                           f"plain stages in {differ} elements of tensors "
+                           f"two plain runs repeat in bits; pose gap "
+                           f"{pose_gap} m")
+    ops = host_dispatches(lambda: run(1)) / 4
+    ops_plain = host_dispatches(lambda: plain_3d(lambda: run(1))) / 4
+    mem, mem_plain = peak(run), peak(lambda: plain_3d(run))
+    secs = sum(g.capture_s for f in graphed_3d_stages().values()
+               for g in f.graphs.values())
+    return (f"graphs: tensors the plain stages repeat equal in bits, "
+            f"{noisy} of {total} elements apart where the plain runs agree "
+            f"(float atomics), pose gap {pose_gap:.3g} m; host dispatches "
+            f"a tick {ops:.1f} (plain {ops_plain:.1f}), peak {mem:.2f} GB "
+            f"(plain {mem_plain:.2f}), captures {secs:.3f} s")
 
 
 def count_syncs(fn):

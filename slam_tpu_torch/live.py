@@ -47,7 +47,7 @@ from slam_tpu_torch.ops.voxel import crop_box
 from slam_tpu_torch.pipeline import slam2d
 from slam_tpu_torch.sim import world2d
 from slam_tpu_torch.types import make_cloud
-from slam_tpu_torch.utils import profiling
+from slam_tpu_torch.utils import graphed, profiling
 
 
 def init_carry(cfg, device=None):
@@ -148,7 +148,8 @@ class GraphedStep:
     update. That is icp_fit's "while" form whatever cfg.icp.loop says:
     the loop is this class's own, and its early exit is what keeps a
     frame short. The same kernels on the same values as consume (but for
-    the order of the map fold's float atomics).
+    the order of the map fold's float atomics). Warm-up and capture are
+    utils/graphed.py's.
 
     A call's spans (utils/profiling.py) go around the replays: `live.pre`,
     one `live.iteration` a pass of the loop (the converged read, K4 and
@@ -165,27 +166,20 @@ class GraphedStep:
             if isinstance(getattr(c, f.name), torch.Tensor)})
             for c in carry)
         start = [t.clone() for t in _tensors(self.carry)]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):       # capture wants a warm stream
-            for _ in range(2):
-                self.pre = self._pre()
-                self._iterate(self._place, self._update)
-                self._post()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.g_pre, self.g_place, self.g_update, self.g_post = (
-            torch.cuda.CUDAGraph() for _ in range(4))
-        with torch.cuda.graph(self.g_pre):
+
+        def step():
             self.pre = self._pre()
-        with torch.cuda.graph(self.g_place):
-            self.q = self._place()
+            self._iterate(self._place, self._update)
+            self._post()
+        graphed.warm_up(step, dev)
+        self.g_pre, self.pre = graphed.capture(self._pre)
+        self.g_place, self.q = graphed.capture(self._place)
         S = self.q.shape[-2]
         self.idx = torch.zeros(1, S, dtype=torch.int32, device=dev)
         self.d2 = torch.zeros(1, S, device=dev)
-        with torch.cuda.graph(self.g_update):
-            self._update(self.q, self.idx, self.d2)
-        with torch.cuda.graph(self.g_post):
-            self.fused = self._post()
+        self.g_update, _ = graphed.capture(
+            lambda: self._update(self.q, self.idx, self.d2))
+        self.g_post, self.fused = graphed.capture(self._post)
         for t, s0 in zip(_tensors(self.carry), start):
             t.copy_(s0)
 

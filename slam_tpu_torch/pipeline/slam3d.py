@@ -26,6 +26,18 @@ sample the state carries in prev_ground) per cfg.graph.
 On a CPU tensor each kernel's plain PyTorch version runs; "fused" is never
 swapped for "points".
 
+On the card a tick's deterministic stages replay from CUDA graphs
+(utils/graphed.py): the drive and the IMU, the frame's masking and
+compensation, the EKF's predict and update, the scene build after the
+ground segmentation, the height, the maps' updates, shifts and exports,
+and the glue between them, each under the name the tick calls it by
+(update_point_map_xy, add_to_occupancy_xy2, shift_point_map,
+shift_origin, export_point_planes, export_points are this module's
+graphed bindings). The raycast and the noise draws (the caller's
+generator), segment_ground and registration (which count their launches
+and iterations) stay plain calls between the graphs. Split by rows, under
+nan_debug or with metrics on, every stage is a plain call.
+
 Split by rows over an sp group (parallel/rows.py), the obstacle point
 map, the occupancy grid and the ground map's grid hold this rank's slab;
 the field, the height window and the exports read them through the sp
@@ -43,13 +55,9 @@ from __future__ import annotations
 import torch
 
 from slam_tpu_torch.geometry import rp_compensate, se2_apply_xy
-from slam_tpu_torch.mapping.occupancy import (add_to_occupancy_xy2,
-                                              shift_origin)
-from slam_tpu_torch.mapping.point_map import (export_point_planes,
-                                              export_points, init_point_map,
-                                              offset_point_map_z,
-                                              shift_point_map,
-                                              update_point_map_xy)
+from slam_tpu_torch.mapping import occupancy, point_map
+from slam_tpu_torch.mapping.point_map import init_point_map, \
+    offset_point_map_z
 from slam_tpu_torch.models import ekf as ekf_mod
 from slam_tpu_torch.ops.classify import classify_ga_planes
 from slam_tpu_torch.ops.grid_icp import icp_fit_grid, nearest_point_field
@@ -69,9 +77,19 @@ from slam_tpu_torch.sim import world2d, world3d
 from slam_tpu_torch.types import GroundMap, PointCloud, cloud_from_xyz, \
     make_cloud
 from slam_tpu_torch.utils import metrics
+from slam_tpu_torch.utils.graphed import graphed
 from slam_tpu_torch.utils.profiling import stage
 
 MATCHERS = ("fused", "points", "grid")
+
+# the maps' stages under the names the tick calls them by, replayed from
+# CUDA graphs on the card (utils/graphed.py)
+update_point_map_xy = graphed(point_map.update_point_map_xy)
+add_to_occupancy_xy2 = graphed(occupancy.add_to_occupancy_xy2)
+shift_point_map = graphed(point_map.shift_point_map)
+shift_origin = graphed(occupancy.shift_origin)
+export_point_planes = graphed(point_map.export_point_planes)
+export_points = graphed(point_map.export_points)
 
 
 def init_state_3d(cfg, batch: int, world: world3d.World3D, device=None,
@@ -128,25 +146,31 @@ def build_scene_3d_planes(scan_xyz: torch.Tensor, hit: torch.Tensor, cfg,
     cloud = cloud_from_xyz(scan_xyz, valid=hit)
     with stage("ground_seg"):
         seg = segment_ground(cloud, cfg.ground)
-    obstacle, ground, _ = split_ground_obstacle(seg.cloud)
-    x, y, z = scan_xyz.unbind(-1)
-    drv = ((seg.cloud.flags & PointCloud.FLAG_DRIVABLE) != 0).to(x.dtype)
-    builder = cfg.cloud.scene_builder
+    return _scene_planes(seg.cloud, cfg.cloud, cfg.icp, deterministic)
+
+
+@graphed
+def _scene_planes(seg: PointCloud, cloud_cfg, icp_cfg, deterministic: bool):
+    """build_scene_3d_planes' work after the ground segmentation `seg`."""
+    obstacle, ground, _ = split_ground_obstacle(seg)
+    x, y, z = seg.xyz.unbind(-1)
+    drv = ((seg.flags & PointCloud.FLAG_DRIVABLE) != 0).to(x.dtype)
+    builder = cloud_cfg.scene_builder
     if builder == "auto":
         builder = "grid" if x.shape[-1] > 4096 else "incidence"
     if builder == "grid":
         ox, oy, oz, oga, odrv, okeep = build_scene_grid_planes(
-            x, y, z, obstacle, drv, cfg.cloud.scene_capacity,
-            cfg.icp.ga_resolution, cfg.icp.scan_grid_bins,
-            cfg.icp.ga_threshold, deterministic=deterministic)
+            x, y, z, obstacle, drv, cloud_cfg.scene_capacity,
+            icp_cfg.ga_resolution, icp_cfg.scan_grid_bins,
+            icp_cfg.ga_threshold, deterministic=deterministic)
         return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
     (ox, oy, oz, odrv), ovalid = compact_planes((x, y, z, drv), obstacle,
-                                                cfg.cloud.scene_capacity)
+                                                cloud_cfg.scene_capacity)
     oga = classify_ga_planes(ox, oy, ovalid, torch.zeros_like(ox[:, :2]),
-                             cfg.icp.ga_num_bins, cfg.icp.ga_resolution,
-                             cfg.icp.ga_threshold)
+                             icp_cfg.ga_num_bins, icp_cfg.ga_resolution,
+                             icp_cfg.ga_threshold)
     (ox, oy, oz), okeep, (oga, odrv) = voxel_downsample_pairwise_planes(
-        ox, oy, oz, ovalid, (oga.to(x.dtype), odrv), cfg.icp.voxel_leaf_obs)
+        ox, oy, oz, ovalid, (oga.to(x.dtype), odrv), icp_cfg.voxel_leaf_obs)
     return (ox, oy, oz, oga, odrv, okeep), (x, y, z, ground)
 
 
@@ -230,22 +254,11 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
         # the nearest-centroid field reads the obstacle grid, which graph
         # mode does not keep
         matcher = "points"
-    dt = cfg.sim.dt
 
-    # non-finite points are misses; an incomplete scan masks every point
-    # (registration fails, the EKF dead-reckons, the maps stay)
-    hit = hit & torch.isfinite(scan_tilted).all(-1)
-    if cfg.cloud.min_scan_points > 0:
-        hit = hit & (hit.sum(-1, keepdim=True) >= cfg.cloud.min_scan_points)
-    roll = torch.where(torch.isfinite(roll), roll, 0.0)
-    pitch = torch.where(torch.isfinite(pitch), pitch, 0.0)
-    scan_xyz = rp_compensate(torch.where(hit[..., None], scan_tilted, 0.0),
-                             roll, pitch)
-
+    scan_xyz, hit, roll, pitch = _upright(scan_tilted, hit, roll, pitch,
+                                          cfg.cloud.min_scan_points)
     with stage("ekf"):
-        ekf = ekf_mod.motion_update(state.ekf, cmd, dt, cfg.ekf)
-        ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg.ekf)
-        pred = ekf_mod.pose_xyyaw(ekf)
+        ekf, pred = _predict(state.ekf, cmd, gyro, cfg.sim.dt, cfg.ekf)
 
     with stage("scene_build"):
         (ox, oy, oz, oga, odrv, ovalid), (gx, gy, gz, gvalid) = \
@@ -290,40 +303,25 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                               mean_residual=icp.mean_residual,
                               scene_points=scene_points)
     with stage("ekf"):
-        ekf = ekf_mod.slam_update(ekf, icp.pose, cfg.ekf, has_meas=icp.ok)
-        fused = ekf_mod.pose_xyyaw(ekf)
-    z_prev = state.pose[:, 3:4]
-    pose4_pre = torch.cat([fused, z_prev], -1)
-    map_pose = torch.cat([torch.where(icp.ok[:, None], icp.pose, pred),
-                          z_prev], -1)
+        ekf, fused, pose4_pre, map_pose = _correct(ekf, icp.pose, icp.ok,
+                                                   pred, state.pose, cfg.ekf)
     with stage("height"):
-        if cfg.height.source == "grid":
-            new_z = height_interpolate_grid(ground_map.grid, pose4_pre,
-                                            cfg.height)
-            have_map = occupied_cells(ground_map.grid) >= \
-                cfg.height.min_corr_points
-        else:
-            new_z = height_interpolate(ground_map.cloud, pose4_pre,
-                                       cfg.height)
-            have_map = ground_map.cloud.valid.sum(-1) >= \
-                cfg.height.min_corr_points
-        # with no ground map yet, this scan's own ground points at the pose
-        gwx, gwy = se2_apply_xy(map_pose[:, :3], gx, gy)
-        z_scan = height_interpolate_planes(gwx, gwy, gz + map_pose[:, 3:4],
-                                           gvalid, pose4_pre, cfg.height)
-        z = torch.where(have_map, new_z, z_scan)[:, None]
-    pose4 = torch.cat([fused, z], -1)
-    map_pose = torch.cat([map_pose[:, :3], z], -1)
-    gwz = gz + z
+        pose4, map_pose, gwx, gwy, gwz = _height(
+            ground_map, pose4_pre, map_pose, fused, gx, gy, gz, gvalid,
+            cfg.height)
 
     # map_update spans the grids' adds, map_macro their shifts and exports
     # (once a macro in the rollouts, which pass shift_maps and refresh_map
     # False)
+    grid = state.local_map
+    if shift_maps:
+        with stage("map_macro"):
+            grid = shift_origin(grid, fused[:, :2], cfg.mls)
+    owx, owy, owz, olx, oly, obstacle, glx, gly = _map_points(
+        map_pose, fused, grid.center, ox, oy, oz, odrv, ovalid, gx, gy)
     res = cfg.icp.voxel_leaf_obs[0]
     mg = state.map_grid
     if incremental_map:
-        owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
-        owz = oz + z
         if shift_maps:
             with stage("map_macro"):
                 mg = shift_point_map(mg, fused[:, :2], res)
@@ -342,23 +340,14 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
                                       ga_threshold=cfg.icp.ga_threshold)
             if cfg.height.source != "grid":
                 gnd_cloud = export_points(gg, gnd_cloud.capacity)
-
-    grid = state.local_map
-    if shift_maps:
-        with stage("map_macro"):
-            grid = shift_origin(grid, fused[:, :2], cfg.mls)
-    rel = torch.stack([fused[:, 0] - grid.center[:, 0],
-                       fused[:, 1] - grid.center[:, 1], fused[:, 2]], -1)
-    olx, oly = se2_apply_xy(rel, ox, oy)
-    glx, gly = se2_apply_xy(rel, gx, gy)
-    obstacle = ovalid & ~odrv
     with stage("map_update"):
         grid = add_to_occupancy_xy2(grid, olx, oly, obstacle, glx, gly,
                                     gvalid, cfg.mls)
 
     # both scene builders fill cfg.cloud.scene_capacity slots, the
     # capacity of state.prev_scene
-    prev_scene = _planes_to_cloud_3d(ox, oy, oz, oga, odrv, ovalid)
+    prev_scene, step, attitude = _frame_end(ox, oy, oz, oga, odrv, ovalid,
+                                            state.step, roll, pitch)
     prev_ground = state.prev_ground
     if prev_ground is not None:
         prev_ground = _ground_sample(gx, gy, gz, gvalid,
@@ -366,11 +355,93 @@ def process_frame_3d(state, ground_map: GroundMap, scan_tilted, hit, roll,
     new_state = state.replace(
         ekf=ekf, pose=pose4, scan_reg_pose=map_pose, scan_reg_ok=icp.ok,
         local_map=grid, prev_scene=prev_scene, map_cloud=map_cloud,
-        map_grid=mg, step=state.step + 1, metrics_ring=ring,
-        attitude=(None if state.attitude is None
-                  else torch.stack([roll, pitch], -1)),
+        map_grid=mg, step=step, metrics_ring=ring,
+        attitude=None if state.attitude is None else attitude,
         prev_ground=prev_ground)
     return new_state, GroundMap(grid=gg, cloud=gnd_cloud)
+
+
+# The glue and the EKF and height blocks of a tick, each one graph on the
+# card (utils/graphed.py); segment_ground, registration, the raycast and
+# the noise draws stay plain calls between them.
+
+@graphed
+def _upright(scan_tilted, hit, roll, pitch, min_scan_points: int):
+    """A frame's misses masked (non-finite points; with min_scan_points,
+    every point of an incomplete scan, so registration fails, the EKF
+    dead-reckons and the maps stay) and its scan turned upright: (scan
+    (B, N, 3), hit, roll, pitch), non-finite angles as 0."""
+    hit = hit & torch.isfinite(scan_tilted).all(-1)
+    if min_scan_points > 0:
+        hit = hit & (hit.sum(-1, keepdim=True) >= min_scan_points)
+    roll = torch.where(torch.isfinite(roll), roll, 0.0)
+    pitch = torch.where(torch.isfinite(pitch), pitch, 0.0)
+    scan_xyz = rp_compensate(torch.where(hit[..., None], scan_tilted, 0.0),
+                             roll, pitch)
+    return scan_xyz, hit, roll, pitch
+
+
+@graphed
+def _predict(ekf, cmd, gyro, dt: float, cfg):
+    """EKF predict and gyro update: (ekf, predicted pose (B, 3))."""
+    ekf = ekf_mod.motion_update(ekf, cmd, dt, cfg)
+    ekf = ekf_mod.yaw_rate_update(ekf, gyro, cfg)
+    return ekf, ekf_mod.pose_xyyaw(ekf)
+
+
+@graphed
+def _correct(ekf, icp_pose, icp_ok, pred, pose, cfg):
+    """EKF SLAM update: (ekf, fused (B, 3), the fused pose and the map
+    pose (registration's where it succeeded, else the prediction), both
+    at the last z (B, 4))."""
+    ekf = ekf_mod.slam_update(ekf, icp_pose, cfg, has_meas=icp_ok)
+    fused = ekf_mod.pose_xyyaw(ekf)
+    z_prev = pose[:, 3:4]
+    return (ekf, fused, torch.cat([fused, z_prev], -1),
+            torch.cat([torch.where(icp_ok[:, None], icp_pose, pred),
+                       z_prev], -1))
+
+
+@graphed
+def _height(ground_map: GroundMap, pose4_pre, map_pose, fused, gx, gy, gz,
+            gvalid, cfg):
+    """Wheel-contact height off the ground map (with no ground map yet,
+    off this scan's own ground points at the pose): (pose (B, 4), map
+    pose at the new z, the ground planes in the world (B, N) x3)."""
+    if cfg.source == "grid":
+        new_z = height_interpolate_grid(ground_map.grid, pose4_pre, cfg)
+        have_map = occupied_cells(ground_map.grid) >= cfg.min_corr_points
+    else:
+        new_z = height_interpolate(ground_map.cloud, pose4_pre, cfg)
+        have_map = ground_map.cloud.valid.sum(-1) >= cfg.min_corr_points
+    gwx, gwy = se2_apply_xy(map_pose[:, :3], gx, gy)
+    z_scan = height_interpolate_planes(gwx, gwy, gz + map_pose[:, 3:4],
+                                       gvalid, pose4_pre, cfg)
+    z = torch.where(have_map, new_z, z_scan)[:, None]
+    return (torch.cat([fused, z], -1), torch.cat([map_pose[:, :3], z], -1),
+            gwx, gwy, gz + z)
+
+
+@graphed
+def _map_points(map_pose, fused, center, ox, oy, oz, odrv, ovalid, gx, gy):
+    """The scene in the world at the map pose (owx, owy, owz), and the
+    scene and ground planes robot-centred, world-oriented about the
+    occupancy grid's centre, with the obstacles the occupancy counts:
+    (owx, owy, owz, olx, oly, obstacle, glx, gly)."""
+    owx, owy = se2_apply_xy(map_pose[:, :3], ox, oy)
+    rel = torch.stack([fused[:, 0] - center[:, 0],
+                       fused[:, 1] - center[:, 1], fused[:, 2]], -1)
+    olx, oly = se2_apply_xy(rel, ox, oy)
+    glx, gly = se2_apply_xy(rel, gx, gy)
+    return (owx, owy, oz + map_pose[:, 3:4], olx, oly, ovalid & ~odrv, glx,
+            gly)
+
+
+@graphed
+def _frame_end(ox, oy, oz, oga, odrv, ovalid, step, roll, pitch):
+    """(the scene as a cloud, the next step, the measured attitude)."""
+    return (_planes_to_cloud_3d(ox, oy, oz, oga, odrv, ovalid), step + 1,
+            torch.stack([roll, pitch], -1))
 
 
 def slam_step_3d_io(state, ground_map: GroundMap, scan_tilted, hit, roll,
@@ -395,28 +466,42 @@ def slam_step_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,
     ground_seg, scene_build, registration, height, map_update, map_macro)
     inside it."""
     with stage("slam3d.tick"):
-        dt = cfg.sim.dt
-        cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(state.step, dt), cfg.ekf)
-        true2 = world2d.unicycle_step(state.true_pose[:, :3], cmd, dt)
-        true_z = world3d.terrain_height(world, true2[:, :2]) + \
-            cfg.sim.sensor_height
-        roll, pitch = world3d.terrain_attitude(world, true2[:, :2])
+        cmd, true2, true_z, roll, pitch = _drive(state.step, state.true_pose,
+                                                 world, cfg.sim, cfg.ekf)
         with stage("raycast"):
             scan, hit = world3d.raycast(world, true2, cfg.sim,
                                         generator=generator, roll=roll,
                                         pitch=pitch)
         imu = torch.zeros_like(true2) if generator is None else \
-            cfg.sim.gyro_noise * torch.randn(true2.shape, generator=generator,
-                                             device=true2.device)
-        gyro = cmd[:, 2] + cfg.sim.gyro_bias + imu[:, 2]
+            torch.randn(true2.shape, generator=generator, device=true2.device)
+        roll, pitch, gyro = _imu(cmd, roll, pitch, imu, cfg.sim)
         state, gm = process_frame_3d(
-            state, ground_map, scan, hit, roll + imu[:, 0],
-            pitch + imu[:, 1] + cfg.sim.imu_pitch_bias, gyro, cmd, cfg,
+            state, ground_map, scan, hit, roll, pitch, gyro, cmd, cfg,
             refresh_map=refresh_map, shift_maps=shift_maps,
             target_planes=target_planes, field=field,
             incremental_map=incremental_map)
         return state.replace(true_pose=torch.cat([true2, true_z[:, None]],
                                                  -1)), gm
+
+
+@graphed
+def _drive(step, true_pose, world: world3d.World3D, sim, ekf_cfg):
+    """The drive command and the true motion on the terrain: (cmd (B, 3),
+    true pose (B, 3), true sensor z (B,), true roll, pitch (B,))."""
+    cmd = ekf_mod.clamp_cmd(world2d.drive_cmd(step, sim.dt), ekf_cfg)
+    true2 = world2d.unicycle_step(true_pose[:, :3], cmd, sim.dt)
+    true_z = world3d.terrain_height(world, true2[:, :2]) + sim.sensor_height
+    roll, pitch = world3d.terrain_attitude(world, true2[:, :2])
+    return cmd, true2, true_z, roll, pitch
+
+
+@graphed
+def _imu(cmd, roll, pitch, noise, sim):
+    """The IMU's measured roll, pitch and yaw rate, standard normal
+    `noise` (B, 3) scaled by sim.gyro_noise (zeros: none)."""
+    imu = sim.gyro_noise * noise
+    return (roll + imu[:, 0], pitch + imu[:, 1] + sim.imu_pitch_bias,
+            cmd[:, 2] + sim.gyro_bias + imu[:, 2])
 
 
 def rollout_3d(state, world: world3d.World3D, ground_map: GroundMap, cfg,

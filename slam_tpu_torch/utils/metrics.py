@@ -201,6 +201,11 @@ def nan_debug(enable: bool = True) -> None:
     _nan_debug = bool(enable)
 
 
+def nan_debugging() -> bool:
+    """Whether nan_debug is on."""
+    return _nan_debug
+
+
 def _float_fields(tree, path: str):
     """(path, tensor) of every float tensor in a state tree of dataclasses
     and tuples. The metrics ring is skipped: its unwritten rows are NaN by

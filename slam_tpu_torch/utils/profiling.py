@@ -14,7 +14,9 @@ The port's spans and counters, in one place:
     `counters()` returns a snapshot, `reset_counters()` zeroes every
     counter. A kernel adds its own counts on the card into
     `device_counter(name, device)`, an int64 that only `counters()` reads
-    to the host (that read waits for the card), never a tick.
+    to the host (that read waits for the card), never a tick. Inside
+    `uncounted()` (a CUDA graph's capture, utils/graphed.py) every count
+    raises: a replay would never make it.
   - `attribute(trace)`: a chrome trace reduced over the program's spans:
     device microseconds and idle gaps by the innermost span open at each
     kernel's launch or gap, and each span's host time and self time.
@@ -65,6 +67,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _NULL = contextlib.nullcontext()
 _counts: collections.Counter = collections.Counter()
 _device: dict = {}
+_refused = False
 
 
 def recording() -> bool:
@@ -82,7 +85,27 @@ def stage(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the host counter `name`."""
+    if _refused:
+        _refuse(name)
     _counts[name] += n
+
+
+def _refuse(name: str):
+    raise RuntimeError(f"counter {name!r} counted inside a CUDA graph's "
+                       "capture: a replay would never count it")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Refuse counts inside (a CUDA graph's capture, utils/graphed.py: a
+    replay runs no Python, so a count made there would be made once and
+    never again): `count` and `recorded_counter` raise RuntimeError."""
+    global _refused
+    was, _refused = _refused, True
+    try:
+        yield
+    finally:
+        _refused = was
 
 
 def count_of(name: str) -> int:
@@ -107,6 +130,8 @@ def recorded_counter(name: str, problems: str, n: int, device):
     `problems` counting the call's n problems; None (the kernel counts
     nothing) otherwise. The device counter is made at the first call, so
     that no fill of it lands in a profiled slice."""
+    if _refused:
+        _refuse(name)
     ctr = device_counter(name, device)
     if not recording():
         return None
